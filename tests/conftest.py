@@ -21,6 +21,10 @@ def pytest_configure(config):
         "markers",
         "tpu: compiled-on-TPU checks (skipped when no TPU is attached)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: checks of the port's CUDA kernels (skipped without a GPU)",
+    )
 
 
 @pytest.fixture(scope="session")
