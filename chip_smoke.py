@@ -5,29 +5,51 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. environment: torch/CUDA versions, the card's name and power limit,
-   and the builds (CUDA kernel library, native host library) with their
-   seconds;
-2. kernel against plain: for every gap bucket (Q, T, G) of
-   LordfastConfig().gap_buckets, G ragged random gaps (NW and SHW, with
-   the word-boundary, negative-end and length-1 cases) through the CUDA
-   kernel ``myers_dist`` and its plain PyTorch version, on the card and
-   on the CPU; dist/end must be equal exactly; per-bucket times;
+1. environment: torch/CUDA versions, the card's name, power limit and
+   maximum SM clock, and the builds (the two CUDA kernel libraries,
+   one nvcc each, started together, with ptxas's register and stack
+   lines; the native host library) with their seconds;
+2. kernels against plain, each with its time (CUDA events: kernel mean
+   of 5 launches, one plain PyTorch pass on the card) and its bound:
+   - ``myers_dist``: for every gap bucket (Q, T, G) of
+     LordfastConfig().gap_buckets, G ragged random gaps (NW and SHW,
+     with the word-boundary, negative-end and length-1 cases) through the
+     kernel and the plain version on the card and on the CPU; dist/end
+     and the last column's words equal exactly;
+   - ``myers_moves``: the same gaps; dist, end, lead and colcode equal
+     exactly on the card and on the CPU, the decoded move arrays equal,
+     and dist/end equal to ``myers_dist``'s;
+   - ``affine_extend``: for every affine bucket (Qe, Te, G) of
+     LordfastConfig().affine_buckets, G problems mixing the clip and
+     split parameter sets, related pairs with indels, junk pairs, z-drop
+     cases and qlen at Qe; all six outputs equal exactly;
 3. golden: MappingEngine(device="cuda") on tests/data (the golden test's
-   config); the SAM must equal tests/data/golden.sam byte for byte, and
-   the kernel launch count must equal the gap sub-batches dispatched;
-4. scale: the repo's v1 bench dataset (bench.gen_dataset(easy=True): a
-   28 Mbp genome, 512 PacBio-CLR-like reads of 2-20 kb at ~12% error),
-   indexed at the default config and mapped on the card twice (the
-   first pass is the one whose kernel launches are counted; the second
-   gives the warm rate and must repeat the SAM); reads/s, stage timers
-   and peak device memory; at least 95% of the reads must map;
-   the first 32 reads mapped again on the CPU must give the same SAM.
+   config, the escalation offload on by default); the SAM must equal
+   tests/data/golden.sam byte for byte, the offload must have fired, and
+   each kernel's launches must equal the sub-batches its stage counted;
+   then 40 segments of the golden reference, most at edlib's Hirschberg
+   size, aligned by the offload's phase-C path on the card (Hirschberg
+   splits from myers_dist's last column, myers_moves on the pieces) give
+   native edlib's paths;
+4. v1: the repo's v1 bench dataset (bench.gen_dataset(easy=True): a 28
+   Mbp genome, 512 PacBio-CLR-like reads of 2-20 kb at ~12% error),
+   indexed at the default config and mapped on the card twice with the
+   offload on and once with it off, in one call; the three SAMs equal;
+   at least 95% of the reads mapped; the first 32 reads mapped again on
+   the CPU give the same SAM;
+5. v2: bench.gen_dataset(easy=False) — the same genome with 120 implanted
+   2 kb repeat families, plus 40 SV/clip reads and 8 junk reads — at the
+   default config: two passes with the offload on (the SAM repeats) and
+   one with it off (the same SAM); the Hirschberg split fired; the stage
+   counters equal the JAX package's on the same data; the 48 SV/junk reads mapped on the CPU
+   (plain versions, offload on) give the same records.
 
-Then a line with the kernel table (JSON), the nvidia-smi line, and last
-the contract line {"ok": true, "device": {...}}.  Exits non-zero without
-a result when no CUDA device is available.  The dataset is cached in
-.smoke_cache/ (gitignored).
+Every kernel's launch count is set to 0 just before each of phases 3-5
+and read just after; a kernel a path needs that did not launch there is
+a failure.  Then a line with the kernel table (JSON), the nvidia-smi
+line, and last the contract line {"ok": true, "device": {...}}.  Exits
+non-zero without a result when no CUDA device is available.  The
+datasets are cached in .smoke_cache/ (gitignored).
 """
 
 from __future__ import annotations
@@ -46,44 +68,104 @@ CACHE = ROOT / ".smoke_cache"
 # the golden test's config (tests/test_golden.py TEST_CFG)
 GOLDEN_CFG = dict(kmer_cache_k=8, max_seeds_per_read=1024,
                   max_chain_seeds=128, max_candidates=16)
-# Mapped-read floor of the scale phase: the JAX package's mapped count on
+# Mapped-read floor of the v1 phase: the JAX package's mapped count on
 # this dataset was not measured (that is a full-size CPU run), so the
 # floor is 95% of the reads.
 MIN_MAPPED_FRAC = 0.95
 N_SUBSET = 32
+# The JAX package's stage counters on v2 at the default config, offload
+# on (BENCH_r05.json, the v2 chunk lines: counters only), and its SAM
+# record count for the 560 reads.
+V2_EXPECTED = {"seeds": 167579, "candidates": 26520, "fine_reads": 25,
+               "chained_windows": 564, "splits": 16, "inversions": 8}
+V2_READS, V2_RECORDS = 560, 585
+
+# Bounds: the larger of bytes over the HBM
+# rate and integer operations over the card's INT32 rate, 132 SMs x 64
+# INT32 lanes x the maximum SM clock read from nvidia-smi.
+HBM_BYTES_PER_S = 3.35e12
+INT32_LANES = 132 * 64
+# integer operations per unit of work, counted from the recurrences:
+# Myers word-step (csrc/myers_*.cu word_step: 18 logic/add operations
+# plus the two hin/hout shifts); traceback column (the mask, the
+# highest-bit search in one word, two bit tests, the code and the row
+# update); ksw_extend2 band cell (the score select, M, two maxes for h,
+# the row-max test, and sub + max twice for each of E and F)
+MYERS_OPS_PER_WORD = 20
+TB_OPS_PER_COL = 12
+AFFINE_OPS_PER_CELL = 16
+KERNELS = ("myers_dist", "myers_moves", "affine_extend")
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def nvidia_smi_line() -> str:
+def smi(query: str) -> str:
     r = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return r.stdout.strip().splitlines()[0]
 
 
-def phase_env():
+def nvidia_smi_line() -> str:
+    return smi("name,power.limit")
+
+
+def _wrappers():
+    from lordfast_tpu_torch.ops import affine_cuda, gap_dp_cuda
+
+    return {"myers_dist": gap_dp_cuda.myers_dist,
+            "myers_moves": gap_dp_cuda.myers_moves,
+            "affine_extend": affine_cuda.extend_batch_cuda}
+
+
+def reset_launches():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def bound(nbytes: float, ops: float, int_rate: float):
+    """(bound_ms, bound_by): the least time for nbytes of HBM traffic and
+    ops integer operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / int_rate * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_env() -> float:
+    """Versions and builds; returns the INT32 rate in operations/s."""
     import torch
 
     from lordfast_tpu_torch import native
-    from lordfast_tpu_torch.ops import gap_dp_cuda
+    from lordfast_tpu_torch.ops import cuda_build
 
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     log(f"[env] nvidia-smi: {nvidia_smi_line()}")
+    clock_mhz = float(smi("clocks.max.sm").split()[0])
+    int_rate = INT32_LANES * clock_mhz * 1e6
+    log(f"[env] max SM clock {clock_mhz:.0f} MHz -> INT32 rate "
+        f"{int_rate / 1e12:.2f} Tops/s (132 SMs x 64 lanes)")
     t = time.time()
-    gap_dp_cuda.build()
-    log(f"[env] kernel library built in {time.time() - t:.1f} s")
-    for line in gap_dp_cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"[env] ptxas: {line.strip()}")
+    secs = cuda_build.build_all()
+    log(f"[env] kernel libraries built in {time.time() - t:.1f} s "
+        f"(one nvcc each, in parallel: "
+        + ", ".join(f"{n} {s:.1f} s" for n, s in secs.items()) + ")")
+    for name, text in cuda_build.logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "stack frame" in line:
+                log(f"[env] ptxas {name}: {line.strip()}")
     t = time.time()
     native._load()
     log(f"[env] native host library built in {time.time() - t:.1f} s")
+    return int_rate
 
 
 def make_gaps(rng, Q, T, G):
@@ -126,84 +208,292 @@ def _time_cuda(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def phase_kernel():
-    """Kernel == plain in every bucket; returns the kernel table row."""
+def _max_err(pairs) -> int:
+    """Largest absolute difference over (got, want) tensor pairs."""
+    err = 0
+    for a, b in pairs:
+        d = (a.cpu().long() - b.cpu().long()).abs()
+        err = max(err, int(d.max()) if d.numel() else 0)
+    return err
+
+
+def _word_steps(ql, tl) -> float:
+    """Myers word-steps a batch needs: the sum of tl * (bottom word + 1),
+    the columns and words each gap's DP runs."""
+    import numpy as np
+
+    return float((tl.astype(np.int64)
+                  * ((ql.astype(np.int64) - 1) // 32 + 1)).sum())
+
+
+class Tally:
+    """One kernel's totals over its buckets: times, bound (split by what
+    sets it) and the largest error."""
+
+    def __init__(self):
+        self.ms = self.plain_ms = 0.0
+        self.bound = {"bytes": 0.0, "operations": 0.0}
+        self.err = 0
+
+    def add(self, ms, plain_ms, bnd, err):
+        self.ms += ms
+        self.plain_ms += plain_ms
+        self.bound[bnd[1]] += bnd[0]
+        self.err = max(self.err, err)
+
+    def row(self, name, source, replaces, **extra):
+        by = max(self.bound, key=self.bound.get)
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, **extra, "launches": 0,
+                "max_abs_err": self.err, "ms": self.ms,
+                "plain_ms": self.plain_ms,
+                "bound_ms": sum(self.bound.values()), "bound_by": by,
+                "library_ms": None}
+
+
+def phase_kernel_gaps(int_rate):
+    """myers_dist and myers_moves against their plain versions in every
+    gap bucket; returns their two kernel-table rows."""
     import numpy as np
     import torch
 
     from lordfast_tpu_torch.config import LordfastConfig
-    from lordfast_tpu_torch.ops import gap_dp_cuda
-    from lordfast_tpu_torch.ops.gap_dp import myers_dist_plain
+    from lordfast_tpu_torch.ops import gap_dp, gap_dp_cuda
 
     rng = np.random.default_rng(20261016)
-    tot_ms = tot_plain_ms = 0.0
-    max_err = 0
-    for Q, T, G in LordfastConfig().gap_buckets:
+    dist_t, moves_t = Tally(), Tally()
+    buckets = LordfastConfig().gap_buckets
+    for Q, T, G in buckets:
         qs, ql, ts, tl, shw = make_gaps(rng, Q, T, G)
         cpu = [torch.from_numpy(a) for a in (qs, ql, ts, tl, shw)]
         gpu = [a.cuda() for a in cpu]
+        steps = _word_steps(ql, tl)
+        in_bytes = qs.nbytes + ts.nbytes + ql.nbytes + tl.nbytes + shw.nbytes
+
+        # ---- distance only, and with the last column ----
         d_k, e_k = gap_dp_cuda.myers_dist(*gpu, Q, T)
-        d_p, e_p = myers_dist_plain(*gpu, Q, T)
-        d_c, e_c = myers_dist_plain(*cpu, Q, T)
+        got = gap_dp_cuda.myers_dist(*gpu, Q, T, want_col=True)
+        on_card = gap_dp.myers_dist_plain(*gpu, Q, T, want_col=True)
+        on_cpu = gap_dp.myers_dist_plain(*cpu, Q, T, want_col=True)
         torch.cuda.synchronize()
-        d_k, e_k = d_k.cpu(), e_k.cpu()
-        err = max(int((d_k - d_p.cpu()).abs().max()),
-                  int((e_k - e_p.cpu()).abs().max()),
-                  int((d_k - d_c).abs().max()),
-                  int((e_k - e_c).abs().max()))
-        max_err = max(max_err, err)
+        err = _max_err(list(zip(got, on_card)) + list(zip(got, on_cpu))
+                       + [(d_k, got[0]), (e_k, got[1])])
         if err:
-            raise AssertionError(f"bucket ({Q},{T},{G}): kernel != plain "
-                                 f"(max abs err {err})")
+            raise AssertionError(f"myers_dist ({Q},{T},{G}): kernel != "
+                                 f"plain (max abs err {err})")
         ms = _time_cuda(lambda: gap_dp_cuda.myers_dist(*gpu, Q, T), 5)
-        plain_ms = _time_cuda(lambda: myers_dist_plain(*gpu, Q, T), 1)
-        cells = float((ql.astype(np.int64) * tl).sum())
-        tot_ms += ms
-        tot_plain_ms += plain_ms
-        log(f"[kernel] bucket Q={Q} T={T} G={G}: exact | kernel "
-            f"{ms:.3f} ms ({cells / ms / 1e6:.2f} Gcell/s) | plain "
-            f"{plain_ms:.1f} ms ({cells / plain_ms / 1e6:.3f} Gcell/s)")
-    log(f"[kernel] all {len(LordfastConfig().gap_buckets)} buckets exact; "
-        f"one launch each at full G: kernel {tot_ms:.3f} ms, plain "
-        f"{tot_plain_ms:.1f} ms")
-    return {"name": "myers_dist", "route": "cuda",
-            "source": "lordfast_tpu_torch/csrc/myers_dist.cu",
-            "replaces": "lordfast_tpu/ops/gap_dp_pallas.py:84",
-            "also_replaces": "lordfast_tpu/ops/gap_dp_pallas.py:290",
-            "launches": 0, "max_abs_err": max_err,
-            "ms": tot_ms, "plain_ms": tot_plain_ms}
+        plain_ms = _time_cuda(lambda: gap_dp.myers_dist_plain(*gpu, Q, T), 1)
+        b = bound(in_bytes + 8 * G, MYERS_OPS_PER_WORD * steps, int_rate)
+        dist_t.add(ms, plain_ms, b, err)
+        log(f"[kernel] myers_dist Q={Q} T={T} G={G}: exact, last column "
+            f"too | kernel "
+            f"{ms:.3f} ms ({steps / ms / 1e6:.2f} Gword-steps/s) | plain "
+            f"{plain_ms:.1f} ms | bound {b[0]:.4f} ms ({b[1]})")
+
+        # ---- with traceback ----
+        got = gap_dp_cuda.myers_moves(*gpu, Q, T)
+        on_card = gap_dp.myers_moves_plain(*gpu, Q, T)
+        on_cpu = gap_dp.myers_moves_plain(*cpu, Q, T)
+        torch.cuda.synchronize()
+        err = _max_err(list(zip(got, on_card)) + list(zip(got, on_cpu))
+                       + [(got[0], d_k), (got[1], e_k)])
+        if err:
+            raise AssertionError(f"myers_moves ({Q},{T},{G}): kernel != "
+                                 f"plain or myers_dist (max abs err {err})")
+        k_np = [x.cpu().numpy() for x in got]
+        c_np = [x.numpy() for x in on_cpu]
+        mv_k = gap_dp.decode_col_moves(k_np[3], k_np[1], k_np[2])
+        mv_c = gap_dp.decode_col_moves(c_np[3], c_np[1], c_np[2])
+        if any(not np.array_equal(x, y) for x, y in zip(mv_k, mv_c)):
+            raise AssertionError(f"myers_moves ({Q},{T},{G}): decoded "
+                                 "moves differ")
+        ms = _time_cuda(lambda: gap_dp_cuda.myers_moves(*gpu, Q, T), 5)
+        plain_ms = _time_cuda(lambda: gap_dp.myers_moves_plain(*gpu, Q, T),
+                              1)
+        tb_cols = float((k_np[1].astype(np.int64) + 1).clip(0).sum())
+        b = bound(in_bytes + 12 * G + 2 * T * G,
+                  MYERS_OPS_PER_WORD * steps + TB_OPS_PER_COL * tb_cols,
+                  int_rate)
+        moves_t.add(ms, plain_ms, b, err)
+        log(f"[kernel] myers_moves Q={Q} T={T} G={G}: exact, moves equal "
+            f"| kernel {ms:.3f} ms | plain {plain_ms:.1f} ms | bound "
+            f"{b[0]:.4f} ms ({b[1]})")
+    log(f"[kernel] all {len(buckets)} gap buckets exact; one launch each "
+        f"at full G: myers_dist {dist_t.ms:.3f} ms (plain "
+        f"{dist_t.plain_ms:.1f} ms), myers_moves {moves_t.ms:.3f} ms "
+        f"(plain {moves_t.plain_ms:.1f} ms)")
+    tiled = "lordfast_tpu/ops/gap_dp_pallas.py:290"
+    return [
+        dist_t.row("myers_dist", "lordfast_tpu_torch/csrc/myers.cu",
+                   "lordfast_tpu/ops/gap_dp_pallas.py:84",
+                   also_replaces=tiled),
+        moves_t.row("myers_moves", "lordfast_tpu_torch/csrc/myers.cu",
+                    "lordfast_tpu/ops/gap_dp_pallas.py:84",
+                    also_replaces=tiled),
+    ]
+
+
+def _mutate(rng, q, err):
+    """q with substitutions, insertions and deletions at rate err/3
+    each."""
+    import numpy as np
+
+    r = rng.random(len(q))
+    out = q.copy()
+    sub = (r >= err / 3) & (r < 2 * err / 3)
+    out[sub] = rng.integers(0, 4, int(sub.sum()))
+    ins = (r >= 2 * err / 3) & (r < err)
+    counts = np.where(r < err / 3, 0, np.where(ins, 2, 1))
+    t = np.repeat(out, counts)
+    pos = np.cumsum(counts)[ins] - 1
+    t[pos] = rng.integers(0, 4, len(pos))
+    return t if len(t) else rng.integers(0, 4, 1).astype(np.uint8)
+
+
+def make_affine(rng, Qe, Te, G):
+    """G extension problems for bucket (Qe, Te): related pairs with
+    indels (12% and 30% error), junk pairs with N codes, z-drop cases (a
+    related half then junk), qlen at and near Qe; the clip and split
+    parameter sets of the engine, h0 = qlen."""
+    import numpy as np
+
+    from lordfast_tpu_torch.ops import affine
+
+    qs = np.zeros((G, Qe), np.uint8)
+    ts = np.zeros((G, Te), np.uint8)
+    qlen = np.zeros(G, np.int32)
+    tlen = np.zeros(G, np.int32)
+    for g in range(G):
+        n = Qe - g if g < 6 else int(rng.integers(max(1, Qe // 8), Qe + 1))
+        q = rng.integers(0, 4, n).astype(np.uint8)
+        kind = g % 4
+        if kind == 0:
+            t = _mutate(rng, q, 0.12)
+        elif kind == 1:
+            t = rng.integers(0, 5, int(rng.integers(1, Te + 1)))
+        elif kind == 2:
+            t = np.concatenate([_mutate(rng, q[: n // 2], 0.1),
+                                rng.integers(0, 4, n - n // 2)])
+        else:
+            t = _mutate(rng, q, 0.3)
+        t = t[:Te].astype(np.uint8)
+        qs[g, :n], ts[g, : len(t)] = q, t
+        qlen[g], tlen[g] = n, len(t)
+    split = rng.integers(0, 2, G).astype(bool)
+    sel = lambda a, b: np.where(split, b, a).astype(np.int32)
+    od, ed_, oi, ei = sel(0, 8), sel(1, 1), sel(0, 4), sel(1, 1)
+    params = dict(qlen=qlen, tlen=tlen, o_del=od, e_del=ed_, o_ins=oi,
+                  e_ins=ei,
+                  w_eff=affine.clamp_band(qlen, 2, 0, od, ed_, oi, ei,
+                                          sel(40, 100)),
+                  zdrop=sel(40, 200), h0=qlen.copy(),
+                  match=np.full(G, 2, np.int32),
+                  mismatch=np.full(G, 16, np.int32))
+    return qs, ts, params
+
+
+def phase_kernel_affine(int_rate):
+    """affine_extend against its plain version in every affine bucket;
+    returns its kernel-table row."""
+    import numpy as np
+    import torch
+
+    from lordfast_tpu_torch.config import LordfastConfig
+    from lordfast_tpu_torch.ops import affine, affine_cuda
+
+    cfg = LordfastConfig()
+    w_max = max(cfg.clip_band, cfg.split_band)
+    BW = 128 * ((2 * w_max + 2 + 127) // 128)
+    rng = np.random.default_rng(20261017)
+    tally = Tally()
+    for Qe, Te, G in cfg.affine_buckets:
+        qs, ts, params = make_affine(rng, Qe, Te, G)
+        q_d = torch.from_numpy(qs).cuda()
+        t_d = torch.from_numpy(ts).cuda()
+        p_d = {k: torch.from_numpy(v).cuda() for k, v in params.items()}
+        got = affine.extend_batch(q_d, t_d, Qe, Te, BW, w_max, **p_d)
+        plain = []  # (ExtendResult, band cells) of the timed plain pass
+        plain_ms = _time_cuda(lambda: plain.append(affine.extend_batch_plain(
+            q_d, t_d, Qe, Te, BW, w_max, **p_d, return_cells=True)), 1)
+        want, cells = plain[0]
+        err = _max_err(zip(got, want))
+        if err:
+            raise AssertionError(f"affine_extend ({Qe},{Te},{G}): kernel != "
+                                 f"plain (max abs err {err})")
+        ms = _time_cuda(lambda: affine_cuda.extend_batch_cuda(
+            q_d, t_d, Qe, Te, **p_d), 5)
+        nbytes = qs.nbytes + ts.nbytes + 4 * G * (len(params) + 6)
+        b = bound(nbytes, AFFINE_OPS_PER_CELL * cells, int_rate)
+        tally.add(ms, plain_ms, b, err)
+        early = int((got.tle.cpu().numpy() < params["tlen"]).sum())
+        log(f"[kernel] affine_extend Qe={Qe} Te={Te} G={G}: six outputs "
+            f"exact ({early} problems end before their last row) | kernel "
+            f"{ms:.3f} ms ({cells / ms / 1e6:.3f} Gcell/s over {cells} band "
+            f"cells) | plain {plain_ms:.1f} ms | bound {b[0]:.4f} ms "
+            f"({b[1]})")
+    log(f"[kernel] all {len(cfg.affine_buckets)} affine buckets exact; one "
+        f"launch each at full G: kernel {tally.ms:.3f} ms, plain "
+        f"{tally.plain_ms:.1f} ms")
+    return tally.row("affine_extend", "lordfast_tpu_torch/csrc/affine_ext.cu",
+                     "lordfast_tpu/ops/affine_pl.py:85")
 
 
 def sam_records(text: str):
     return [line for line in text.splitlines() if not line.startswith("@")]
 
 
-def map_reads(idx, cfg, reads_path, device):
-    from lordfast_tpu_torch.pipeline.engine import MappingEngine
+def map_pass(eng, reads_path):
+    """One synchronised map_file pass with the launch counts set to 0
+    just before it and read just after: (sam, seconds, reads, mapped,
+    launches)."""
+    import torch
 
-    eng = MappingEngine(idx, cfg, device=device)
+    n0, m0 = eng.stats["reads"], eng.stats["mapped"]
     out = io.StringIO()
+    reset_launches()
+    t = time.time()
     eng.map_file(reads_path, out, "chip_smoke")
-    return eng, out.getvalue()
+    torch.cuda.synchronize()
+    dt = time.time() - t
+    return (out.getvalue(), dt, eng.stats["reads"] - n0,
+            eng.stats["mapped"] - m0, read_launches())
+
+
+def check_launches(path, launches, counters, needed):
+    """Each kernel's launches equal the sub-batches its stages counted,
+    and every kernel in ``needed`` launched."""
+    stages = {"myers_dist": ("gap_parts", "esc_split_parts"),
+              "myers_moves": ("esc_nw_parts",),
+              "affine_extend": ("esc_affine_parts",)}
+    for name, n in launches.items():
+        parts = sum(counters.get(k, 0) for k in stages[name])
+        if n != parts:
+            raise AssertionError(f"{path}: {name} launched {n} times for "
+                                 f"{parts} {' + '.join(stages[name])}")
+        if name in needed and n <= 0:
+            raise AssertionError(f"{path}: {name} never launched")
+
+
+def _stage_line(eng):
+    tm = eng.metrics.timers
+    return " ".join(f"{k} {tm[k]:.3f}" for k in (
+        "device", "gap_dp", "esc_dp", "esc_affine", "esc_wait", "stitch",
+        "emit") if k in tm)
 
 
 def phase_golden():
-    import torch
-
     from lordfast_tpu_torch.config import LordfastConfig
     from lordfast_tpu_torch.index.builder import build_index
-    from lordfast_tpu_torch.ops import gap_dp_cuda
+    from lordfast_tpu_torch.pipeline.engine import MappingEngine
 
     cfg = LordfastConfig(**GOLDEN_CFG)
     idx = build_index(DATA / "ref.fa", LordfastConfig(kmer_cache_k=8),
                       verbose=False)
-    gap_dp_cuda.myers_dist.launches = 0
-    t = time.time()
-    eng, sam = map_reads(idx, cfg, DATA / "reads.fq", "cuda")
-    torch.cuda.synchronize()
-    dt = time.time() - t
-    launches = gap_dp_cuda.myers_dist.launches
-    parts = eng.metrics.counters.get("gap_parts", 0)
+    eng = MappingEngine(idx, cfg, device="cuda")
+    if not eng._esc_device:
+        raise AssertionError("golden: the offload is not on by default")
+    sam, dt, _, _, launches = map_pass(eng, DATA / "reads.fq")
+    c = eng.metrics.counters
     ours = sam_records(sam)
     golden = sam_records((DATA / "golden.sam").read_text())
     if len(ours) != len(golden):
@@ -213,99 +503,235 @@ def phase_golden():
         if a != b:
             raise AssertionError(f"golden line {i} differs:\nG: {a[:200]}\n"
                                  f"O: {b[:200]}")
-    if launches <= 0 or launches != parts:
-        raise AssertionError(f"golden: {launches} kernel launches for "
-                             f"{parts} gap sub-batches")
+    if c.get("esc_sites", 0) <= 0:
+        raise AssertionError("golden: the escalation offload never fired")
+    check_launches("golden", launches, c, KERNELS)
     log(f"[golden] {len(ours)} SAM records byte-equal to golden.sam on "
-        f"cuda in {dt:.2f} s; myers_dist launches {launches} == gap "
-        f"sub-batches {parts}")
+        f"cuda, offload on, in {dt:.2f} s; esc_sites {c['esc_sites']}; "
+        f"launches {launches} == sub-batches (gap_parts "
+        f"{c['gap_parts']}, esc_nw_parts {c['esc_nw_parts']}, "
+        f"esc_affine_parts {c['esc_affine_parts']})")
+    check_split_paths(eng, idx)
+    return launches
 
 
-def _v1_dataset():
-    """The bench's v1 dataset, generated into .smoke_cache/ once."""
+def check_split_paths(eng, idx, n=40):
+    """Phase C's device paths at edlib's Hirschberg size
+    (engine._run_nw_paths: myers_dist's last column, the split,
+    myers_moves on the pieces) against the host stitcher's nw_align
+    (native edlib) on n segments of the golden reference: junk, related,
+    half-related and twice-mutated queries, both strands."""
+    import numpy as np
+    import torch
+
+    from lordfast_tpu_torch.align import edlib_eq as ted
+    from lordfast_tpu_torch.utils.pack import revcomp_codes
+
+    rng = np.random.default_rng(20261018)
+    qs, items, want = [], [], []
+    for i in range(n):
+        tn = int(rng.integers(1200, 4300))
+        t0 = int(rng.integers(0, idx.l_pac - tn))
+        t = idx.get_ref_codes(t0, tn)
+        q = [lambda: rng.integers(0, 4, int(rng.integers(700, 4000))),
+             lambda: _mutate(rng, t, 0.15),
+             lambda: np.concatenate([_mutate(rng, t[: tn // 2], 0.15),
+                                     rng.integers(0, 4, tn // 3)]),
+             lambda: _mutate(rng, _mutate(rng, t, 0.15), 0.15),
+             ][i % 4]()[:4096].astype(np.uint8)
+        qrc, trc = bool(rng.integers(0, 2)), bool(rng.integers(0, 2))
+        qs.append(q)
+        items.append(((0, i, eng.ESC_NW_A),
+                      (i, 0, len(q), qrc, t0, tn, trc, False)))
+        want.append(ted.nw_path(revcomp_codes(q) if qrc else q,
+                                revcomp_codes(t) if trc else t))
+    reads = np.full((n, max(map(len, qs))), 4, np.uint8)
+    for i, q in enumerate(qs):
+        reads[i, : len(q)] = q
+    eng.metrics.reset()
+    t = time.time()
+    got = eng._run_nw_paths(items, torch.from_numpy(reads).cuda())
+    dt = time.time() - t
+    for (key, d), (dist, mv) in zip(items, want):
+        g = got[key]
+        if g[0] != dist or not np.array_equal(g[2], mv):
+            raise AssertionError(f"split paths: segment {key[1]} "
+                                 f"({d[2]} x {d[5]}) differs from edlib")
+    c = eng.metrics.counters
+    n_big = sum(eng._edlib_splits(d[2], d[5]) for _, d in items)
+    if c.get("esc_splits", 0) < n_big or n_big == 0:
+        raise AssertionError(f"split paths: {c.get('esc_splits', 0)} "
+                             f"splits for {n_big} Hirschberg-size segments")
+    log(f"[golden] split paths: {n} segments ({n_big} at edlib's Hirschberg "
+        f"size, {c['esc_splits']} splits) equal edlib's paths, in "
+        f"{dt:.3f} s on cuda ({c['esc_split_parts']} myers_dist column "
+        f"launches, {c['esc_nw_parts']} myers_moves launches)")
+
+
+def _dataset(easy: bool):
+    """The bench's v1 (easy) or v2 dataset, generated into .smoke_cache/
+    once."""
     import bench
 
     CACHE.mkdir(exist_ok=True)
-    ref, reads = CACHE / "v1_bench_ref.fa", CACHE / "v1_bench_reads.fq"
+    pre = "v1_" if easy else ""
+    ref, reads = CACHE / f"{pre}bench_ref.fa", CACHE / f"{pre}bench_reads.fq"
     if not (ref.exists() and reads.exists()):
         t = time.time()
-        bench.gen_dataset(CACHE, easy=True)
-        log(f"[scale] generated the v1 dataset in {time.time() - t:.1f} s")
+        bench.gen_dataset(CACHE, easy=easy)
+        log(f"[{'v1' if easy else 'v2'}] generated the dataset in "
+            f"{time.time() - t:.1f} s")
     return ref, reads
 
 
-def _first_reads(src: Path, dst: Path, n: int):
+def _subset(src: Path, dst: Path, keep):
+    """Write the reads of src whose names pass keep(name) to dst; returns
+    their names."""
     lines = src.read_text().splitlines(keepends=True)
-    dst.write_text("".join(lines[: 4 * n]))
-    return [lines[4 * i][1:].split()[0] for i in range(n)]
+    names, out = [], []
+    for i in range(0, len(lines), 4):
+        name = lines[i][1:].split()[0]
+        if keep(name, i // 4):
+            names.append(name)
+            out.extend(lines[i : i + 4])
+    dst.write_text("".join(out))
+    return set(names)
 
 
-def phase_scale():
-    """Map the v1 dataset on the card; returns the kernel launch count of
-    that run."""
-    import torch
-
+def _index(ref, tag):
     from lordfast_tpu_torch.config import LordfastConfig
     from lordfast_tpu_torch.index.builder import build_index
-    from lordfast_tpu_torch.ops import gap_dp_cuda
 
-    ref, reads = _v1_dataset()
-    cfg = LordfastConfig()
     t = time.time()
-    idx = build_index(ref, cfg, verbose=False)
-    log(f"[scale] index built in {time.time() - t:.1f} s (l_pac "
+    idx = build_index(ref, LordfastConfig(), verbose=False)
+    log(f"[{tag}] index built in {time.time() - t:.1f} s (l_pac "
         f"{idx.l_pac}, sa_intv {idx.sa_intv}, kcache k={idx.kcache_k})")
+    return idx
+
+
+def _cpu_subset(idx, sam, reads, dst, keep, tag, **kw):
+    """The reads keep() selects, mapped on the CPU, against the cuda
+    records of the same reads."""
+    from lordfast_tpu_torch.config import LordfastConfig
     from lordfast_tpu_torch.pipeline.engine import MappingEngine
 
-    torch.cuda.reset_peak_memory_stats()
-    t = time.time()
-    eng = MappingEngine(idx, cfg, device="cuda")
-    log(f"[scale] engine set up (index arrays on the card) in "
-        f"{time.time() - t:.2f} s")
-    passes = []
-    for label in ("first", "second"):
-        gap_dp_cuda.myers_dist.launches = 0
-        n0, m0 = eng.stats["reads"], eng.stats["mapped"]
-        t = time.time()
-        out = io.StringIO()
-        eng.map_file(reads, out, "chip_smoke")
-        torch.cuda.synchronize()
-        dt = time.time() - t
-        n_reads, n_mapped = eng.stats["reads"] - n0, eng.stats["mapped"] - m0
-        passes.append((out.getvalue(), gap_dp_cuda.myers_dist.launches,
-                       eng.metrics.counters.get("gap_parts", 0)))
-        tm = eng.metrics.timers
-        log(f"[scale] {label} pass: {n_reads} reads in {dt:.3f} s -> "
-            f"{n_reads / dt:.2f} reads/s | device {tm['device']:.3f} s "
-            f"gap_dp {tm['gap_dp']:.3f} s stitch {tm['stitch']:.3f} s emit "
-            f"{tm['emit']:.3f} s | myers_dist launches {passes[-1][1]}")
-    sam, launches, parts = passes[0]
-    log(f"[scale] {n_mapped} of {n_reads} reads mapped; peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    log("[scale] metrics " + eng.metrics.to_json())
-    if passes[1][0] != sam:
-        raise AssertionError("scale: the two passes gave different SAM")
-    if launches <= 0 or launches != parts:
-        raise AssertionError(f"scale: {launches} kernel launches for "
-                             f"{parts} gap sub-batches")
-    if n_mapped < MIN_MAPPED_FRAC * n_reads:
-        raise AssertionError(f"scale: only {n_mapped} of {n_reads} mapped")
-
-    sub = CACHE / "v1_first32.fq"
-    names = set(_first_reads(reads, sub, N_SUBSET))
+    names = _subset(reads, dst, keep)
     cuda_sub = [r for r in sam_records(sam) if r.split("\t")[0] in names]
     t = time.time()
-    _, sam_cpu = map_reads(idx, cfg, sub, "cpu")
-    cpu_sub = sam_records(sam_cpu)
+    eng = MappingEngine(idx, LordfastConfig(), device="cpu", **kw)
+    out = io.StringIO()
+    eng.map_file(dst, out, "chip_smoke")
+    cpu_sub = sam_records(out.getvalue())
     if cpu_sub != cuda_sub:
         bad = next(i for i, (a, b) in enumerate(zip(cuda_sub, cpu_sub))
                    if a != b) if len(cpu_sub) == len(cuda_sub) else -1
-        raise AssertionError(f"scale: the first {N_SUBSET} reads differ "
-                             f"between cpu and cuda (record {bad}; "
-                             f"{len(cpu_sub)} vs {len(cuda_sub)} records)")
-    log(f"[scale] first {N_SUBSET} reads: {len(cpu_sub)} SAM records "
-        f"byte-equal between cuda and cpu (cpu run {time.time() - t:.1f} s)")
-    return launches
+        raise AssertionError(f"{tag}: {len(names)} reads differ between cpu "
+                             f"and cuda (record {bad}; {len(cpu_sub)} vs "
+                             f"{len(cuda_sub)} records)")
+    log(f"[{tag}] {len(names)} reads: {len(cpu_sub)} SAM records "
+        f"byte-equal between cuda and cpu (cpu run {time.time() - t:.1f} s, "
+        f"esc_sites {eng.metrics.counters.get('esc_sites', 0)})")
+
+
+def _report(tag, label, eng, res):
+    sam, dt, n, m, launches = res
+    log(f"[{tag}] {label}: {n} reads in {dt:.3f} s -> {n / dt:.2f} reads/s "
+        f"| {m} mapped | {_stage_line(eng)} | launches {launches}")
+
+
+def phase_v1():
+    """v1 with the offload on (two passes) and off (one), on the card;
+    returns the first pass's launch counts."""
+    import torch
+
+    from lordfast_tpu_torch.config import LordfastConfig
+    from lordfast_tpu_torch.pipeline.engine import MappingEngine
+
+    ref, reads = _dataset(easy=True)
+    idx = _index(ref, "v1")
+    cfg = LordfastConfig()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    eng = MappingEngine(idx, cfg, device="cuda")
+    log(f"[v1] engine set up (index arrays on the card) in "
+        f"{time.time() - t:.2f} s")
+    runs = []
+    for label in ("first pass, offload on", "second pass, offload on"):
+        runs.append(map_pass(eng, reads))
+        _report("v1", label, eng, runs[-1])
+        if label.startswith("first"):
+            check_launches("v1", runs[-1][4], eng.metrics.counters,
+                           ("myers_dist",))
+    log(f"[v1] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; metrics "
+        f"{eng.metrics.to_json()}")
+    eng_off = MappingEngine(idx, cfg, device="cuda", esc_device=False)
+    runs.append(map_pass(eng_off, reads))
+    _report("v1", "pass, offload off (warm process)", eng_off, runs[-1])
+    sam, _, n_reads, n_mapped, _ = runs[0]
+    if any(r[0] != sam for r in runs[1:]):
+        raise AssertionError("v1: the passes gave different SAM")
+    if n_mapped < MIN_MAPPED_FRAC * n_reads:
+        raise AssertionError(f"v1: only {n_mapped} of {n_reads} mapped")
+    log(f"[v1] {n_mapped} of {n_reads} reads mapped; the SAM of both "
+        f"offload-on passes equals the offload-off pass's")
+    _cpu_subset(idx, sam, reads, CACHE / "v1_first32.fq",
+                lambda name, i: i < N_SUBSET, "v1")
+    return runs[0][4]
+
+
+def phase_v2():
+    """v2 with the offload on (two passes) and off (one); the JAX
+    package's counters; the SV/junk reads on the CPU.  Returns the first
+    pass's launch counts."""
+    import torch
+
+    from lordfast_tpu_torch.config import LordfastConfig
+    from lordfast_tpu_torch.pipeline.engine import MappingEngine
+
+    ref, reads = _dataset(easy=False)
+    idx = _index(ref, "v2")
+    cfg = LordfastConfig()
+    torch.cuda.reset_peak_memory_stats()
+    eng = MappingEngine(idx, cfg, device="cuda")
+    runs = []
+    for label in ("first pass, offload on", "second pass, offload on"):
+        runs.append(map_pass(eng, reads))
+        c = eng.metrics.counters
+        _report("v2", label, eng, runs[-1])
+        log(f"[v2] counters: " + " ".join(
+            f"{k} {c.get(k, 0)}" for k in (*V2_EXPECTED, "esc_sites",
+                                           "esc_host", "esc_splits",
+                                           "gaps_host")))
+        if label.startswith("first"):
+            check_launches("v2", runs[-1][4], c, KERNELS)
+            if c.get("esc_splits", 0) <= 0:
+                raise AssertionError("v2: no Hirschberg split on the card")
+            got = {k: c.get(k, 0) for k in V2_EXPECTED}
+            if got != V2_EXPECTED:
+                raise AssertionError(f"v2: counters {got} != the JAX "
+                                     f"package's {V2_EXPECTED}")
+    log(f"[v2] peak device memory, offload on: "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; metrics "
+        f"{eng.metrics.to_json()}")
+    eng_off = MappingEngine(idx, cfg, device="cuda", esc_device=False)
+    runs.append(map_pass(eng_off, reads))
+    _report("v2", "pass, offload off", eng_off, runs[-1])
+    sam, _, n_reads, _, _ = runs[0]
+    n_rec = len(sam_records(sam))
+    if (n_reads, n_rec) != (V2_READS, V2_RECORDS):
+        raise AssertionError(f"v2: {n_rec} SAM records for {n_reads} reads, "
+                             f"expected {V2_RECORDS} for {V2_READS}")
+    if runs[1][0] != sam:
+        raise AssertionError("v2: the two offload-on passes differ")
+    if runs[2][0] != sam:
+        raise AssertionError("v2: offload on and off give different SAM")
+    log(f"[v2] {n_rec} SAM records for {n_reads} reads; both offload-on "
+        f"passes and the offload-off pass byte-equal")
+    _cpu_subset(idx, sam, reads, CACHE / "v2_sv_junk.fq",
+                lambda name, i: name.startswith(("sv", "junk")), "v2",
+                esc_device=True)
+    return runs[0][4]
 
 
 def main() -> int:
@@ -316,11 +742,17 @@ def main() -> int:
               "needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    phase_env()
-    row = phase_kernel()
-    phase_golden()
-    row["launches"] = phase_scale()
-    print(json.dumps({"kernels": [row]}))
+    t0 = time.time()
+    int_rate = phase_env()
+    rows = phase_kernel_gaps(int_rate) + [phase_kernel_affine(int_rate)]
+    by_path = {"golden": phase_golden(), "v1": phase_v1(),
+               "v2": phase_v2()}
+    for row in rows:
+        row["launches"] = by_path["v2"][row["name"]]
+        row["launches_by_path"] = {p: n[row["name"]]
+                                   for p, n in by_path.items()}
+    log(f"[smoke] all phases passed in {time.time() - t0:.1f} s")
+    print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

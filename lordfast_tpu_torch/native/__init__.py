@@ -1,11 +1,11 @@
 """ctypes bindings for the native (C++) host components.
 
-The C++ sources are the JAX package's (``lordfast_tpu/native/*.cpp``,
-read by path: that package is never imported).  They are compiled with
-g++ into this package's build directory (``lordfast_tpu_torch/_build``)
-at first use.  Unlike the JAX loader there is no numpy fallback: a
-failed build or load raises, so a run never drops silently to the slow
-host paths.
+The C++ sources in ``csrc/`` are copies of the JAX package's
+``lordfast_tpu/native/*.cpp`` (tests/test_torch_import.py holds them
+byte-equal to their originals).  They are compiled with g++ into this
+package's build directory (``lordfast_tpu_torch/_build``) at first use.
+Unlike the JAX loader there is no numpy fallback: a failed build or load
+raises, so a run never drops silently to the slow host paths.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from pathlib import Path
 import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
-SRC_DIR = _PKG.parent / "lordfast_tpu" / "native"
+SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = _PKG / "_build"
 _LIB_PATH = BUILD_DIR / "liblordfast_native.so"
 _SRCS = ("sais.cpp", "align_eq.cpp", "stitch.cpp", "edlib_path.cpp")

@@ -1,0 +1,97 @@
+"""Builds the port's CUDA sources (``lordfast_tpu_torch/csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for sm_90a into a shared library
+with a plain C interface in ``lordfast_tpu_torch/_build`` at first use
+(a few seconds each), and loaded with ctypes; a library is rebuilt when
+its source is newer.  ``build_all`` starts one nvcc per source at once.
+A failed build raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+from ..native import BUILD_DIR
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# the port's kernel sources, by library name (csrc/<name>.cu)
+SOURCES = ("myers", "affine_ext")
+
+logs: dict = {}   # name -> nvcc/ptxas output of its last build
+_libs: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and Path(cand).exists():
+            return cand
+    raise RuntimeError("nvcc not found: set NVCC or put it on PATH")
+
+
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib, src = lib_path(name), CSRC_DIR / f"{name}.cu"
+    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+
+
+def build_all(names=SOURCES) -> dict:
+    """Compile every stale library of ``names`` with one nvcc process
+    each, all started together; returns {name: seconds} of the builds
+    that ran."""
+    todo = [n for n in names if _stale(n)]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.time()
+    procs = {}
+    for n in todo:
+        tmp = lib_path(n).with_suffix(f".{os.getpid()}.tmp")
+        procs[n] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    secs, failed = {}, []
+    for n, (tmp, proc) in procs.items():
+        logs[n] = proc.communicate()[0]
+        secs[n] = time.time() - t0
+        if proc.returncode != 0:
+            failed.append(n)
+        else:
+            os.replace(tmp, lib_path(n))
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(
+            f"{n}.cu:\n{logs[n]}" for n in failed))
+    return secs
+
+
+def load(name: str):
+    """The ctypes library of csrc/<name>.cu, built if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all((name,))
+        lib = _libs[name] = ctypes.CDLL(str(lib_path(name)))
+    return lib
+
+
+def check_tensor(name, x, dtype, shape, device):
+    """Raise unless x has the dtype, shape and device a kernel takes and
+    is contiguous."""
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
+    if x.device != device:
+        raise ValueError(f"{name}: on {x.device}, expected {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")

@@ -1,100 +1,74 @@
-"""The hand-written CUDA Myers distance kernel and its wrapper.
+"""The hand-written CUDA Myers kernels and their wrappers.
 
 ``myers_dist`` computes the batched NW/SHW Myers edit distance and
-alignment end of every gap of a bucket (the main path's gap DP).  On a
-CUDA tensor it launches ``csrc/myers_dist.cu`` — one thread per gap,
-built for sm_90a — and raises if the launch fails; on a CPU tensor it
-runs the plain PyTorch version ``gap_dp.myers_dist_plain``.  There is no
-fallback from the first to the second.
+alignment end of every gap of a bucket (the main path's gap DP), and on
+request the scores of the last column (the escalation offload's
+Hirschberg splits); ``myers_moves`` also returns the path, as the Pallas
+kernel's ``lead`` and per-column codes (the escalation offload's
+secondary segments).  On a CUDA tensor each launches its mode of the one
+fill in ``csrc/myers.cu`` — one thread per gap, built for sm_90a — and
+raises if the launch fails; on a CPU tensor it runs the plain PyTorch
+version (``gap_dp.myers_dist_plain`` / ``gap_dp.myers_moves_plain``).
+There is no fallback from the first to the second.
 
-The kernel replaces, in distance-only mode, the Pallas kernels
+Both replace the Pallas kernels
 ``lordfast_tpu/ops/gap_dp_pallas.py`` ``_make_kernel`` (:84) and
-``_make_kernel_tiled`` (:290); see the source for its design and what
-bounds it.
-
-Build: ``nvcc`` compiles the source into a shared library with a plain C
-interface in ``lordfast_tpu_torch/_build`` at first use (a few seconds),
-loaded with ctypes; the library is rebuilt when the source is newer.
+``_make_kernel_tiled`` (:290); see the sources for their design and what
+bounds them.  Build: ``cuda_build`` (nvcc at first use, ctypes).
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-from ..native import BUILD_DIR
-from .gap_dp import myers_dist_plain
+from . import cuda_build
+from .cuda_build import check_tensor
+from .gap_dp import myers_dist_plain, myers_moves_plain
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc" / "myers_dist.cu"
-LIB_PATH = BUILD_DIR / "libmyers_dist.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# query words per gap (Q / 32) the kernel is instantiated for: every
+# query words per gap (Q / 32) the kernels are instantiated for: every
 # bucket of LordfastConfig.gap_buckets
 SUPPORTED_W = (1, 2, 4, 8, 16, 64, 128)
 
-_lib = None
-build_log = ""  # nvcc/ptxas output of the last build (registers, spills)
 
-
-def _nvcc() -> str:
-    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
-                 "/usr/local/cuda/bin/nvcc"):
-        if cand and Path(cand).exists():
-            return cand
-    raise RuntimeError("nvcc not found: set NVCC or put it on PATH")
-
-
-def build() -> Path:
-    """Compile the kernel library if it is missing or older than its
-    source; returns its path.  Raises with the compiler's output on
-    failure."""
-    global build_log
-    if LIB_PATH.exists() and \
-            LIB_PATH.stat().st_mtime >= CSRC.stat().st_mtime:
-        return LIB_PATH
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC)],
-                       capture_output=True, text=True)
-    build_log = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {CSRC.name}:\n{build_log}")
-    os.replace(tmp, LIB_PATH)
-    return LIB_PATH
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+def _bind(fn: str, n_ptr: int):
+    lib = cuda_build.load("myers")
+    f = getattr(lib, fn)
+    if f.argtypes is None:
         vp = ctypes.c_void_p
-        lib.lf_myers_dist.restype = ctypes.c_int
-        lib.lf_myers_dist.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                      ctypes.c_int, ctypes.c_int,
-                                      ctypes.c_int, vp]
-        _lib = lib
-    return _lib
+        f.restype = ctypes.c_int
+        f.argtypes = [vp] * n_ptr + [ctypes.c_int] * 3 + [vp]
+    return f
 
 
-def _check(name, x, dtype, shape, device):
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
-    if x.device != device:
-        raise ValueError(f"{name}: on {x.device}, expected {device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
+def _check_gaps(fname, qs, ql, ts, tl, is_shw, Q, T):
+    if qs.device.type != "cuda":
+        raise ValueError(f"{fname}: unsupported device {qs.device}")
+    if Q % 32 or Q // 32 not in SUPPORTED_W:
+        raise ValueError(f"{fname}: Q={Q} not supported")
+    G = qs.shape[0]
+    dev = qs.device
+    check_tensor("qs", qs, torch.uint8, (G, Q), dev)
+    check_tensor("ql", ql, torch.int32, (G,), dev)
+    check_tensor("ts", ts, torch.uint8, (G, T), dev)
+    check_tensor("tl", tl, torch.int32, (G,), dev)
+    check_tensor("is_shw", is_shw, torch.bool, (G,), dev)
+    return G, dev
 
 
-def myers_dist(qs, ql, ts, tl, is_shw, Q: int, T: int):
-    """Batched NW/SHW Myers distance: (dist, end), each (G,) int32.
+def _launch(fname, f, args, dev):
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = f(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fname}: kernel launch failed (cudaError {rc})")
+
+
+def myers_dist(qs, ql, ts, tl, is_shw, Q: int, T: int,
+               want_col: bool = False):
+    """Batched NW/SHW Myers distance: (dist, end), each (G,) int32, and
+    with ``want_col`` the last column's words ``col`` (2, Q/32, G) int32.
 
     qs (G, Q) uint8, ql (G,) int32, ts (G, T) uint8, tl (G,) int32,
     is_shw (G,) bool, with 1 <= ql <= Q and 1 <= tl <= T (see
@@ -102,34 +76,52 @@ def myers_dist(qs, ql, ts, tl, is_shw, Q: int, T: int):
     kernel on the current stream (counted in ``myers_dist.launches``);
     CPU tensors run the plain version."""
     if qs.device.type == "cpu":
-        return myers_dist_plain(qs, ql, ts, tl, is_shw, Q, T)
-    if qs.device.type != "cuda":
-        raise ValueError(f"myers_dist: unsupported device {qs.device}")
-    if Q % 32 or Q // 32 not in SUPPORTED_W:
-        raise ValueError(f"myers_dist: Q={Q} not supported")
-    G = qs.shape[0]
-    dev = qs.device
-    _check("qs", qs, torch.uint8, (G, Q), dev)
-    _check("ql", ql, torch.int32, (G,), dev)
-    _check("ts", ts, torch.uint8, (G, T), dev)
-    _check("tl", tl, torch.int32, (G,), dev)
-    _check("is_shw", is_shw, torch.bool, (G,), dev)
+        return myers_dist_plain(qs, ql, ts, tl, is_shw, Q, T, want_col)
+    G, dev = _check_gaps("myers_dist", qs, ql, ts, tl, is_shw, Q, T)
     dist = torch.empty(G, dtype=torch.int32, device=dev)
     end = torch.empty(G, dtype=torch.int32, device=dev)
+    col = (torch.empty((2, Q // 32, G), dtype=torch.int32, device=dev)
+           if want_col else None)
+    out = (dist, end, col) if want_col else (dist, end)
     if G == 0:
-        return dist, end
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.lf_myers_dist(qs.data_ptr(), ql.data_ptr(), ts.data_ptr(),
-                               tl.data_ptr(), is_shw.data_ptr(),
-                               dist.data_ptr(), end.data_ptr(), G, Q, T,
-                               stream)
-    if rc != 0:
-        raise RuntimeError(f"myers_dist: kernel launch failed "
-                           f"(cudaError {rc})")
+        return out
+    f = _bind("lf_myers_dist", 8)
+    _launch("myers_dist", f,
+            (qs.data_ptr(), ql.data_ptr(), ts.data_ptr(), tl.data_ptr(),
+             is_shw.data_ptr(), dist.data_ptr(), end.data_ptr(),
+             col.data_ptr() if want_col else None, G, Q, T), dev)
     myers_dist.launches += 1
-    return dist, end
+    return out
+
+
+def myers_moves(qs, ql, ts, tl, is_shw, Q: int, T: int):
+    """Batched NW/SHW Myers alignment with path: (dist, end, lead,
+    colcode) — dist/end/lead (G,) int32, colcode (T, G) int16 holding
+    the uint16 ``(run << 2) | move`` codes (gap_dp.myers_moves_plain;
+    decode with gap_dp.decode_col_moves).  Inputs as myers_dist.  CUDA
+    tensors launch the kernel on the current stream (counted in
+    ``myers_moves.launches``) with two (T * Q/32, G) uint32 decision
+    planes as scratch; CPU tensors run the plain version."""
+    if qs.device.type == "cpu":
+        return myers_moves_plain(qs, ql, ts, tl, is_shw, Q, T)
+    G, dev = _check_gaps("myers_moves", qs, ql, ts, tl, is_shw, Q, T)
+    dist = torch.empty(G, dtype=torch.int32, device=dev)
+    end = torch.empty(G, dtype=torch.int32, device=dev)
+    lead = torch.empty(G, dtype=torch.int32, device=dev)
+    colcode = torch.empty((T, G), dtype=torch.int16, device=dev)
+    if G == 0:
+        return dist, end, lead, colcode
+    up = torch.empty((T * (Q // 32), G), dtype=torch.int32, device=dev)
+    left = torch.empty_like(up)
+    f = _bind("lf_myers_moves", 11)
+    _launch("myers_moves", f,
+            (qs.data_ptr(), ql.data_ptr(), ts.data_ptr(), tl.data_ptr(),
+             is_shw.data_ptr(), dist.data_ptr(), end.data_ptr(),
+             lead.data_ptr(), colcode.data_ptr(), up.data_ptr(),
+             left.data_ptr(), G, Q, T), dev)
+    myers_moves.launches += 1
+    return dist, end, lead, colcode
 
 
 myers_dist.launches = 0
+myers_moves.launches = 0

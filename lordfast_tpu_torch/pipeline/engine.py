@@ -7,17 +7,19 @@ initFASTChunk -> mapSeqMT -> releaseChunk):
   device (batched over reads): seeding -> window voting -> per-window seed
   selection -> chaining DP (pipeline/device_stage.py), then the batched
   Myers distance of every inter-seed gap and read end
-  (ops/gap_dp_cuda.py);
+  (ops/gap_dp_cuda.py), and with the escalation offload on, the clip /
+  split affine extensions (ops/affine.py) and their secondary Myers
+  segments with path (gap_dp_cuda.myers_moves);
   host: chain stitching (native edlib-equivalent paths from the device
   distances), scoring, mode resolution (coarse vs fine,
   src/LordFAST.cpp:542-569), SAM output in input order.
 
 The host methods are the JAX engine's; only the device seams differ.
 Ported path: the extend-whole seeder, any chaining the device stage
-supports, a replicated index on one device, and the escalation DPs on
-the host stitcher (``esc_device`` off).  A mesh, a sharded index, the
-device escalation offload and the dormant seeders raise
-NotImplementedError.
+supports, a replicated index on one device, and the escalation DPs either
+on the device (``esc_device``, on by default on a CUDA device, as the
+JAX engine's is on its accelerator) or in the host stitcher.  A mesh, a
+sharded index and the dormant seeders raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ..config import LordfastConfig
 from ..index.container import FMIndex
 from ..io import sam as sam_io
 from ..io.fastx import Read, read_chunks
+from ..ops import affine
 from ..ops import fm_index as fm_ops
 from ..ops import gap_dp
 from ..ops import gap_dp_cuda
@@ -68,19 +71,17 @@ class MappingEngine:
                  device="cuda", mesh=None, shard_index: bool = False,
                  esc_device: Optional[bool] = None):
         """device: the torch device of the index and the device stage
-        ("cuda", "cuda:1", "cpu").  mesh / shard_index / esc_device=True
-        are the JAX engine's multi-device and escalation-offload options,
-        not ported yet."""
+        ("cuda", "cuda:1", "cpu").  esc_device: run the clip / split
+        escalation DPs on the device (_escalation_pass) instead of in
+        the host stitcher; None = on for a CUDA device, off on the CPU.
+        Both give the same SAM.  mesh / shard_index are the JAX engine's
+        multi-device options, not ported yet."""
         self.idx = idx
         self.cfg = (cfg or LordfastConfig()).validate()
         self.meta = idx.meta
         if mesh is not None or shard_index:
             raise NotImplementedError(
                 "mesh / shard_index are not ported to lordfast_tpu_torch")
-        if esc_device:
-            raise NotImplementedError(
-                "the device escalation offload (esc_device=True) is not "
-                "ported; the host stitcher runs the escalation DPs")
         if self.cfg.seeder != "extend-whole":
             raise NotImplementedError(
                 f"seeder {self.cfg.seeder!r} is not ported; only "
@@ -95,6 +96,8 @@ class MappingEngine:
                 f"{self.cfg.min_read_len} overflows 2^30 windows"
             )
         self.device = resolve_device(device)
+        self._esc_device = (esc_device if esc_device is not None
+                            else self.device.type == "cuda")
         self.stats = {"reads": 0, "mapped": 0, "chunks": 0, "batches": 0}
         self.metrics = Metrics(verbosity=getattr(self.cfg, "verbosity", 0))
         # host worker pool over stitch jobs (the reference's per-core
@@ -352,21 +355,51 @@ class MappingEngine:
                           False, True))
         return descs
 
-    def _dispatch_gap_descs(self, items, reads_dev):
-        """Dispatch the batched device Myers distance over gap
-        descriptors, without waiting for it.
+    def _desc_tensors(self, rows):
+        """Device descriptor dict of gather_gap_seqs from a list of
+        (row_j, q_start, q_len, q_rc, t_start, t_len, t_rc, is_shw),
+        with one host-to-device copy."""
+        dm = torch.from_numpy(np.asarray(rows, dtype=np.int64)).to(
+            self.device)
+        return {
+            "q_read": dm[:, 0], "q_start": dm[:, 1],
+            "q_len": dm[:, 2], "q_rc": dm[:, 3] != 0,
+            "t_start": dm[:, 4], "t_len": dm[:, 5],
+            "t_rc": dm[:, 6] != 0, "is_shw": dm[:, 7] != 0,
+            "valid": torch.ones(len(rows), dtype=torch.bool,
+                                device=self.device),
+        }
+
+    def _run_gap_descs(self, items, reads_dev, mode="moves"):
+        """Batched device Myers DP over arbitrary gap descriptors:
+        dispatch + blocking collect.  Returns {key: (dist, end, extra)}
+        (see _collect_gap_descs)."""
+        return self._collect_gap_descs(
+            self._dispatch_gap_descs(items, reads_dev, mode))
+
+    def _dispatch_gap_descs(self, items, reads_dev, mode="dist"):
+        """Dispatch the batched device Myers DP over gap descriptors,
+        without waiting for it.
 
         items: list of (key, desc) with desc = (row_j, q_start, q_len,
         q_rc, t_start, t_len, t_rc, is_shw) in forward-read-row / global
         genome coordinates (see _gap_descriptors).  Each gap goes to the
         first bucket (Q, T, G) that holds it and every bucket is cut into
-        sub-batches of at most G gaps, one kernel launch each (counted in
-        the ``gap_parts`` metric).  Only (dist, end) come back: the
-        stitcher rebuilds each path with the bit-exact banded edlib
-        traceback (native edlib_path.cpp).  All results are stacked into
-        one device tensor, fetched by _collect_gap_descs with a single
-        device-to-host copy.  Descriptors larger than every bucket are
-        omitted (the native stitcher computes those locally)."""
+        sub-batches of at most G gaps, one kernel launch each.
+
+        mode "dist" (the main path): only (dist, end) come back
+        (``myers_dist``, launches counted in the ``gap_parts`` metric);
+        the stitcher rebuilds each path with the bit-exact banded edlib
+        traceback (native edlib_path.cpp).  "moves" (escalation phase
+        C): ``myers_moves`` also returns lead and the per-column codes,
+        trimmed to the sub-batch's deepest target (launches counted in
+        ``esc_nw_parts``).  "col" (phase C's Hirschberg splits):
+        ``myers_dist`` also returns the last column's words (launches
+        counted in ``esc_split_parts``).  All results are stacked into
+        one device tensor (and the codes or words into one more),
+        fetched by _collect_gap_descs with one device-to-host copy each.
+        Descriptors larger than every bucket are omitted (the native
+        stitcher computes those locally)."""
         cfg = self.cfg
         buckets = cfg.gap_buckets
         per_bucket = [[] for _ in buckets]
@@ -391,7 +424,7 @@ class MappingEngine:
             self.metrics.add("gaps_host", n_host)
 
         t_pack = time.time()
-        parts, dists, ends = [], [], []
+        parts, rows, extras = [], [], []
         for bi, per in enumerate(per_bucket):
             if not per:
                 continue
@@ -399,52 +432,72 @@ class MappingEngine:
             self.metrics.add(f"gaps_b{Q}", len(per))
             for s in range(0, len(per), G):
                 part = per[s : s + G]
-                # one host->device copy of the part's descriptor table
-                dm = torch.from_numpy(
-                    np.asarray([d for _, d in part], dtype=np.int64)
-                ).to(self.device)
-                desc = {
-                    "q_read": dm[:, 0], "q_start": dm[:, 1],
-                    "q_len": dm[:, 2], "q_rc": dm[:, 3] != 0,
-                    "t_start": dm[:, 4], "t_len": dm[:, 5],
-                    "t_rc": dm[:, 6] != 0, "is_shw": dm[:, 7] != 0,
-                    "valid": torch.ones(len(part), dtype=torch.bool,
-                                        device=self.device),
-                }
+                desc = self._desc_tensors([d for _, d in part])
                 qs, ql, ts, tl = gap_dp.gather_gap_seqs(
                     self.arrs["pac_words"], reads_dev, desc, Q, T,
                     self.meta["l_pac"],
                 )
-                dist, end = gap_dp_cuda.myers_dist(qs, ql, ts, tl,
-                                                   desc["is_shw"], Q, T)
-                self.metrics.add("gap_parts", 1)
-                parts.append(part)
-                dists.append(dist)
-                ends.append(end)
+                extra = None
+                if mode == "moves":
+                    dist, end, lead, colcode = gap_dp_cuda.myers_moves(
+                        qs, ql, ts, tl, desc["is_shw"], Q, T)
+                    self.metrics.add("esc_nw_parts", 1)
+                    rows.append(torch.stack([dist, end, lead]))
+                    # codes are zero past each gap's end <= t_len - 1
+                    extra = colcode[: max(d[5] for _, d in part)]
+                elif mode == "col":
+                    dist, end, extra = gap_dp_cuda.myers_dist(
+                        qs, ql, ts, tl, desc["is_shw"], Q, T, want_col=True)
+                    self.metrics.add("esc_split_parts", 1)
+                    rows.append(torch.stack([dist, end]))
+                else:
+                    dist, end = gap_dp_cuda.myers_dist(
+                        qs, ql, ts, tl, desc["is_shw"], Q, T)
+                    self.metrics.add("gap_parts", 1)
+                    rows.append(torch.stack([dist, end]))
+                if extra is not None:
+                    extras.append(extra.reshape(-1))
+                parts.append((part, None if extra is None
+                              else tuple(extra.shape)))
         pending = None
         if parts:
-            pending = (parts, torch.stack([torch.cat(dists),
-                                           torch.cat(ends)]))
+            pending = (mode, parts, torch.cat(rows, 1),
+                       torch.cat(extras) if extras else None)
         self.metrics.timers["gap_pack"] += time.time() - t_pack
         return pending
 
     def _collect_gap_descs(self, pending):
         """Blocking half of the gap DP: one device-to-host copy of every
-        dispatched sub-batch's (dist, end).  Returns {key: (dist, end)}."""
+        dispatched sub-batch's results (and one of the codes or words).
+        Returns {key: (dist, end, extra)}: extra is the move array
+        ("moves", the codes decoded), the (2, Q/32) last-column words
+        ("col") or None ("dist")."""
         results = {}
         if pending is None:
             return results
-        parts, merged = pending
+        mode, parts, merged, flat = pending
         t_wait = time.time()
         vals = merged.cpu().numpy()
+        flat = flat.cpu().numpy() if flat is not None else None
         self.metrics.timers["gap_wait"] += time.time() - t_wait
         t_unpack = time.time()
-        off = 0
-        for part in parts:
+        off = fo = 0
+        for part, shape in parts:
+            g = len(part)
+            extra = [None] * g
+            if shape is not None:
+                n = int(np.prod(shape))
+                block = flat[fo : fo + n].reshape(shape)
+                fo += n
+                if mode == "moves":
+                    extra = gap_dp.decode_col_moves(
+                        block, vals[1, off : off + g], vals[2, off : off + g])
+                else:
+                    extra = [block[:, :, gi] for gi in range(g)]
             for gi, (key, _) in enumerate(part):
                 results[key] = (int(vals[0, off + gi]),
-                                int(vals[1, off + gi]))
-            off += len(part)
+                                int(vals[1, off + gi]), extra[gi])
+            off += g
         self.metrics.timers["gap_unpack"] += time.time() - t_unpack
         return results
 
@@ -466,7 +519,7 @@ class MappingEngine:
         (banded-exact, stitch.cpp) and the move buffer is empty."""
         results = self._collect_gap_descs(pending)
         tables = {}
-        for (job_id, slot), (dist, end) in results.items():
+        for (job_id, slot), (dist, end, _) in results.items():
             t = tables.get(job_id)
             if t is None:
                 ns = len(jobs[job_id]["cq"]) + 1
@@ -479,28 +532,378 @@ class MappingEngine:
             t[2][slot] = end
         return tables
 
-    def _stitch_job(self, job, gap_table) -> Mapping:
+    # escalation sub-slot indices (per gap slot; stitch.cpp esc_* ABI)
+    ESC_KSW1, ESC_KSW2, ESC_NW_A, ESC_NW_IF, ESC_NW_IR, ESC_NW_B = range(6)
+
+    @staticmethod
+    def _edlib_splits(q_len: int, t_len: int) -> bool:
+        """Whether edlib aligns a q_len x t_len NW segment by Hirschberg
+        splitting (its traceback data would reach 1 MiB; edlib.cpp:
+        1090-1145, native edlib_path.cpp obtainAlignment).  Below that
+        size edlib's banded traceback follows the unbanded DP's tie order
+        (consume-query, consume-target, diagonal) — every cell of an
+        optimal path lies inside its band — so myers_moves' path is
+        edlib's; above it edlib first splits the segment (_run_nw_paths),
+        which can pick another of the equal-cost paths."""
+        blocks = -(-q_len // 64)
+        return (2 * 8 + 4) * blocks * t_len + 2 * 4 * t_len >= 1 << 20
+
+    def _run_nw_paths(self, items, reads_dev):
+        """Phase C's batched device NW alignments, with the path edlib
+        builds: a segment at edlib's Hirschberg size (_edlib_splits) is
+        split as edlib splits it, level by level for all such segments
+        at once — a forward fill of the query against the left target
+        half and a reverse-complement fill against the right half give
+        the middle column's scores (myers_dist with its last column,
+        ``esc_split_parts``), gap_dp.hirschberg_split picks the row —
+        until every piece is below that size; myers_moves then aligns
+        the pieces with path, and a piece with no query codes is all
+        DELETE.  The inversion's forward middle (ESC_NW_IF) needs only
+        the distance and is never split.  Returns {key: (dist, end,
+        moves)}; a segment larger than every gap bucket is omitted."""
+        cfg = self.cfg
+
+        def sub(d, qa, qn, ta, tn, rc=False):
+            (row, q0, q_len, qrc, t0, t_len, trc, _s) = d
+            q2, qrc2 = self._sub_view(q0, q_len, qrc, qa, qn, rc)
+            t2, trc2 = self._sub_view(t0, t_len, trc, ta, tn, rc)
+            return (row, q2, qn, qrc2, t2, tn, trc2, False)
+
+        def splits(key, d):
+            return (key[2] != self.ESC_NW_IF
+                    and self._edlib_splits(d[2], d[5])
+                    and any(d[2] <= Q and d[5] <= T
+                            for Q, T, _ in cfg.gap_buckets))
+
+        leaves, level, pieces, best = [], [], {}, {}
+        for key, d in items:
+            (level if splits(key, d) else leaves).append(((key,), d))
+        while level:
+            # (the reverse complement of both halves aligns like their
+            # reversal: complementing codes keeps every match a match)
+            fills = []
+            for node, d in level:
+                lhw = d[5] // 2
+                fills.append((node + (0,), sub(d, 0, d[2], 0, lhw)))
+                fills.append((node + (1,), sub(d, 0, d[2], lhw, d[5] - lhw,
+                                               rc=True)))
+            cols = self._run_gap_descs(fills, reads_dev, mode="col")
+            self.metrics.add("esc_splits", len(level))
+            nxt = []
+            for node, d in level:
+                q_len, t_len = d[2], d[5]
+                lhw, rhw = t_len // 2, t_len - t_len // 2
+                k, b = gap_dp.hirschberg_split(
+                    gap_dp.column_scores(cols[node + (0,)][2], q_len, lhw),
+                    gap_dp.column_scores(cols[node + (1,)][2], q_len, rhw),
+                    lhw, rhw)
+                if len(node) == 1:
+                    best[node[0]] = b
+                for half, c8 in ((0, sub(d, 0, k, 0, lhw)),
+                                 (1, sub(d, k, q_len - k, lhw, rhw))):
+                    child = node + (half,)
+                    if c8[2] == 0:
+                        pieces[child] = np.full(c8[5], gap_dp.OP_DELETE,
+                                                np.uint8)
+                    elif self._edlib_splits(c8[2], c8[5]):
+                        nxt.append((child, c8))
+                    else:
+                        leaves.append((child, c8))
+            level = nxt
+        res = self._run_gap_descs(leaves, reads_dev) if leaves else {}
+        for node, (_, _, mv) in res.items():
+            pieces[node] = mv
+
+        def path(node):
+            if node in pieces:
+                return [pieces[node]]
+            return path(node + (0,)) + path(node + (1,))
+
+        out = {node[0]: r for node, r in res.items() if len(node) == 1}
+        for key, d in items:
+            if key in best:
+                out[key] = (best[key], d[5] - 1,
+                            np.concatenate(path((key,))))
+        return out
+
+    @staticmethod
+    def _sub_view(start, length, rc, a, L, extra_rc):
+        """Global (start, rc) of slice [a, a+L) of the oriented view
+        (start, length, rc), optionally reverse-complemented again."""
+        if rc:
+            return start + length - a - L, (not extra_rc)
+        return start + a, extra_rc
+
+    def _affine_desc(self, part):
+        """Device descriptor dict of affine.extend_from_desc for a list of
+        (key, desc8, kind) escalation items: the gather fields plus the
+        reference's clip (src/LordFAST.cpp:1848) or split (:1971)
+        parameter set per problem, h0 = query length, w_eff clamped in
+        exact double arithmetic (affine.clamp_band)."""
+        cfg = self.cfg
+        d8 = np.asarray([d for _, d, _ in part], dtype=np.int64)
+        clip = np.array([kind == "clip" for _, _, kind in part])
+        sel = lambda a, b: np.where(clip, a, b)
+        od = sel(cfg.ksw_gap_open_clip, cfg.split_o_del)
+        ed_ = sel(cfg.ksw_gap_extend_clip, cfg.split_e_del)
+        oi = sel(cfg.ksw_gap_open_clip, cfg.split_o_ins)
+        ei = sel(cfg.ksw_gap_extend_clip, cfg.split_e_ins)
+        w = sel(cfg.clip_band, cfg.split_band)
+        qn = d8[:, 2]
+        w_eff = affine.clamp_band(qn, cfg.ksw_match_clip, 0, od, ed_, oi,
+                                  ei, w)
+        g = len(part)
+        par = np.stack([
+            od, ed_, oi, ei, w_eff, sel(cfg.clip_zdrop, cfg.split_zdrop),
+            qn, np.full(g, cfg.ksw_match_clip),
+            np.full(g, cfg.ksw_mismatch_clip),
+        ]).astype(np.int32)                       # PARAM_NAMES order
+        pm = torch.from_numpy(par).to(self.device)
+        desc = self._desc_tensors(d8)
+        desc.update({n: pm[i] for i, n in enumerate(affine.PARAM_NAMES)})
+        return desc
+
+    def _run_affine_descs(self, items, reads_dev):
+        """Batched device ksw_extend2 over escalation descriptors.
+
+        items: list of (key, desc8, kind) with desc8 = (row, qa, qn, qrc,
+        ta, tn, trc, shw) and kind in {"clip", "split"} selecting the
+        reference's parameter set (src/LordFAST.cpp:1848 vs :1971).  One
+        launch per sub-batch of an affine bucket (counted in
+        ``esc_affine_parts``), one device-to-host copy for all.  Returns
+        {key: (score, qle, tle)}; oversized sites are omitted (the
+        stitcher runs them locally)."""
+        cfg = self.cfg
+        w_max = max(cfg.clip_band, cfg.split_band)
+        BW = 128 * ((2 * w_max + 2 + 127) // 128)
+        per = [[] for _ in cfg.affine_buckets]
+        n_host = 0
+        for it in items:
+            qn, tn = it[1][2], it[1][5]
+            for bi, (Qe, Te, _) in enumerate(cfg.affine_buckets):
+                if qn <= Qe and tn <= Te:
+                    per[bi].append(it)
+                    break
+            else:
+                n_host += 1
+        if n_host:
+            self.metrics.add("esc_host", n_host)
+
+        parts, outs = [], []
+        for bi, group in enumerate(per):
+            if not group:
+                continue
+            Qe, Te, G = cfg.affine_buckets[bi]
+            self.metrics.add(f"esc_b{Qe}", len(group))
+            for s in range(0, len(group), G):
+                part = group[s : s + G]
+                res = affine.extend_from_desc(
+                    self.arrs["pac_words"], reads_dev,
+                    self._affine_desc(part), Qe, Te, BW, w_max,
+                    self.meta["l_pac"])
+                self.metrics.add("esc_affine_parts", 1)
+                parts.append(part)
+                outs.append(torch.stack([res.score, res.qle, res.tle]))
+
+        results = {}
+        if parts:
+            t_wait = time.time()
+            vals = torch.cat(outs, 1).cpu().numpy()
+            self.metrics.timers["esc_wait"] += time.time() - t_wait
+            off = 0
+            for part in parts:
+                for gi, (key, _, _) in enumerate(part):
+                    results[key] = (int(vals[0, off + gi]),
+                                    int(vals[1, off + gi]),
+                                    int(vals[2, off + gi]))
+                off += len(part)
+        return results
+
+    def _escalation_sites(self, jobs, tables):
+        """Phase B's site test: every plain-path site whose device gap
+        result trips the stitcher's clip rule (SHW ends: q_len >
+        clip_len and sim < clip_sim) or split rule (|q_len - t_len| >=
+        split_len and sim < split_sim), with sim = 1 - dist / q_len in
+        float32 as src/LordFAST.cpp:1846,1952 compute it.  Returns the
+        affine items in job and site order: a clip site gives one
+        (key, desc8, "clip"), a split site two ("split", the second one
+        over the reverse-complemented pair)."""
+        cfg = self.cfg
+        E = self
+        sites = [(job_id, d) for job_id, job in enumerate(jobs)
+                 if job_id in tables for d in job["descs"]
+                 if tables[job_id][0][d[0]]]
+        if not sites:
+            return []
+        dist = np.array([tables[j][1][d[0]] for j, d in sites], np.float32)
+        q_len = np.array([d[3] for _, d in sites], np.int64)
+        t_len = np.array([d[6] for _, d in sites], np.int64)
+        shw = np.array([bool(d[8]) for _, d in sites])
+        sim = (np.float32(1.0) - dist / q_len.astype(np.float32)).astype(
+            np.float64)
+        clip = shw & (q_len > cfg.clip_len) & (sim < cfg.clip_sim)
+        split = (~shw & (np.abs(q_len - t_len) >= cfg.split_len)
+                 & (sim < cfg.split_sim))
+        aff = []
+        for i in np.flatnonzero(clip | split):
+            job_id, d = sites[i]
+            slot, d8 = d[0], d[1:]
+            if clip[i]:
+                aff.append(((job_id, slot, E.ESC_KSW1), d8, "clip"))
+                continue
+            aff.append(((job_id, slot, E.ESC_KSW1), d8, "split"))
+            (row, qa, qn, qrc, ta, tn, trc, _s) = d8
+            aff.append(((job_id, slot, E.ESC_KSW2),
+                        (row, qa, qn, not qrc, ta, tn, not trc, _s),
+                        "split"))
+        return aff
+
+    def _escalation_pass(self, jobs, tables, reads_dev):
+        """Device offload of the clip / split escalation DPs.
+
+        Phase B: replay the stitcher's escalation decisions
+        (_escalation_sites) against the plain-path gap results, batching
+        every flagged site into the affine kernel.  Phase C: the
+        secondary NW segments the affine ends imply (clip-trimmed prefix,
+        split part1/part2, inversion middle forward and reverse,
+        src/LordFAST.cpp:1850,1998-2093,2034-2077) run through the
+        batched Myers kernel with path, those edlib would split by
+        Hirschberg split first as edlib splits them (_run_nw_paths).
+        Every shipped result is exact vs the stitcher's local DP, so
+        partial coverage is safe — the stitcher computes any missing
+        piece itself.  Returns {job_id: (has, a, b,
+        moves, offsets)}, the stitcher's escalation tables (6 sub-slots
+        per gap slot)."""
+        E = self  # sub-slot constants
+        aff = self._escalation_sites(jobs, tables)
+        if not aff:
+            return {}
+        self.metrics.add("esc_sites", len(aff))
+        with self.metrics.timer("esc_affine"):
+            aff_res = self._run_affine_descs(aff, reads_dev)
+
+        # ---- phase C: secondary NW descriptors ----
+        def nw_desc(d8, qa_off, qL, qX, ta_off, tL, tX):
+            (row, qa, qn, qrc, ta, tn, trc, _s) = d8
+            q2, qrc2 = self._sub_view(qa, qn, qrc, qa_off, qL, qX)
+            t2, trc2 = self._sub_view(ta, tn, trc, ta_off, tL, tX)
+            return (row, q2, qL, qrc2, t2, tL, trc2, False)
+
+        by_site = {}
+        for key, d8, kind in aff:
+            job_id, slot, sub = key
+            by_site.setdefault((job_id, slot), {})[sub] = (d8, kind)
+        nw_items = []
+        esc_vals = {}  # key -> (a, b) for the ksw subs
+        for (job_id, slot), subs in by_site.items():
+            d8, kind = subs[E.ESC_KSW1]
+            q_len, t_len = d8[2], d8[5]
+            k1 = (job_id, slot, E.ESC_KSW1)
+            if k1 not in aff_res:
+                continue
+            _, qle1, tle1 = aff_res[k1]
+            esc_vals[k1] = (qle1, tle1)
+            if kind == "clip":
+                if 0 < qle1 < q_len and tle1 >= 1:
+                    nw_items.append(((job_id, slot, E.ESC_NW_A),
+                                     nw_desc(d8, 0, qle1, False, 0, tle1,
+                                             False)))
+                continue
+            k2 = (job_id, slot, E.ESC_KSW2)
+            if k2 not in aff_res:
+                continue
+            _, qle2, tle2 = aff_res[k2]
+            esc_vals[k2] = (qle2, tle2)
+            if not (qle1 < q_len - qle2 or tle1 < t_len - tle2):
+                continue  # degenerate split: stitcher takes plain path
+            if qle1 >= 1 and tle1 >= 1:
+                nw_items.append(((job_id, slot, E.ESC_NW_A),
+                                 nw_desc(d8, 0, qle1, False, 0, tle1,
+                                         False)))
+            mid_r = q_len - qle1 - qle2
+            mid_t = t_len - tle1 - tle2
+            if mid_r > 0 and mid_t > 0:
+                nw_items.append(((job_id, slot, E.ESC_NW_IF),
+                                 nw_desc(d8, qle1, mid_r, False, tle1,
+                                         mid_t, False)))
+                nw_items.append(((job_id, slot, E.ESC_NW_IR),
+                                 nw_desc(d8, qle1, mid_r, True, tle1,
+                                         mid_t, False)))
+            if qle2 >= 1 and tle2 >= 1:
+                nw_items.append(((job_id, slot, E.ESC_NW_B),
+                                 nw_desc(d8, q_len - qle2, qle2, True,
+                                         t_len - tle2, tle2, True)))
+        nw_res = self._run_nw_paths(nw_items, reads_dev) if nw_items \
+            else {}
+
+        # ---- assemble per-job escalation tables ----
+        esc = {}
+
+        def etab(job_id):
+            t = esc.get(job_id)
+            if t is None:
+                ns = (len(jobs[job_id]["cq"]) + 1) * 6
+                t = {"has": np.zeros(ns, np.uint8),
+                     "a": np.zeros(ns, np.int64),
+                     "b": np.zeros(ns, np.int64),
+                     "mv": [None] * ns}
+                esc[job_id] = t
+            return t
+
+        for (job_id, slot, sub), (a, b) in esc_vals.items():
+            t = etab(job_id)
+            i = slot * 6 + sub
+            t["has"][i] = 1
+            t["a"][i] = a
+            t["b"][i] = b
+        for (job_id, slot, sub), (dist, _end, moves) in nw_res.items():
+            t = etab(job_id)
+            i = slot * 6 + sub
+            t["has"][i] = 1
+            t["a"][i] = dist
+            t["b"][i] = len(moves)
+            t["mv"][i] = moves
+
+        out = {}
+        for job_id, t in esc.items():
+            ns = len(t["has"])
+            off = np.zeros(ns, np.int64)
+            bufs = []
+            pos = 0
+            for i in range(ns):
+                if t["mv"][i] is not None:
+                    off[i] = pos
+                    bufs.append(t["mv"][i])
+                    pos += len(t["mv"][i])
+            mvbuf = (np.concatenate(bufs) if bufs
+                     else np.zeros(0, np.uint8))
+            out[job_id] = (t["has"], t["a"], t["b"], mvbuf, off)
+        return out
+
+    def _stitch_job(self, job, gap_table, esc_table) -> Mapping:
         # thread-pool worker: must not touch shared mutable state
         # (metrics are accounted serially by the caller)
         return align_and_score(
             job["cq"], job["ct"], job["cl"], job["query"], job["read_len"],
             job["is_rev"], self.idx, self.cfg, gap_table=gap_table,
+            esc_table=esc_table,
         )
 
-    def _stitch_all(self, jobs, tables) -> List[Mapping]:
+    def _stitch_all(self, jobs, tables, esc_tables) -> List[Mapping]:
         """Stitch every selected window of the batch, across host threads
         when a pool exists (reference parity: one worker per core,
         src/LordFAST.cpp:305-316; --threads / cfg.num_threads)."""
         if self._pool is not None and len(jobs) > 1:
             mappings = list(
                 self._pool.map(
-                    lambda it: self._stitch_job(it[1], tables.get(it[0])),
+                    lambda it: self._stitch_job(it[1], tables.get(it[0]),
+                                                esc_tables.get(it[0])),
                     enumerate(jobs),
                 )
             )
         else:
             mappings = [
-                self._stitch_job(job, tables.get(jid))
+                self._stitch_job(job, tables.get(jid), esc_tables.get(jid))
                 for jid, job in enumerate(jobs)
             ]
         for job, m in zip(jobs, mappings):
@@ -799,15 +1202,21 @@ class MappingEngine:
             # with the NEXT batch's host-side work
             with self.metrics.timer("gap_dp"):
                 pending = self._dispatch_jobs_gaps(jobs, reads_dev)
-            return (idxs, batch, jobs, read_jobs, pending)
+            return (idxs, batch, jobs, read_jobs, reads_dev, pending)
 
         def finish(ctx):
-            idxs, batch, jobs, read_jobs, pending = ctx
+            idxs, batch, jobs, read_jobs, reads_dev, pending = ctx
             with self.metrics.timer("gap_dp"):
                 tables = self._collect_jobs_gaps(jobs, pending)
 
+            esc_tables = {}
+            if self._esc_device:
+                with self.metrics.timer("esc_dp"):
+                    esc_tables = self._escalation_pass(jobs, tables,
+                                                       reads_dev)
+
             with self.metrics.timer("stitch"):
-                mappings_by_job = self._stitch_all(jobs, tables)
+                mappings_by_job = self._stitch_all(jobs, tables, esc_tables)
 
             for j, i in enumerate(idxs):
                 read_len = len(batch[j].seq)

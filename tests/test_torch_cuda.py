@@ -1,6 +1,8 @@
-"""The port's CUDA kernel on the card: ``myers_dist`` against its plain
-PyTorch version (exact: distances and ends are integers), one test per
-kind of gap bucket.  Needs an NVIDIA GPU (marker ``cuda``) and skips
+"""The port's CUDA kernels on the card: ``myers_dist`` (with and without
+its last column), ``myers_moves`` and ``extend_batch_cuda`` against
+their plain PyTorch versions (exact:
+every output is an integer), one test per kind of bucket.  Needs an
+NVIDIA GPU (marker ``cuda``) and skips
 without one.  This file imports neither jax nor lordfast_tpu, so it also
 runs where JAX is not installed:
 
@@ -11,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from lordfast_tpu_torch.ops import gap_dp_cuda
+from lordfast_tpu_torch.ops import affine, affine_cuda, gap_dp, gap_dp_cuda
 from lordfast_tpu_torch.ops.gap_dp import myers_dist_plain
 
 
@@ -57,6 +59,99 @@ def test_cuda_kernel_matches_plain(cuda_device, bucket):
     assert gap_dp_cuda.myers_dist.launches == before + 1
     np.testing.assert_array_equal(d.cpu().numpy(), want_d.numpy())
     np.testing.assert_array_equal(e.cpu().numpy(), want_e.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", [(64, 2304, 512), (2048, 2176, 64),
+                                    (4096, 4352, 32)])
+def test_cuda_dist_column_matches_plain(cuda_device, bucket):
+    # the last column's words, edlib's Hirschberg split reads them
+    Q, T, G = bucket
+    arrays = _gaps(np.random.default_rng(Q + 5 * T), Q, T, min(G, 200))
+    arrays[4][:] = False  # NW, as the split's fills are
+    cpu = [torch.from_numpy(a) for a in arrays]
+    want = myers_dist_plain(*cpu, Q, T, want_col=True)
+    got = gap_dp_cuda.myers_dist(*(a.to(cuda_device) for a in cpu), Q, T,
+                                 want_col=True)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dist", "end", "col"), got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", [(32, 48, 8192), (128, 1152, 512),
+                                    (512, 576, 1024), (2048, 2176, 64),
+                                    (4096, 4352, 32)])
+def test_cuda_moves_kernel_matches_plain(cuda_device, bucket):
+    Q, T, G = bucket
+    arrays = _gaps(np.random.default_rng(Q + 3 * T), Q, T, min(G, 200))
+    cpu = [torch.from_numpy(a) for a in arrays]
+    want = gap_dp.myers_moves_plain(*cpu, Q, T)
+    before = gap_dp_cuda.myers_moves.launches
+    got = gap_dp_cuda.myers_moves(*(a.to(cuda_device) for a in cpu), Q, T)
+    torch.cuda.synchronize()
+    assert gap_dp_cuda.myers_moves.launches == before + 1
+    for name, g, w in zip(("dist", "end", "lead", "colcode"), got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      err_msg=name)
+    d, e = gap_dp_cuda.myers_dist(*(a.to(cuda_device) for a in cpu), Q, T)
+    np.testing.assert_array_equal(d.cpu().numpy(), want[0].numpy())
+    np.testing.assert_array_equal(e.cpu().numpy(), want[1].numpy())
+
+
+def _affine_problems(rng, Qe, Te, G):
+    """G extension problems: related pairs (a mutated copy), junk pairs
+    (z-drop), N codes, qlen near Qe; clip and split parameter sets."""
+    qs = np.zeros((G, Qe), np.uint8)
+    ts = np.zeros((G, Te), np.uint8)
+    qlen = rng.integers(1, Qe + 1, G).astype(np.int32)
+    qlen[: min(G, 4)] = [Qe, Qe - 1, 1, 2][: min(G, 4)]
+    tlen = np.minimum(Te, qlen + rng.integers(-20, 40, G)).clip(1)
+    tlen = tlen.astype(np.int32)
+    for g in range(G):
+        q = rng.integers(0, 4, qlen[g]).astype(np.uint8)
+        if g % 3 == 2:   # junk pair
+            t = rng.integers(0, 5, tlen[g]).astype(np.uint8)
+        else:
+            t = np.resize(q, tlen[g]).copy()
+            sites = rng.integers(0, tlen[g], max(1, tlen[g] // 7))
+            t[sites] = rng.integers(0, 5, len(sites))
+        qs[g, : qlen[g]] = q
+        ts[g, : tlen[g]] = t
+    split = rng.integers(0, 2, G).astype(bool)
+    sel = lambda a, b: np.where(split, b, a).astype(np.int32)
+    od, ed_, oi, ei = sel(0, 8), sel(1, 1), sel(0, 4), sel(1, 1)
+    w = sel(40, 100)
+    params = dict(qlen=qlen, tlen=tlen, o_del=od, e_del=ed_, o_ins=oi,
+                  e_ins=ei, w_eff=affine.clamp_band(qlen, 2, 0, od, ed_, oi,
+                                                    ei, w),
+                  zdrop=sel(40, 200), h0=qlen.copy(),
+                  match=np.full(G, 2, np.int32),
+                  mismatch=np.full(G, 16, np.int32))
+    return qs, ts, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", [(512, 544, 128), (2048, 2080, 128)])
+def test_cuda_affine_kernel_matches_plain(cuda_device, bucket):
+    Qe, Te, G = bucket
+    qs, ts, params = _affine_problems(np.random.default_rng(Qe), Qe, Te,
+                                      min(G, 48))
+    cpu = {k: torch.from_numpy(v) for k, v in params.items()}
+    want = affine.extend_batch_plain(torch.from_numpy(qs),
+                                     torch.from_numpy(ts), Qe, Te, 256, 100,
+                                     **cpu)
+    before = affine_cuda.extend_batch_cuda.launches
+    got = affine.extend_batch(
+        torch.from_numpy(qs).to(cuda_device),
+        torch.from_numpy(ts).to(cuda_device), Qe, Te, 256, 100,
+        **{k: v.to(cuda_device) for k, v in cpu.items()})
+    torch.cuda.synchronize()
+    assert affine_cuda.extend_batch_cuda.launches == before + 1
+    for name, g, w in zip(affine.ExtendResult._fields, got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      err_msg=name)
 
 
 @pytest.mark.cuda

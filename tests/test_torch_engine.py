@@ -92,7 +92,7 @@ def test_port_engine_cpu_matches_golden_sam(port_idx):
     assert c["gaps_b32"] > 0 and c["gaps_b2048"] > 0 and c["gap_parts"] >= 5
 
 
-@pytest.mark.parametrize("kw", [dict(esc_device=True),
+@pytest.mark.parametrize("kw", [dict(mesh=object(), shard_index=True),
                                 dict(shard_index=True),
                                 dict(mesh=object())])
 def test_engine_refuses_unported_options(port_idx, kw):

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: every module of lordfast_tpu_torch (and
 chip_smoke.py) imports with jax and lordfast_tpu unavailable, the host
-modules copied from the JAX package have not drifted from their
-originals, and the native library keeps the JAX loader's ctypes
-signatures."""
+modules and native C++ sources copied from the JAX package have not
+drifted from their originals, and the native library keeps the JAX
+loader's ctypes signatures."""
 
 import difflib
 import importlib
@@ -55,6 +55,12 @@ names = [m.name for m in pkgutil.walk_packages(lordfast_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+from lordfast_tpu_torch.ops import affine, affine_cuda, gap_dp_cuda
+# the kernel wrappers and their launch counters
+for fn in (gap_dp_cuda.myers_dist, gap_dp_cuda.myers_moves,
+           affine_cuda.extend_batch_cuda):
+    assert fn.launches == 0
+assert callable(affine.extend_batch) and callable(affine.extend_from_desc)
 assert not any(m.split(".")[0] in ("jax", "lordfast_tpu")
                for m in sys.modules)
 print("\n".join(names))
@@ -67,7 +73,8 @@ def test_port_imports_without_jax():
     assert r.returncode == 0, r.stderr
     names = set(r.stdout.split())
     for m in ("cli", "native", "ops.fm_index", "ops.voting", "ops.chain",
-              "ops.gap_dp", "ops.gap_dp_cuda", "pipeline.device_stage",
+              "ops.gap_dp", "ops.gap_dp_cuda", "ops.affine",
+              "ops.affine_cuda", "pipeline.device_stage",
               "pipeline.engine", "index.container", "align.chain_align"):
         assert f"lordfast_tpu_torch.{m}" in names
 
@@ -118,6 +125,20 @@ def test_copied_host_modules_have_not_drifted(rel):
     diff = "".join(difflib.unified_diff(orig.splitlines(True),
                                         port.splitlines(True), "jax", "port"))
     assert orig.strip() == port.strip(), diff
+
+
+NATIVE_SOURCES = ["sais.cpp", "align_eq.cpp", "stitch.cpp", "edlib_path.cpp"]
+
+
+@pytest.mark.parametrize("name", NATIVE_SOURCES)
+def test_native_sources_are_byte_equal_copies(name):
+    from lordfast_tpu_torch import native
+
+    assert native.SRC_DIR == PORT_PKG / "native" / "csrc"
+    assert tuple(NATIVE_SOURCES) == native._SRCS
+    orig = (JAX_PKG / "native" / name).read_bytes()
+    port = (native.SRC_DIR / name).read_bytes()
+    assert port == orig, f"{name} differs from lordfast_tpu/native/{name}"
 
 
 def test_native_signatures_match_jax_loader():
