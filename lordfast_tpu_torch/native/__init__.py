@@ -5,7 +5,10 @@ The C++ sources in ``csrc/`` are copies of the JAX package's
 byte-equal to their originals).  They are compiled with g++ into this
 package's build directory (``lordfast_tpu_torch/_build``) at first use.
 Unlike the JAX loader there is no numpy fallback: a failed build or load
-raises, so a run never drops silently to the slow host paths.
+raises, so a run never drops silently to the slow host paths.  Threads
+of one process (the engine's stitcher pool) build and load under one
+lock; the compiler writes to a temporary name unique to the call and the
+result is renamed into place, so concurrent processes are safe too.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import tempfile
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -25,11 +30,17 @@ _SRCS = ("sais.cpp", "align_eq.cpp", "stitch.cpp", "edlib_path.cpp")
 CXXFLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread"]
 
 _lib = None
+_lock = threading.Lock()
 
 
 def build() -> Path:
     """Compile the native library if it is missing or older than a
     source; returns its path.  Raises on a compiler error."""
+    with _lock:
+        return _build()
+
+
+def _build() -> Path:
     srcs = [SRC_DIR / s for s in _SRCS]
     missing = [str(s) for s in srcs if not s.exists()]
     if missing:
@@ -38,22 +49,40 @@ def build() -> Path:
         s.stat().st_mtime <= _LIB_PATH.stat().st_mtime for s in srcs
     ):
         return _LIB_PATH
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-    cxx = os.environ.get("CXX", "g++")
-    r = subprocess.run([cxx, *CXXFLAGS, *map(str, srcs), "-o", str(tmp)],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"native build failed:\n{r.stderr}")
-    os.replace(tmp, _LIB_PATH)
+    tmp = temp_output(BUILD_DIR, _LIB_PATH.name)
+    try:
+        cxx = os.environ.get("CXX", "g++")
+        r = subprocess.run([cxx, *CXXFLAGS, *map(str, srcs), "-o", str(tmp)],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"native build failed:\n{r.stderr}")
+        os.replace(tmp, _LIB_PATH)
+    finally:
+        tmp.unlink(missing_ok=True)
     return _LIB_PATH
 
 
+def temp_output(directory: Path, name: str) -> Path:
+    """A new empty file in ``directory`` (created if missing) whose name
+    starts with ``name`` and is unique to the call: a compiler's output
+    goes there before it is renamed to ``directory / name``."""
+    directory.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=directory, prefix=f"{name}.",
+                               suffix=".tmp")
+    os.close(fd)
+    return Path(tmp)
+
+
 def _load():
+    with _lock:
+        return _load_locked()
+
+
+def _load_locked():
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(_build()))
     lib.sais_u8.restype = ctypes.c_int
     lib.sais_u8.argtypes = [
         ctypes.POINTER(ctypes.c_uint8),

@@ -4,7 +4,9 @@ Each source is compiled by ``nvcc`` for sm_90a into a shared library
 with a plain C interface in ``lordfast_tpu_torch/_build`` at first use
 (a few seconds each), and loaded with ctypes; a library is rebuilt when
 its source is newer.  ``build_all`` starts one nvcc per source at once.
-A failed build raises with the compiler's output.
+A failed build raises with the compiler's output.  Builds and loads of
+one process run under one lock; each nvcc writes to a temporary name
+unique to the call, renamed into place, so concurrent processes are safe.
 """
 
 from __future__ import annotations
@@ -13,10 +15,11 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
-from ..native import BUILD_DIR
+from ..native import BUILD_DIR, temp_output
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -26,6 +29,7 @@ SOURCES = ("myers", "affine_ext")
 
 logs: dict = {}   # name -> nvcc/ptxas output of its last build
 _libs: dict = {}
+_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -45,30 +49,48 @@ def _stale(name: str) -> bool:
     return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
 
 
+def temp_lib_path(name: str) -> Path:
+    """A new empty file in BUILD_DIR, unique to the call, for nvcc's
+    output before it is renamed to lib_path(name)."""
+    return temp_output(BUILD_DIR, lib_path(name).name)
+
+
 def build_all(names=SOURCES) -> dict:
     """Compile every stale library of ``names`` with one nvcc process
     each, all started together; returns {name: seconds} of the builds
     that ran."""
+    with _lock:
+        return _build_all(names)
+
+
+def _build_all(names) -> dict:
     todo = [n for n in names if _stale(n)]
     if not todo:
         return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.time()
     procs = {}
-    for n in todo:
-        tmp = lib_path(n).with_suffix(f".{os.getpid()}.tmp")
-        procs[n] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{n}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    secs, failed = {}, []
-    for n, (tmp, proc) in procs.items():
-        logs[n] = proc.communicate()[0]
-        secs[n] = time.time() - t0
-        if proc.returncode != 0:
-            failed.append(n)
-        else:
-            os.replace(tmp, lib_path(n))
+    try:
+        for n in todo:
+            tmp = temp_lib_path(n)
+            procs[n] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC_DIR / f"{n}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        secs, failed = {}, []
+        for n, (tmp, proc) in procs.items():
+            logs[n] = proc.communicate()[0]
+            secs[n] = time.time() - t0
+            if proc.returncode != 0:
+                failed.append(n)
+            else:
+                os.replace(tmp, lib_path(n))
+    finally:
+        for tmp, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            tmp.unlink(missing_ok=True)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(
             f"{n}.cu:\n{logs[n]}" for n in failed))
@@ -77,11 +99,12 @@ def build_all(names=SOURCES) -> dict:
 
 def load(name: str):
     """The ctypes library of csrc/<name>.cu, built if needed."""
-    lib = _libs.get(name)
-    if lib is None:
-        build_all((name,))
-        lib = _libs[name] = ctypes.CDLL(str(lib_path(name)))
-    return lib
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            _build_all((name,))
+            lib = _libs[name] = ctypes.CDLL(str(lib_path(name)))
+        return lib
 
 
 def check_tensor(name, x, dtype, shape, device):

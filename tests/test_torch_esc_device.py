@@ -20,6 +20,7 @@ from lordfast_tpu_torch.pipeline.engine import MappingEngine
 
 from test_golden import TEST_CFG
 from test_torch_fm_index import port_index
+from test_torch_import import jax_native_lib
 
 DATA = Path(__file__).parent / "data"
 # the counters both engines keep for the offload and the gap buckets
@@ -76,6 +77,9 @@ def test_offload_on_equals_offload_off(port_runs):
 
 
 def test_offload_matches_jax_engine(ref8_idx, port_runs, sv_reads):
+    # the JAX engine would fall back to numpy stitching without its
+    # native library
+    assert jax_native_lib() is not None
     jeng = JEngine(ref8_idx, JCfg(**TEST_CFG), esc_device=True)
     want = _map(jeng, sv_reads)
     sam_on, eng = port_runs[True]
