@@ -8,14 +8,18 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. environment: torch/CUDA versions, the card's name, power limit and
    maximum SM clock, and the builds (the two CUDA kernel libraries,
    one nvcc each, started together, with ptxas's register and stack
-   lines; the native host library) with their seconds;
+   lines, and each ``myers`` instantiation's registers, stack and
+   spills: a warp-per-gap instantiation with a stack frame or a spill
+   fails; the native host library) with their seconds;
 2. kernels against plain, each with its time (CUDA events: kernel mean
    of 5 launches, one plain PyTorch pass on the card) and its bound:
    - ``myers_dist``: for every gap bucket (Q, T, G) of
      LordfastConfig().gap_buckets, G ragged random gaps (NW and SHW,
-     with the word-boundary, negative-end and length-1 cases) through the
-     kernel and the plain version on the card and on the CPU; dist/end
-     and the last column's words equal exactly;
+     with the word-boundary, lane-boundary, negative-end, short-target
+     and length-1 cases) through the kernel and the plain version on the
+     card and on the CPU; dist/end and the last column's words equal
+     exactly; after phase 5, each bucket the v2 pass launched is timed
+     again at the median G of its launches there;
    - ``myers_moves``: the same gaps; dist, end, lead and colcode equal
      exactly on the card and on the CPU, the decoded move arrays equal,
      and dist/end equal to ``myers_dist``'s;
@@ -41,15 +45,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    2 kb repeat families, plus 40 SV/clip reads and 8 junk reads — at the
    default config: two passes with the offload on (the SAM repeats) and
    one with it off (the same SAM); the Hirschberg split fired; the stage
-   counters equal the JAX package's on the same data; the 48 SV/junk reads mapped on the CPU
-   (plain versions, offload on) give the same records.
+   counters equal the JAX package's on the same data; the 48 SV/junk
+   reads mapped on the CPU (plain versions, offload on) give the same
+   records.
 
-Every kernel's launch count is set to 0 just before each of phases 3-5
-and read just after; a kernel a path needs that did not launch there is
-a failure.  Then a line with the kernel table (JSON), the nvidia-smi
-line, and last the contract line {"ok": true, "device": {...}}.  Exits
-non-zero without a result when no CUDA device is available.  The
-datasets are cached in .smoke_cache/ (gitignored).
+Phases 4 and 5 run the engine at verbosity 2, which adds the
+``gpart_*`` counters (launches per bucket and part size) and prints them
+with the ``gaps_b*`` counters.  Every kernel's launch count is set to 0
+just before each of phases 3-5 and read just after; a kernel a path
+needs that did not launch there is a failure.  Then a line with the
+kernel table (JSON), the nvidia-smi line, and last the contract line
+{"ok": true, "device": {...}}.  Exits non-zero without a result when no
+CUDA device is available.  The datasets are cached in .smoke_cache/
+(gitignored).
 """
 
 from __future__ import annotations
@@ -154,7 +162,7 @@ def phase_env() -> float:
     log(f"[env] max SM clock {clock_mhz:.0f} MHz -> INT32 rate "
         f"{int_rate / 1e12:.2f} Tops/s (132 SMs x 64 lanes)")
     t = time.time()
-    secs = cuda_build.build_all()
+    secs = cuda_build.build_all(force=True)
     log(f"[env] kernel libraries built in {time.time() - t:.1f} s "
         f"(one nvcc each, in parallel: "
         + ", ".join(f"{n} {s:.1f} s" for n, s in secs.items()) + ")")
@@ -162,16 +170,62 @@ def phase_env() -> float:
         for line in text.splitlines():
             if "registers" in line or "stack frame" in line:
                 log(f"[env] ptxas {name}: {line.strip()}")
+    check_myers_frames(cuda_build.logs.get("myers", ""))
     t = time.time()
     native._load()
     log(f"[env] native host library built in {time.time() - t:.1f} s")
     return int_rate
 
 
+def myers_frames(ptxas_log: str) -> list:
+    """(kernel, W, path, registers, stack, spill stores, spill loads) of
+    each myers instantiation in ptxas's -v report."""
+    import re
+
+    out, cur = [], None
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Function properties for \S*(myers_\w+?_kernel)"
+                      r"ILi(\d+)ELb([01])E", line)
+        if m:
+            cur = [m.group(1), int(m.group(2)), m.group(3) == "1"]
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if cur is not None and m and len(cur) == 3:
+            cur += [int(x) for x in m.groups()]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if cur is not None and m and len(cur) == 6:
+            out.append((cur[0], cur[1], cur[2], int(m.group(1)), *cur[3:]))
+            cur = None
+    return out
+
+
+def check_myers_frames(ptxas_log: str):
+    """Print each myers instantiation's frame; a warp-per-gap one with a
+    stack frame or a spill is a failure (its words must stay in
+    registers)."""
+    frames = myers_frames(ptxas_log)
+    if not frames:
+        raise AssertionError("no ptxas report for the myers kernels")
+    for kern, W, path, regs, stack, st, ld in sorted(frames):
+        log(f"[env] ptxas myers {kern} W={W} {'moves' if path else 'dist'}:"
+            f" {regs} registers, {stack} bytes stack, {st}/{ld} bytes "
+            "spill stores/loads")
+    bad = [f for f in frames if f[0] == "myers_warp_kernel" and any(f[4:])]
+    if bad:
+        raise AssertionError(f"warp-per-gap instantiations with a stack "
+                             f"frame or spills: {bad}")
+
+
 def make_gaps(rng, Q, T, G):
     """G ragged gaps for bucket (Q, T): mutated-copy targets (so the
     distances are non-trivial), random NW/SHW modes, and the edge cases
-    first — ql at 32/64 multiples, ql = 1, tl = 1, tl < W64."""
+    first — ql at 32/64 multiples, ql = 1, tl = 1, tl < W64; where W =
+    Q/32 >= 8, ql at lane boundaries of the warp kernel's bottom word
+    (32 K l - 1, 32 K l, 32 K l + 1 for K = ceil(W/32) words a lane, l =
+    1, 2, the middle and the last lane) against targets of 1 to 33
+    columns, shorter than the 32-lane skew, and T."""
     import numpy as np
 
     qs = np.full((G, Q), 4, np.uint8)
@@ -181,6 +235,14 @@ def make_gaps(rng, Q, T, G):
     special_q = [Q, Q - 1, 1, min(Q, 32), min(Q, 64), min(Q, 33),
                  min(Q, 63), 1]
     special_t = [T, 1, T, 3, 1, 5, T, 1]
+    W = Q // 32
+    if W >= 8:
+        K = -(-W // 32)
+        lanes = min(W // K, 32)
+        for i, lane in enumerate(sorted({1, 2, lanes // 2, lanes - 1})):
+            special_q += [32 * K * lane - 1, 32 * K * lane,
+                          32 * K * lane + 1]
+            special_t += [[1, 31, 33, T][i], 2, T - 7]
     for i, (a, b) in enumerate(zip(special_q, special_t)):
         if i < G:
             ql[i], tl[i] = a, b
@@ -331,6 +393,29 @@ def phase_kernel_gaps(int_rate):
                     "lordfast_tpu/ops/gap_dp_pallas.py:84",
                     also_replaces=tiled),
     ]
+
+
+def time_at_parts(parts):
+    """Each (kernel, bucket) the v2 pass launched, timed again at the
+    median G of its launches there (the engine launches each part at its
+    real size), against the full-G time of phase 2."""
+    import numpy as np
+    import torch
+
+    from lordfast_tpu_torch.config import LordfastConfig
+    from lordfast_tpu_torch.ops import gap_dp_cuda
+
+    rng = np.random.default_rng(20261020)
+    full = {(Q, T): G for Q, T, G in LordfastConfig().gap_buckets}
+    for (kern, Q, T), sizes in parts.items():
+        n = sizes[len(sizes) // 2]
+        gpu = [torch.from_numpy(a).cuda()
+               for a in make_gaps(rng, Q, T, n)]
+        fn = getattr(gap_dp_cuda, kern)
+        fn(*gpu, Q, T)
+        ms = _time_cuda(lambda: fn(*gpu, Q, T), 5)
+        log(f"[kernel] {kern} Q={Q} T={T} at v2's median part G={n} (of "
+            f"{len(sizes)} launches; full G {full[(Q, T)]}): {ms:.3f} ms")
 
 
 def _mutate(rng, q, err):
@@ -639,6 +724,30 @@ def _report(tag, label, eng, res):
         f"| {m} mapped | {_stage_line(eng)} | launches {launches}")
 
 
+def gap_parts(counters) -> dict:
+    """{(kernel, Q, T): [part sizes, one per launch]} from the engine's
+    gpart_{mode}_{Q}x{T}_{n} counters (verbosity >= 2)."""
+    parts = {}
+    for key, cnt in counters.items():
+        if not key.startswith("gpart_"):
+            continue
+        mode, shape, n = key.split("_")[1:]
+        Q, T = map(int, shape.split("x"))
+        kern = "myers_moves" if mode == "moves" else "myers_dist"
+        parts.setdefault((kern, Q, T), []).extend([int(n)] * cnt)
+    return {k: sorted(v) for k, v in sorted(parts.items())}
+
+
+def _report_buckets(tag, eng):
+    c = eng.metrics.counters
+    log(f"[{tag}] gaps per bucket: " + " ".join(
+        f"{k} {v}" for k, v in sorted(c.items()) if k.startswith("gaps_b")))
+    log(f"[{tag}] launches per bucket (kernel Q x T: launches, part sizes "
+        f"min/median/max): " + "; ".join(
+            f"{k} {Q}x{T}: {len(v)}, {v[0]}/{v[len(v) // 2]}/{v[-1]}"
+            for (k, Q, T), v in gap_parts(c).items()))
+
+
 def phase_v1():
     """v1 with the offload on (two passes) and off (one), on the card;
     returns the first pass's launch counts."""
@@ -649,7 +758,7 @@ def phase_v1():
 
     ref, reads = _dataset(easy=True)
     idx = _index(ref, "v1")
-    cfg = LordfastConfig()
+    cfg = LordfastConfig(verbosity=2)
     torch.cuda.reset_peak_memory_stats()
     t = time.time()
     eng = MappingEngine(idx, cfg, device="cuda")
@@ -662,6 +771,7 @@ def phase_v1():
         if label.startswith("first"):
             check_launches("v1", runs[-1][4], eng.metrics.counters,
                            ("myers_dist",))
+            _report_buckets("v1", eng)
     log(f"[v1] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; metrics "
         f"{eng.metrics.to_json()}")
@@ -683,7 +793,7 @@ def phase_v1():
 def phase_v2():
     """v2 with the offload on (two passes) and off (one); the JAX
     package's counters; the SV/junk reads on the CPU.  Returns the first
-    pass's launch counts."""
+    pass's launch counts and its part sizes (gap_parts)."""
     import torch
 
     from lordfast_tpu_torch.config import LordfastConfig
@@ -691,7 +801,7 @@ def phase_v2():
 
     ref, reads = _dataset(easy=False)
     idx = _index(ref, "v2")
-    cfg = LordfastConfig()
+    cfg = LordfastConfig(verbosity=2)
     torch.cuda.reset_peak_memory_stats()
     eng = MappingEngine(idx, cfg, device="cuda")
     runs = []
@@ -705,6 +815,8 @@ def phase_v2():
                                            "gaps_host")))
         if label.startswith("first"):
             check_launches("v2", runs[-1][4], c, KERNELS)
+            _report_buckets("v2", eng)
+            parts = gap_parts(c)
             if c.get("esc_splits", 0) <= 0:
                 raise AssertionError("v2: no Hirschberg split on the card")
             got = {k: c.get(k, 0) for k in V2_EXPECTED}
@@ -731,7 +843,7 @@ def phase_v2():
     _cpu_subset(idx, sam, reads, CACHE / "v2_sv_junk.fq",
                 lambda name, i: name.startswith(("sv", "junk")), "v2",
                 esc_device=True)
-    return runs[0][4]
+    return runs[0][4], parts
 
 
 def main() -> int:
@@ -745,8 +857,9 @@ def main() -> int:
     t0 = time.time()
     int_rate = phase_env()
     rows = phase_kernel_gaps(int_rate) + [phase_kernel_affine(int_rate)]
-    by_path = {"golden": phase_golden(), "v1": phase_v1(),
-               "v2": phase_v2()}
+    by_path = {"golden": phase_golden(), "v1": phase_v1()}
+    by_path["v2"], v2_parts = phase_v2()
+    time_at_parts(v2_parts)
     for row in rows:
         row["launches"] = by_path["v2"][row["name"]]
         row["launches_by_path"] = {p: n[row["name"]]

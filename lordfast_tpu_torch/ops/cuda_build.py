@@ -55,16 +55,16 @@ def temp_lib_path(name: str) -> Path:
     return temp_output(BUILD_DIR, lib_path(name).name)
 
 
-def build_all(names=SOURCES) -> dict:
-    """Compile every stale library of ``names`` with one nvcc process
-    each, all started together; returns {name: seconds} of the builds
-    that ran."""
+def build_all(names=SOURCES, force: bool = False) -> dict:
+    """Compile every stale library of ``names`` (every one with
+    ``force``) with one nvcc process each, all started together; returns
+    {name: seconds} of the builds that ran."""
     with _lock:
-        return _build_all(names)
+        return _build_all(names, force)
 
 
-def _build_all(names) -> dict:
-    todo = [n for n in names if _stale(n)]
+def _build_all(names, force: bool = False) -> dict:
+    todo = [n for n in names if force or _stale(n)]
     if not todo:
         return {}
     nvcc = _nvcc()

@@ -6,7 +6,9 @@ request the scores of the last column (the escalation offload's
 Hirschberg splits); ``myers_moves`` also returns the path, as the Pallas
 kernel's ``lead`` and per-column codes (the escalation offload's
 secondary segments).  On a CUDA tensor each launches its mode of the one
-fill in ``csrc/myers.cu`` — one thread per gap, built for sm_90a — and
+fill in ``csrc/myers.cu``, built for sm_90a — one thread per gap in the
+narrow buckets, one warp per gap with the word chain across its lanes in
+the wide ones (the source's dispatch says which W takes which) — and
 raises if the launch fails; on a CPU tensor it runs the plain PyTorch
 version (``gap_dp.myers_dist_plain`` / ``gap_dp.myers_moves_plain``).
 There is no fallback from the first to the second.
@@ -54,6 +56,10 @@ def _check_gaps(fname, qs, ql, ts, tl, is_shw, Q, T):
     check_tensor("ts", ts, torch.uint8, (G, T), dev)
     check_tensor("tl", tl, torch.int32, (G,), dev)
     check_tensor("is_shw", is_shw, torch.bool, (G,), dev)
+    # the kernels read the code rows with 16-byte loads
+    if T % 16 or qs.data_ptr() % 16 or ts.data_ptr() % 16:
+        raise ValueError(f"{fname}: T={T} or a code row not on a 16-byte "
+                         "boundary")
     return G, dev
 
 
@@ -100,8 +106,9 @@ def myers_moves(qs, ql, ts, tl, is_shw, Q: int, T: int):
     the uint16 ``(run << 2) | move`` codes (gap_dp.myers_moves_plain;
     decode with gap_dp.decode_col_moves).  Inputs as myers_dist.  CUDA
     tensors launch the kernel on the current stream (counted in
-    ``myers_moves.launches``) with two (T * Q/32, G) uint32 decision
-    planes as scratch; CPU tensors run the plain version."""
+    ``myers_moves.launches``) with two ((T + 32) * Q/32, G) uint32
+    decision planes as scratch (laid out as the kernel's design for the
+    bucket needs); CPU tensors run the plain version."""
     if qs.device.type == "cpu":
         return myers_moves_plain(qs, ql, ts, tl, is_shw, Q, T)
     G, dev = _check_gaps("myers_moves", qs, ql, ts, tl, is_shw, Q, T)
@@ -111,7 +118,8 @@ def myers_moves(qs, ql, ts, tl, is_shw, Q: int, T: int):
     colcode = torch.empty((T, G), dtype=torch.int16, device=dev)
     if G == 0:
         return dist, end, lead, colcode
-    up = torch.empty((T * (Q // 32), G), dtype=torch.int32, device=dev)
+    up = torch.empty(((T + 32) * (Q // 32), G), dtype=torch.int32,
+                     device=dev)
     left = torch.empty_like(up)
     f = _bind("lf_myers_moves", 11)
     _launch("myers_moves", f,

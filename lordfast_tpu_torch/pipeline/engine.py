@@ -399,7 +399,9 @@ class MappingEngine:
         one device tensor (and the codes or words into one more),
         fetched by _collect_gap_descs with one device-to-host copy each.
         Descriptors larger than every bucket are omitted (the native
-        stitcher computes those locally)."""
+        stitcher computes those locally).  With verbosity >= 2 the
+        ``gsz_*`` counters histogram the gap sizes and ``gpart_{mode}_
+        {Q}x{T}_{n}`` counts the launches of n gaps in each bucket."""
         cfg = self.cfg
         buckets = cfg.gap_buckets
         per_bucket = [[] for _ in buckets]
@@ -432,6 +434,8 @@ class MappingEngine:
             self.metrics.add(f"gaps_b{Q}", len(per))
             for s in range(0, len(per), G):
                 part = per[s : s + G]
+                if want_hist:
+                    self.metrics.add(f"gpart_{mode}_{Q}x{T}_{len(part)}", 1)
                 desc = self._desc_tensors([d for _, d in part])
                 qs, ql, ts, tl = gap_dp.gather_gap_seqs(
                     self.arrs["pac_words"], reads_dev, desc, Q, T,

@@ -100,6 +100,51 @@ def test_cuda_moves_kernel_matches_plain(cuda_device, bucket):
     np.testing.assert_array_equal(e.cpu().numpy(), want[1].numpy())
 
 
+def _lane_edge_gaps(rng, Q, T):
+    """Gaps for a wide bucket (one warp per gap): ql at every lane
+    boundary of the bottom word (32 K l - 1, 32 K l, 32 K l + 1, K =
+    ceil(W / 32) words a lane), 1, Q, and 64-row multiples +- 1 (the W64
+    term); tl = 1, 2, shorter than the 32-lane skew, and T."""
+    W = Q // 32
+    K = -(-W // 32)
+    qls = [1, Q, Q - 1, 63, 65]
+    for lane in range(1, min(W // K, 32)):
+        qls += [32 * K * lane - 1, 32 * K * lane, 32 * K * lane + 1]
+    tl_cycle = [1, 5, 31, 33, T, T - 7, 17, 2]
+    G = len(qls)
+    qs = np.full((G, Q), 4, np.uint8)
+    ts = np.zeros((G, T), np.uint8)
+    ql = np.array(qls, np.int32)
+    tl = np.array([tl_cycle[i % 8] for i in range(G)], np.int32)
+    for g in range(G):
+        q = rng.integers(0, 4, ql[g]).astype(np.uint8)
+        t = (rng.integers(0, 4, tl[g]) if g % 3 == 2
+             else np.resize(q, tl[g]).copy())
+        qs[g, : ql[g]] = q
+        ts[g, : tl[g]] = t
+    return qs, ql, ts, tl, (np.arange(G) % 2 == 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", [(512, 576), (2048, 2176), (4096, 4352)])
+def test_cuda_warp_kernel_lane_edges(cuda_device, bucket):
+    # the warp-per-gap kernel: bw at each lane boundary, tl below the
+    # skew, SHW ties and the W64 term; dist, the last column and the path
+    Q, T = bucket
+    arrays = _lane_edge_gaps(np.random.default_rng(Q), Q, T)
+    cpu = [torch.from_numpy(a) for a in arrays]
+    gpu = [a.to(cuda_device) for a in cpu]
+    want = myers_dist_plain(*cpu, Q, T, want_col=True)
+    got = gap_dp_cuda.myers_dist(*gpu, Q, T, want_col=True)
+    want_mv = gap_dp.myers_moves_plain(*cpu, Q, T)
+    got_mv = gap_dp_cuda.myers_moves(*gpu, Q, T)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dist", "end", "col", "dist", "end", "lead",
+                           "colcode"), got + got_mv, want + want_mv):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      err_msg=name)
+
+
 def _affine_problems(rng, Qe, Te, G):
     """G extension problems: related pairs (a mutated copy), junk pairs
     (z-drop), N codes, qlen near Qe; clip and split parameter sets."""
@@ -166,3 +211,9 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
         gap_dp_cuda.myers_dist(qs, n, ts, n, shw, 96, 48)
     with pytest.raises(ValueError):
         gap_dp_cuda.myers_dist(qs, n, ts.cpu(), n, shw, 32, 48)
+    # rows must start on 16-byte boundaries
+    buf = torch.zeros(4 * 48 + 8, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        gap_dp_cuda.myers_dist(qs, n, buf[8:].view(4, 48), n, shw, 32, 48)
+    with pytest.raises(ValueError):
+        gap_dp_cuda.myers_dist(qs, n, buf[:160].view(4, 40), n, shw, 32, 40)

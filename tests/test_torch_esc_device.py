@@ -53,10 +53,11 @@ def _esc_counters(engine):
 
 @pytest.fixture(scope="module")
 def port_runs(port_idx, sv_reads):
+    # verbosity 2 adds the gap histograms (gsz_*, gpart_*) only
     runs = {}
     for on in (False, True):
-        eng = MappingEngine(port_idx, TCfg(**TEST_CFG), device="cpu",
-                            esc_device=on)
+        eng = MappingEngine(port_idx, TCfg(**TEST_CFG, verbosity=2),
+                            device="cpu", esc_device=on)
         runs[on] = (_map(eng, sv_reads), eng)
     return runs
 
@@ -74,6 +75,28 @@ def test_offload_on_equals_offload_off(port_runs):
     assert c["esc_affine_parts"] > 0 and c["esc_nw_parts"] > 0
     assert "esc_sites" not in port_runs[False][1].metrics.counters
     assert sam_on == sam_off
+
+
+def test_gap_part_counters_match_launches(port_runs):
+    # gpart_{mode}_{Q}x{T}_{n}: one count per launch of n gaps, as
+    # chip_smoke.gap_parts reads them
+    import chip_smoke
+
+    c = port_runs[True][1].metrics.counters
+    G = {(Q, T): g for Q, T, g in TCfg().gap_buckets}
+    per_mode = {}
+    for key, cnt in c.items():
+        if key.startswith("gpart_"):
+            mode, shape, n = key.split("_")[1:]
+            Q, T = map(int, shape.split("x"))
+            assert 1 <= int(n) <= G[(Q, T)], key
+            per_mode[mode] = per_mode.get(mode, 0) + cnt
+    launched = {"dist": c["gap_parts"], "col": c.get("esc_split_parts", 0),
+                "moves": c["esc_nw_parts"]}
+    assert per_mode == {m: n for m, n in launched.items() if n}
+    parts = chip_smoke.gap_parts(c)
+    assert sum(map(len, parts.values())) == sum(per_mode.values())
+    assert {k for k, _, _ in parts} == {"myers_dist", "myers_moves"}
 
 
 def test_offload_matches_jax_engine(ref8_idx, port_runs, sv_reads):

@@ -1,6 +1,6 @@
 """The port's native builds are safe under concurrency: the host library
 (lordfast_tpu_torch.native) built and loaded from 8 threads at once into
-a fresh directory compiles and loads once, and the CUDA builder
+a fresh directory compiles and loads once, and the CUDA build module
 (ops.cuda_build) gives every build a temporary output of its own and,
 driven by 8 threads through a stand-in compiler, builds and loads each
 library once.  No nvcc is needed."""
@@ -17,23 +17,30 @@ N_THREADS = 8
 
 
 def _together(fn):
-    """fn() from N_THREADS threads released at once; their results."""
-    gate = threading.Barrier(N_THREADS)
+    """fn() from N_THREADS threads released at once, with a short switch
+    interval; their results."""
+    gate = threading.Barrier(N_THREADS, timeout=60)
     out, errs = [None] * N_THREADS, []
 
     def run(i):
-        gate.wait()
         try:
+            gate.wait()
             out[i] = fn()
         except Exception as e:  # reported below
             errs.append(e)
 
     threads = [threading.Thread(target=run, args=(i,))
                for i in range(N_THREADS)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
     assert not errs, errs
     return out
 
@@ -75,7 +82,7 @@ def test_cuda_build_temp_names_are_unique(tmp_path, monkeypatch):
 
 def test_cuda_load_from_threads(tmp_path, monkeypatch):
     # a stand-in nvcc copies the host library to its -o argument, so the
-    # builder's lock, naming and rename run as they do on the card
+    # build lock, naming and rename run as they do on the card
     real_lib = native.build()
     log = tmp_path / "nvcc.log"
     fake = tmp_path / "nvcc"
