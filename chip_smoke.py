@@ -11,8 +11,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    lines, and each ``myers`` instantiation's registers, stack and
    spills: a warp-per-gap instantiation with a stack frame or a spill
    fails; the native host library) with their seconds;
-2. kernels against plain, each with its time (CUDA events: kernel mean
-   of 5 launches, one plain PyTorch pass on the card) and its bound:
+2. kernels against plain, each with its time (CUDA events: the kernel's
+   mean over 5 launches queued behind a spin kernel, so that the
+   wrapper's host time is hidden; one plain PyTorch pass on the card)
+   and its bound:
    - ``myers_dist``: for every gap bucket (Q, T, G) of
      LordfastConfig().gap_buckets, G ragged random gaps (NW and SHW,
      with the word-boundary, lane-boundary, negative-end, short-target
@@ -258,6 +260,8 @@ def make_gaps(rng, Q, T, G):
 
 
 def _time_cuda(fn, reps):
+    """Mean ms of fn() between two events: the device time and whatever
+    host time fn spends between its launches (the plain versions)."""
     import torch
 
     start = torch.cuda.Event(enable_timing=True)
@@ -268,6 +272,37 @@ def _time_cuda(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+# Pre-roll of _time_launches: a spin kernel of this many SM clocks (~20 ms)
+# holds the stream while the host queues the launches.
+SPIN_CYCLES = 40_000_000
+
+
+def _time_launches(fn, reps):
+    """Mean ms of the kernels fn() launches, back to back: a spin kernel
+    holds the stream while the host queues all reps calls, so the events
+    see the launches and none of the wrapper's host time.  If the spin
+    ended before the host was done, it is doubled and the timing taken
+    again."""
+    import torch
+
+    fn()  # warm-up: the library's load and the allocator's blocks
+    cycles = SPIN_CYCLES
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        hidden = not start.query()
+        torch.cuda.synchronize()
+        if hidden:
+            return start.elapsed_time(stop) / reps
+        cycles *= 2
+    raise RuntimeError("the host did not queue the launches inside the spin")
 
 
 def _max_err(pairs) -> int:
@@ -343,7 +378,7 @@ def phase_kernel_gaps(int_rate):
         if err:
             raise AssertionError(f"myers_dist ({Q},{T},{G}): kernel != "
                                  f"plain (max abs err {err})")
-        ms = _time_cuda(lambda: gap_dp_cuda.myers_dist(*gpu, Q, T), 5)
+        ms = _time_launches(lambda: gap_dp_cuda.myers_dist(*gpu, Q, T), 5)
         plain_ms = _time_cuda(lambda: gap_dp.myers_dist_plain(*gpu, Q, T), 1)
         b = bound(in_bytes + 8 * G, MYERS_OPS_PER_WORD * steps, int_rate)
         dist_t.add(ms, plain_ms, b, err)
@@ -369,7 +404,8 @@ def phase_kernel_gaps(int_rate):
         if any(not np.array_equal(x, y) for x, y in zip(mv_k, mv_c)):
             raise AssertionError(f"myers_moves ({Q},{T},{G}): decoded "
                                  "moves differ")
-        ms = _time_cuda(lambda: gap_dp_cuda.myers_moves(*gpu, Q, T), 5)
+        ms = _time_launches(lambda: gap_dp_cuda.myers_moves(*gpu, Q, T),
+                                5)
         plain_ms = _time_cuda(lambda: gap_dp.myers_moves_plain(*gpu, Q, T),
                               1)
         tb_cols = float((k_np[1].astype(np.int64) + 1).clip(0).sum())
@@ -412,8 +448,7 @@ def time_at_parts(parts):
         gpu = [torch.from_numpy(a).cuda()
                for a in make_gaps(rng, Q, T, n)]
         fn = getattr(gap_dp_cuda, kern)
-        fn(*gpu, Q, T)
-        ms = _time_cuda(lambda: fn(*gpu, Q, T), 5)
+        ms = _time_launches(lambda: fn(*gpu, Q, T), 5)
         log(f"[kernel] {kern} Q={Q} T={T} at v2's median part G={n} (of "
             f"{len(sizes)} launches; full G {full[(Q, T)]}): {ms:.3f} ms")
 
@@ -505,7 +540,7 @@ def phase_kernel_affine(int_rate):
         if err:
             raise AssertionError(f"affine_extend ({Qe},{Te},{G}): kernel != "
                                  f"plain (max abs err {err})")
-        ms = _time_cuda(lambda: affine_cuda.extend_batch_cuda(
+        ms = _time_launches(lambda: affine_cuda.extend_batch_cuda(
             q_d, t_d, Qe, Te, **p_d), 5)
         nbytes = qs.nbytes + ts.nbytes + 4 * G * (len(params) + 6)
         b = bound(nbytes, AFFINE_OPS_PER_CELL * cells, int_rate)

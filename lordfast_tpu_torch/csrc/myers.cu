@@ -44,12 +44,12 @@
 //   word loops are unrolled, so Peq/Pv/Mv stay in registers.  Planes
 //   (c * W + w) * G + g, so a warp's stores for one (column, word) are
 //   contiguous.  Blocks of 128 threads (32 in path mode): 32-thread
-//   blocks in distance mode were within 4% on the H100
-//   (tools/torch_myers_design.py).
+//   blocks in distance mode were within 4% on an H100 80GB HBM3, inside
+//   the spread of two rounds of one build.
 // - W >= 8 (buckets (256, 320, 2048), (512, 576, 1024), (2048, 2176,
 //   64), (4096, 4352, 32)): one warp per gap (myers_warp_kernel; at W = 8
-//   it took half the thread kernel's time on the H100,
-//   tools/torch_myers_design.py), the word chain split across lanes as
+//   it took 0.074 ms against the thread kernel's 0.135 ms on an H100
+//   80GB HBM3), the word chain split across lanes as
 //   a diagonal wavefront.  Lane l owns words [l K, l K +
 //   K), K = ceil(W / 32) (1, 2 or 4), and keeps their Peq, Pv and Mv in
 //   registers (no stack frame).  At step s it runs column c = s - l,
@@ -78,18 +78,6 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-// Smallest W run by the warp kernel (8 or 16); thread-kernel block size
-// of the distance mode.  The defaults are the design above;
-// tools/torch_myers_design.py builds the alternatives to time them.
-#ifndef LF_MYERS_WARP_MIN_W
-#define LF_MYERS_WARP_MIN_W 8
-#endif
-#ifndef LF_MYERS_THREAD_BLOCK
-#define LF_MYERS_THREAD_BLOCK 128
-#endif
-static_assert(LF_MYERS_WARP_MIN_W == 8 || LF_MYERS_WARP_MIN_W == 16,
-              "the thread kernel unrolls W <= 16 only");
-
 namespace {
 
 constexpr int kOpMatch = 0, kOpDelete = 2, kOpMismatch = 3;
@@ -98,7 +86,7 @@ constexpr int kLanes = 32;
 
 // threads per block of the thread kernel
 template <bool kPath>
-constexpr int kBlock = kPath ? 32 : LF_MYERS_THREAD_BLOCK;
+constexpr int kBlock = kPath ? 32 : 128;
 
 // The match mask of target code tc from the five Peq words.
 __device__ __forceinline__ uint32_t peq_of(uint32_t tc, uint32_t p0,
@@ -220,11 +208,11 @@ struct Args {
 };
 
 // ---------------------------------------------------------------------
-// One thread per gap (W <= 16 only: the word loops unroll).
+// One thread per gap (W <= 4: the word loops unroll).
 template <int W, bool kPath>
 __global__ void __launch_bounds__(kBlock<kPath>)
 myers_thread_kernel(const Args a) {
-  static_assert(W <= 16, "unrolled word loops");
+  static_assert(W <= 4, "unrolled word loops");
   const int g = blockIdx.x * kBlock<kPath> + threadIdx.x;
   const int G = a.G;
   if (g >= G) return;
@@ -529,7 +517,7 @@ __global__ void __launch_bounds__(kLanes) myers_warp_kernel(const Args a) {
 
 template <int W, bool kPath>
 void launch(const Args& a, cudaStream_t stream) {
-  if constexpr (W >= LF_MYERS_WARP_MIN_W) {
+  if constexpr (W >= 8) {
     const size_t smem = a.T + (kPath ? a.Q : 0);
     myers_warp_kernel<W, kPath><<<a.G, kLanes, smem, stream>>>(a);
   } else {

@@ -1,21 +1,18 @@
 #!/usr/bin/env python3
-"""Times the design choices of lordfast_tpu_torch/csrc/myers.cu on one GPU.
+"""Times lordfast_tpu_torch/csrc/myers.cu against another version of it
+on one GPU.
 
     python3 tools/torch_myers_design.py [--against OTHER/myers.cu]
 
-The source fixes two choices with macros: the smallest W = Q/32 that the
-warp-per-gap kernel runs (LF_MYERS_WARP_MIN_W, 16 or 8) and the block of
-the thread-per-gap kernel in distance mode (LF_MYERS_THREAD_BLOCK).
-This script builds the source three times (the defaults, the warp
-kernel from W = 16 only, thread block 32), and with ``--against`` also
-another version of the source with the same C entry points (for
-example the parent commit's), one nvcc each, in parallel, into
-lordfast_tpu_torch/_build/design/.  Then, in every bucket of
-LordfastConfig().gap_buckets at full G, it checks that every build's
-outputs equal the plain version's on the card and times lf_myers_dist
-and lf_myers_moves of each build (CUDA events, the mean of 5 launches,
-builds in turns A B C C B A).  It prints one line per bucket and mode,
-and the card's name and power limit.  Needs a CUDA device and nvcc.
+Builds this checkout's source and, with ``--against``, another version
+of it with the same C entry points (for example the parent commit's),
+one nvcc each, in parallel, into lordfast_tpu_torch/_build/design/.
+Then, in every bucket of LordfastConfig().gap_buckets at full G, it
+checks that every build's outputs equal the plain version's on the card
+and times lf_myers_dist and lf_myers_moves of each build (CUDA events,
+the mean of 5 launches queued behind a spin kernel, builds in turns
+A B B A).  It prints one line per bucket and mode, and the card's name
+and power limit.  Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -30,23 +27,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-VARIANTS = {"default": [], "thread_w8": ["-DLF_MYERS_WARP_MIN_W=16"],
-            "block32": ["-DLF_MYERS_THREAD_BLOCK=32"]}
-
 
 def build(out_dir: Path, against: Path | None) -> dict:
     from lordfast_tpu_torch.ops import cuda_build
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    src = cuda_build.CSRC_DIR / "myers.cu"
-    jobs = {n: (src, flags) for n, flags in VARIANTS.items()}
+    jobs = {"this": cuda_build.CSRC_DIR / "myers.cu"}
     if against is not None:
-        jobs["against"] = (against, [])
+        jobs["against"] = against
     procs = {n: subprocess.Popen(
-        [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *flags, "-o",
+        [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
          str(out_dir / f"libmyers_{n}.so"), str(path)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for n, (path, flags) in jobs.items()}
+        for n, path in jobs.items()}
     libs = {}
     for n, proc in procs.items():
         log = proc.communicate()[0]
@@ -125,7 +118,8 @@ def main() -> int:
         for kind, fn in (("dist", dist), ("moves", moves)):
             ms = {n: [] for n in libs}
             for n in [*libs, *reversed(list(libs))]:
-                ms[n].append(chip_smoke._time_cuda(lambda: fn(libs[n]), 5))
+                ms[n].append(
+                    chip_smoke._time_launches(lambda: fn(libs[n]), 5))
             print(f"[design] myers_{kind} Q={Q} T={T} G={G}: " + " | ".join(
                 f"{n} {min(v):.4f} ms ({' '.join(f'{x:.4f}' for x in v)})"
                 for n, v in ms.items()), flush=True)

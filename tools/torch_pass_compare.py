@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Warm passes of the port's engine over the bench's v1 or v2 dataset, on
-one GPU, with the engine of a chosen checkout.
+one GPU, with the engine of a chosen checkout.  A measurement aid: the
+smoke (chip_smoke.py) does not run it.
 
     python3 tools/torch_pass_compare.py [--root DIR] [--dataset v1|v2]
                                         [--passes N]
@@ -9,7 +10,9 @@ Imports ``lordfast_tpu_torch`` from ``--root`` (default: this checkout;
 give an unpacked copy of another commit to compare the two in one call,
 in turns A B B A), generates the dataset with ``bench.gen_dataset`` into
 this checkout's ``.smoke_cache/`` (the same files as chip_smoke.py),
-builds the index at the default config once and caches it there, and
+builds the index at the default config with the chosen checkout's
+builder once and caches it there under a name keyed by that checkout's
+path (so each side of a comparison loads its own builder's index), and
 maps the reads with the default ``LordfastConfig()`` on cuda: one first
 pass, then N warm passes.  Each pass ends in a device synchronise and
 prints one JSON line: root, pass, seconds, reads/s and the engine's
@@ -20,6 +23,7 @@ card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import io
 import json
 import sys
@@ -55,7 +59,8 @@ def main() -> int:
     if pkg.parent != root:
         raise RuntimeError(f"imported {pkg}, not from {root}")
     ref, reads = chip_smoke._dataset(easy=args.dataset == "v1")
-    cached = chip_smoke.CACHE / f"{args.dataset}_index.npz"
+    key = hashlib.sha1(str(root).encode()).hexdigest()[:12]
+    cached = chip_smoke.CACHE / f"{args.dataset}_index_{key}.npz"
     if cached.exists():
         idx = load_index(cached)
     else:
