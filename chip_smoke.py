@@ -8,9 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. environment: torch/CUDA versions, the card's name, power limit and
    maximum SM clock, and the builds (the two CUDA kernel libraries,
    one nvcc each, started together, with ptxas's register and stack
-   lines, and each ``myers`` instantiation's registers, stack and
-   spills: a warp-per-gap instantiation with a stack frame or a spill
-   fails; the native host library) with their seconds;
+   lines, and each ``myers`` and ``affine_warp_kernel`` instantiation's
+   registers, stack and spills: a warp-per-gap Myers instantiation or
+   an affine one (K = 1..8) with a stack frame or a spill fails; the
+   native host library) with their seconds;
 2. kernels against plain, each with its time (CUDA events: the kernel's
    mean over 5 launches queued behind a spin kernel, so that the
    wrapper's host time is hidden; one plain PyTorch pass on the card)
@@ -28,7 +29,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    - ``affine_extend``: for every affine bucket (Qe, Te, G) of
      LordfastConfig().affine_buckets, G problems mixing the clip and
      split parameter sets, related pairs with indels, junk pairs, z-drop
-     cases and qlen at Qe; all six outputs equal exactly;
+     cases and qlen at Qe, at the engine's w_max = 100 (K = 7 slots a
+     lane); then at (512, 544) with w_max = 15, 40 and 100 (K = 1, 3,
+     7), w_eff on lane edges and tlen = 0 and 1 (against the plain
+     version on the CPU); all six outputs equal exactly; after phase 5,
+     each bucket the v2 pass launched is timed again at its median part
+     size there (from the ``esc_b*`` counters);
 3. golden: MappingEngine(device="cuda") on tests/data (the golden test's
    config, the escalation offload on by default); the SAM must equal
    tests/data/golden.sam byte for byte, the offload must have fired, and
@@ -173,34 +179,42 @@ def phase_env() -> float:
             if "registers" in line or "stack frame" in line:
                 log(f"[env] ptxas {name}: {line.strip()}")
     check_myers_frames(cuda_build.logs.get("myers", ""))
+    check_affine_frames(cuda_build.logs.get("affine_ext", ""))
     t = time.time()
     native._load()
     log(f"[env] native host library built in {time.time() - t:.1f} s")
     return int_rate
 
 
-def myers_frames(ptxas_log: str) -> list:
-    """(kernel, W, path, registers, stack, spill stores, spill loads) of
-    each myers instantiation in ptxas's -v report."""
+def ptxas_frames(ptxas_log: str, name_re: str) -> list:
+    """(name_re's groups..., registers, stack, spill stores, spill loads)
+    of each kernel instantiation in ptxas's -v report whose mangled name
+    matches name_re."""
     import re
 
     out, cur = [], None
     for line in ptxas_log.splitlines():
-        m = re.search(r"Function properties for \S*(myers_\w+?_kernel)"
-                      r"ILi(\d+)ELb([01])E", line)
+        m = re.search(r"Function properties for \S*" + name_re, line)
         if m:
-            cur = [m.group(1), int(m.group(2)), m.group(3) == "1"]
+            cur = [m.groups()]
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
-        if cur is not None and m and len(cur) == 3:
-            cur += [int(x) for x in m.groups()]
+        if cur is not None and m and len(cur) == 1:
+            cur.append([int(x) for x in m.groups()])
             continue
         m = re.search(r"Used (\d+) registers", line)
-        if cur is not None and m and len(cur) == 6:
-            out.append((cur[0], cur[1], cur[2], int(m.group(1)), *cur[3:]))
+        if cur is not None and m and len(cur) == 2:
+            out.append((*cur[0], int(m.group(1)), *cur[1]))
             cur = None
     return out
+
+
+def myers_frames(ptxas_log: str) -> list:
+    """(kernel, W, path, registers, stack, spill stores, spill loads) of
+    each myers instantiation in ptxas's -v report."""
+    return [(kern, int(W), path == "1", *rest) for kern, W, path, *rest in
+            ptxas_frames(ptxas_log, r"(myers_\w+?_kernel)ILi(\d+)ELb([01])E")]
 
 
 def check_myers_frames(ptxas_log: str):
@@ -218,6 +232,24 @@ def check_myers_frames(ptxas_log: str):
     if bad:
         raise AssertionError(f"warp-per-gap instantiations with a stack "
                              f"frame or spills: {bad}")
+
+
+def check_affine_frames(ptxas_log: str):
+    """Print each affine_warp_kernel<K> instantiation's frame; one missing
+    (K = 1..8), or with a stack frame or a spill, is a failure (the band
+    must stay in registers)."""
+    frames = sorted((int(K), *rest) for _, K, *rest in ptxas_frames(
+        ptxas_log, r"(affine_warp_kernel)ILi(\d+)E"))
+    for K, regs, stack, st, ld in frames:
+        log(f"[env] ptxas affine_warp_kernel K={K}: {regs} registers, "
+            f"{stack} bytes stack, {st}/{ld} bytes spill stores/loads")
+    if [f[0] for f in frames] != list(range(1, 9)):
+        raise AssertionError(f"ptxas reported affine_warp_kernel for K = "
+                             f"{[f[0] for f in frames]}, not 1..8")
+    bad = [f for f in frames if any(f[2:])]
+    if bad:
+        raise AssertionError(f"affine instantiations with a stack frame or "
+                             f"spills: {bad}")
 
 
 def make_gaps(rng, Q, T, G):
@@ -433,24 +465,34 @@ def phase_kernel_gaps(int_rate):
 
 def time_at_parts(parts):
     """Each (kernel, bucket) the v2 pass launched, timed again at the
-    median G of its launches there (the engine launches each part at its
-    real size), against the full-G time of phase 2."""
+    median part size of its launches there (the engine launches each part
+    at its real size), against the full-G time of phase 2."""
     import numpy as np
     import torch
 
     from lordfast_tpu_torch.config import LordfastConfig
-    from lordfast_tpu_torch.ops import gap_dp_cuda
+    from lordfast_tpu_torch.ops import affine_cuda, gap_dp_cuda
 
+    cfg = LordfastConfig()
+    w_max = max(cfg.clip_band, cfg.split_band)
     rng = np.random.default_rng(20261020)
-    full = {(Q, T): G for Q, T, G in LordfastConfig().gap_buckets}
+    full = {(Q, T): G for Q, T, G in cfg.gap_buckets + cfg.affine_buckets}
     for (kern, Q, T), sizes in parts.items():
         n = sizes[len(sizes) // 2]
-        gpu = [torch.from_numpy(a).cuda()
-               for a in make_gaps(rng, Q, T, n)]
-        fn = getattr(gap_dp_cuda, kern)
-        ms = _time_launches(lambda: fn(*gpu, Q, T), 5)
-        log(f"[kernel] {kern} Q={Q} T={T} at v2's median part G={n} (of "
-            f"{len(sizes)} launches; full G {full[(Q, T)]}): {ms:.3f} ms")
+        if kern == "affine_extend":
+            qs, ts, params = make_affine(rng, Q, T, n)
+            q_d, t_d = torch.from_numpy(qs).cuda(), torch.from_numpy(ts).cuda()
+            p_d = {k: torch.from_numpy(v).cuda() for k, v in params.items()}
+            ms = _time_launches(lambda: affine_cuda.extend_batch_cuda(
+                q_d, t_d, Q, T, w_max, **p_d), 5)
+        else:
+            gpu = [torch.from_numpy(a).cuda()
+                   for a in make_gaps(rng, Q, T, n)]
+            fn = getattr(gap_dp_cuda, kern)
+            ms = _time_launches(lambda: fn(*gpu, Q, T), 5)
+        log(f"[kernel] {kern} {'Qe' if kern == 'affine_extend' else 'Q'}={Q} "
+            f"T={T} at v2's median part G={n} (of {len(sizes)} launches; "
+            f"full G {full[(Q, T)]}): {ms:.3f} ms")
 
 
 def _mutate(rng, q, err):
@@ -512,9 +554,45 @@ def make_affine(rng, Qe, Te, G):
     return qs, ts, params
 
 
+def lane_edge_bands(w_max: int, n: int = 12) -> list:
+    """Up to n w_eff values, spread over [1, w_max] and w_max itself,
+    whose band of slots [w_max - w_eff, w_max + w_eff] starts on a lane's
+    first slot or ends on a lane's last one (K = ceil((2 w_max + 2) / 32)
+    slots a lane), or whose width 2 w_eff + 1 is a multiple of K."""
+    import numpy as np
+
+    K = -(-(2 * w_max + 2) // 32)
+    ws = [w for w in range(1, w_max + 1)
+          if (w_max - w) % K == 0 or (w_max + w + 1) % K == 0
+          or (2 * w + 1) % K == 0]
+    pick = np.unique(np.linspace(0, len(ws) - 1, n).round().astype(int))
+    return sorted({ws[i] for i in pick} | {w_max})
+
+
+def make_affine_edges(rng, Qe, Te, w_max):
+    """make_affine's problems for a band of w_max (K = 1 at 15, 3 at 40, 7
+    at 100): the clip and split bands capped at w_max, and every third
+    problem a w_eff of lane_edge_bands(w_max); tlen = 0 and 1 in two."""
+    import numpy as np
+
+    from lordfast_tpu_torch.ops import affine
+
+    edges = lane_edge_bands(w_max)
+    qs, ts, p = make_affine(rng, Qe, Te, 3 * len(edges))
+    w = np.minimum(np.where(p["o_del"] == 8, 100, 40), w_max)
+    p["w_eff"] = affine.clamp_band(p["qlen"], 2, 0, p["o_del"], p["e_del"],
+                                   p["o_ins"], p["e_ins"], w)
+    p["w_eff"][::3] = edges
+    p["tlen"][1:3] = [0, 1]
+    ts[1:3] = 0
+    ts[2, 0] = qs[2, 0]
+    return qs, ts, p
+
+
 def phase_kernel_affine(int_rate):
-    """affine_extend against its plain version in every affine bucket;
-    returns its kernel-table row."""
+    """affine_extend against its plain version in every affine bucket at
+    the engine's band, and on lane-edge bands at K = 1, 3 and 7; returns
+    its kernel-table row."""
     import numpy as np
     import torch
 
@@ -541,7 +619,7 @@ def phase_kernel_affine(int_rate):
             raise AssertionError(f"affine_extend ({Qe},{Te},{G}): kernel != "
                                  f"plain (max abs err {err})")
         ms = _time_launches(lambda: affine_cuda.extend_batch_cuda(
-            q_d, t_d, Qe, Te, **p_d), 5)
+            q_d, t_d, Qe, Te, w_max, **p_d), 5)
         nbytes = qs.nbytes + ts.nbytes + 4 * G * (len(params) + 6)
         b = bound(nbytes, AFFINE_OPS_PER_CELL * cells, int_rate)
         tally.add(ms, plain_ms, b, err)
@@ -549,11 +627,28 @@ def phase_kernel_affine(int_rate):
         log(f"[kernel] affine_extend Qe={Qe} Te={Te} G={G}: six outputs "
             f"exact ({early} problems end before their last row) | kernel "
             f"{ms:.3f} ms ({cells / ms / 1e6:.3f} Gcell/s over {cells} band "
-            f"cells) | plain {plain_ms:.1f} ms | bound {b[0]:.4f} ms "
-            f"({b[1]})")
+            f"cells, {int(params['tlen'].max())} rows at most) | plain "
+            f"{plain_ms:.1f} ms | bound {b[0]:.4f} ms ({b[1]})")
     log(f"[kernel] all {len(cfg.affine_buckets)} affine buckets exact; one "
         f"launch each at full G: kernel {tally.ms:.3f} ms, plain "
         f"{tally.plain_ms:.1f} ms")
+    Qe, Te = 512, 544
+    for wm in (15, 40, w_max):
+        qs, ts, params = make_affine_edges(rng, Qe, Te, wm)
+        cpu = [torch.from_numpy(a) for a in (qs, ts)]
+        p_c = {k: torch.from_numpy(v) for k, v in params.items()}
+        got = affine.extend_batch(*(a.cuda() for a in cpu), Qe, Te, 256, wm,
+                                  **{k: v.cuda() for k, v in p_c.items()})
+        want = affine.extend_batch_plain(*cpu, Qe, Te, 256, wm, **p_c)
+        err = _max_err(zip(got, want))
+        if err:
+            raise AssertionError(f"affine_extend w_max={wm}: kernel != plain "
+                                 f"on lane-edge bands (max abs err {err})")
+        tally.err = max(tally.err, err)
+        log(f"[kernel] affine_extend w_max={wm} (K={-(-(2 * wm + 2) // 32)})"
+            f": {len(qs)} problems, w_eff on lane edges "
+            f"{lane_edge_bands(wm)}: six outputs exact against the plain "
+            f"version on the CPU")
     return tally.row("affine_extend", "lordfast_tpu_torch/csrc/affine_ext.cu",
                      "lordfast_tpu/ops/affine_pl.py:85")
 
@@ -773,6 +868,21 @@ def gap_parts(counters) -> dict:
     return {k: sorted(v) for k, v in sorted(parts.items())}
 
 
+def affine_parts(counters) -> dict:
+    """{("affine_extend", Qe, Te): [part sizes, one per launch]} from the
+    engine's esc_b{Qe} counters (problems per affine bucket, launched in
+    parts of at most the bucket's G)."""
+    from lordfast_tpu_torch.config import LordfastConfig
+
+    parts = {}
+    for Qe, Te, G in LordfastConfig().affine_buckets:
+        n = counters.get(f"esc_b{Qe}", 0)
+        if n:
+            parts[("affine_extend", Qe, Te)] = sorted(
+                [G] * (n // G) + ([n % G] if n % G else []))
+    return parts
+
+
 def _report_buckets(tag, eng):
     c = eng.metrics.counters
     log(f"[{tag}] gaps per bucket: " + " ".join(
@@ -851,7 +961,7 @@ def phase_v2():
         if label.startswith("first"):
             check_launches("v2", runs[-1][4], c, KERNELS)
             _report_buckets("v2", eng)
-            parts = gap_parts(c)
+            parts = {**gap_parts(c), **affine_parts(c)}
             if c.get("esc_splits", 0) <= 0:
                 raise AssertionError("v2: no Hirschberg split on the card")
             got = {k: c.get(k, 0) for k in V2_EXPECTED}

@@ -17,184 +17,308 @@
 // Outputs score, qle = best_j + 1, tle = best_i + 1, gtle = best_ie + 1,
 // gscore, max_off, each (G,) int32.
 //
-// Design: one thread per problem runs the scalar row loop of
-// align_eq.cpp sw_extend statement for statement, the simple layout
-// first.  Its H and E rows (j in [0, qlen]) live in a global scratch the
-// wrapper allocates, laid out (Qe + 1, G) so that the threads of a warp,
-// which walk their bands at nearby j, touch nearby addresses; the rows
-// stay in L1/L2 for the small buckets.  Per-problem parameters (gap
-// costs, band, z-drop, h0, match / mismatch) are read once per thread,
-// so clip and split problems share a launch.  Blocks of 32 threads: a
-// bucket holds at most 128 problems, and spreading them over four SMs
-// beats packing them into one.
+// Design: one warp per problem, the band across the lanes, in registers
+// (the layout of the TPU kernel and of extend_batch_plain, whose names
+// the kernel follows).  BW = 32 K band slots, K = ceil((2 w_max + 2) /
+// 32) (7 for the engine's w_max = 100; results do not depend on BW once
+// BW >= 2 w_max + 2).  At target row i slot k holds query column j = i -
+// w_max + k, so the diagonal predecessor sits in the same slot; lane l
+// owns the K slots [l K, l K + K) as registers Hband, Eband and qband.
+// Per row:
+// - the F chain of ksw.c:441-447 in its closed form, the exclusive
+//   prefix max of A_k = max(M_k - oe_ins, 0) + k e_ins: an in-lane scan
+//   over the K slots, then a 5-step __shfl_up_sync scan of the lane
+//   totals;
+// - five warp reductions (__reduce_max_sync / __reduce_min_sync): the
+//   row max rm, its LAST column rmj, the last cell's h_last, and the
+//   shrink's first_nz and last_nz on the next row's slots; every scalar
+//   (best, gscore, z-drop, beg, end) follows from them, warp-uniform, and
+//   the warp leaves its row loop together;
+// - H, E and the query band move up one slot: in registers, and one
+//   __shfl_down_sync each across the lanes; lane 31's top slot takes the
+//   entering column (init_decay fill, query code);
+// - target bytes and entering query codes come in windows of 32 rows,
+//   one byte a lane, loaded a window ahead and passed on by __shfl_sync,
+//   so no row waits on a global load.
+// Nothing is kept in device memory between rows: no scratch.  int32
+// throughout: scores are bounded by h0 + match * Qe, the sentinels are
+// -/+ 2^30.  Per-problem parameters ride in registers, so clip (w 40) and
+// split (w 100) problems share a launch.
 //
-// What bounds it on the card: the serial cell chain of one thread (the
-// F and h1 carries make each cell depend on the one before it in the
-// row), ~16 integer operations per band cell plus two scratch loads and
-// stores; with at most 128 problems per launch, 4 of 132 SMs are busy.
-// The bytes of inputs and outputs are small.  Later work (ROADMAP): a
-// block per problem with the band slots across threads, the F chain as
-// a prefix max (the TPU kernel's layout), rows in shared memory.
+// What bounds it on the card: the serial row chain of the launch's
+// deepest problem, not bytes or operations.  Each row waits on the row
+// before through beg/end (the shrink's reductions) and its H band.  On an
+// H100 80GB HBM3 (700 W) a row takes ~1300 cycles at K = 7 (5.38 ms for
+// the 8214 rows of the deepest problem at (8192, 8224, 128), at 1980
+// MHz) for ~480 instructions (the loop's SASS): a warp alone on its
+// scheduler issues one every ~2.7 cycles, so the row is bound by the
+// latency of its dependent chain — the scan's 6 shuffles, the 4
+// reductions in series, and the in-lane chains between them (the rmj
+// selects run through one predicate register).  A bucket holds at most
+// 128 problems, so at most 128 warps are in flight, one a block over as
+// many SMs: blocks of 4 warps took the same time, within 1% (7.29-7.34
+// ms against 7.27-7.32 ms for the three buckets at full G, in turns in
+// one call, both on the reordered variant that follows).  Computing the
+// next row's state and shrink before the row's break decision, so that
+// the two chains of reductions overlap, was 2% slower than this order
+// (7.27-7.32 against 7.13-7.18 ms).
+// A problem whose w_eff exceeds w_max has no slots for its band: the
+// kernel traps (the fault shows at the next synchronise).
+//
+// tests/test_torch_affine_warp.py holds a numpy model of this layout
+// (names as here) against the plain version and the Pallas kernel.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBlock = 32;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kLanes = 32;
+constexpr int kNegBig = -(1 << 30);
+constexpr int kPosBig = 1 << 30;
+// problems (warps) per block
+constexpr int kWarps = 1;
 
-__global__ void __launch_bounds__(kBlock)
-affine_extend_kernel(const uint8_t* __restrict__ qs,
-                     const uint8_t* __restrict__ ts,
-                     const int32_t* __restrict__ qlen_in,
-                     const int32_t* __restrict__ tlen_in,
-                     const int32_t* __restrict__ o_del_in,
-                     const int32_t* __restrict__ e_del_in,
-                     const int32_t* __restrict__ o_ins_in,
-                     const int32_t* __restrict__ e_ins_in,
-                     const int32_t* __restrict__ w_in,
-                     const int32_t* __restrict__ zdrop_in,
-                     const int32_t* __restrict__ h0_in,
-                     const int32_t* __restrict__ match_in,
-                     const int32_t* __restrict__ mismatch_in,
-                     int32_t* __restrict__ score_out,
-                     int32_t* __restrict__ qle_out,
-                     int32_t* __restrict__ tle_out,
-                     int32_t* __restrict__ gtle_out,
-                     int32_t* __restrict__ gscore_out,
-                     int32_t* __restrict__ max_off_out,
-                     int32_t* __restrict__ Hs,
-                     int32_t* __restrict__ Es,
-                     int G, int Qe, int Te) {
-  const int g = blockIdx.x * kBlock + threadIdx.x;
-  if (g >= G) return;
-  // callers guarantee 1 <= qlen <= Qe and 1 <= tlen <= Te; the clamps
+struct Args {
+  const uint8_t* qs;  // (G, Qe)
+  const uint8_t* ts;  // (G, Te)
+  const int32_t *qlen, *tlen, *o_del, *e_del, *o_ins, *e_ins, *w_eff, *zdrop,
+      *h0, *match, *mismatch;
+  int32_t *score, *qle, *tle, *gtle, *gscore, *max_off;
+  int G, Qe, Te, w_max;
+};
+
+template <int K>
+__global__ void __launch_bounds__(kWarps * kLanes)
+affine_warp_kernel(const Args a) {
+  constexpr int BW = kLanes * K;
+  const int lane = threadIdx.x & (kLanes - 1);
+  const int g = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (g >= a.G) return;  // the whole warp
+  // callers guarantee 1 <= qlen <= Qe and 0 <= tlen <= Te; the clamps
   // only keep a bad descriptor inside its rows
-  const int qlen = min(max(qlen_in[g], 1), Qe);
-  const int tlen = min(max(tlen_in[g], 0), Te);
-  const int o_del = o_del_in[g], e_del = e_del_in[g];
-  const int o_ins = o_ins_in[g], e_ins = e_ins_in[g];
-  const int w = w_in[g], zdrop = zdrop_in[g], h0 = h0_in[g];
-  const int match = match_in[g], mismatch = mismatch_in[g];
+  const int qlen = min(max(a.qlen[g], 1), a.Qe);
+  const int tlen = min(max(a.tlen[g], 0), a.Te);
+  const int o_del = a.o_del[g], e_del = a.e_del[g];
+  const int o_ins = a.o_ins[g], e_ins = a.e_ins[g];
+  const int w_eff = a.w_eff[g], zdrop = a.zdrop[g], h0 = a.h0[g];
+  const int match = a.match[g], mismatch = a.mismatch[g];
   const int oe_del = o_del + e_del, oe_ins = o_ins + e_ins;
-  const uint8_t* query = qs + static_cast<size_t>(g) * Qe;
-  const uint8_t* target = ts + static_cast<size_t>(g) * Te;
-  int32_t* H = Hs + g;  // H[j] at H[j * G]
-  int32_t* E = Es + g;
-  const size_t S = static_cast<size_t>(G);
+  const int w_max = a.w_max;
+  if (w_eff < 0 || w_eff > w_max) __trap();  // the band has no such slots
+  const uint8_t* query = a.qs + static_cast<size_t>(g) * a.Qe;
+  const uint8_t* target = a.ts + static_cast<size_t>(g) * a.Te;
 
-  // first row: H(0, j) decays by the insertion cost from h0
-  H[0] = h0;
-  int hj = h0 > oe_ins ? h0 - oe_ins : 0;
-  H[S] = hj;
-  E[0] = 0;
-  E[S] = 0;
-  for (int j = 2; j <= qlen; ++j) {
-    hj = hj > e_ins ? hj - e_ins : 0;
-    H[j * S] = hj;
-    E[j * S] = 0;
+  // the scalar first row H[j] (shifted: the value of column j - 1)
+  const int h1v = max(h0 - oe_ins, 0);
+  auto init_decay = [&](int j) {
+    return j <= 0 ? h0 : max(h1v - (j - 1) * e_ins, 0);
+  };
+  auto query_at = [&](int j) {
+    return j >= 0 && j < qlen ? static_cast<int>(query[j]) : 4;
+  };
+
+  const int k0 = lane * K;  // this lane's first slot
+  int Hband[K], Eband[K], qband[K];
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    const int j = k0 + r - w_max;
+    Hband[r] = j >= 0 && j <= qlen ? init_decay(j) : 0;
+    Eband[r] = 0;
+    qband[r] = query_at(j);
   }
-
-  int best = h0, best_i = -1, best_j = -1, best_ie = -1, gscore = -1;
-  int max_off = 0;
   int beg = 0, end = qlen;
-  int j;
+  int best = h0, best_i = -1, best_j = -1, best_ie = -1, gscore = -1;
+  int moff = 0;
+  // lane l holds row i0 + l's target byte and the query code entering at
+  // that row (fill_col = row + BW - w_max); the next window one ahead
+  int tw = 0, qw = 0;
+  int tw_next = lane < tlen ? target[lane] : 4;
+  int qw_next = query_at(lane + BW - w_max);
+
   for (int i = 0; i < tlen; ++i) {
-    int f = 0, h1, row_max = 0, row_max_j = -1;
-    const int tc = target[i];
-    if (beg < i - w) beg = i - w;
-    if (end > i + w + 1) end = i + w + 1;
-    if (end > qlen) end = qlen;
-    if (beg == 0) {
-      h1 = h0 - (o_del + e_del * (i + 1));
-      if (h1 < 0) h1 = 0;
-    } else {
-      h1 = 0;
+    const int wi = i & (kLanes - 1);
+    if (wi == 0) {
+      tw = tw_next;
+      qw = qw_next;
+      const int row = i + kLanes + lane;
+      tw_next = row < tlen ? target[row] : 4;
+      qw_next = query_at(row + BW - w_max);
     }
-    for (j = beg; j < end; ++j) {
-      const int qc = query[j];
-      const int s = (qc >= 4 || tc >= 4) ? 0 : (qc == tc ? match : -mismatch);
-      const int diagH = H[j * S];
-      int e = E[j * S];
-      H[j * S] = h1;  // becomes H(i, j-1) for the next row
-      const int M = diagH ? diagH + s : 0;
-      int h = M > e ? M : e;
-      h = h > f ? h : f;
-      h1 = h;
-      if (row_max <= h) {  // ksw.c:437: the LAST j achieving the max
-        row_max = h;
-        row_max_j = j;
-      }
-      int tmp = M - oe_del;
-      tmp = tmp > 0 ? tmp : 0;
-      e -= e_del;
-      e = e > tmp ? e : tmp;
-      E[j * S] = e;
-      tmp = M - oe_ins;
-      tmp = tmp > 0 ? tmp : 0;
-      f -= e_ins;
-      f = f > tmp ? f : tmp;
+    const int t_i = __shfl_sync(kFull, tw, wi);
+    const int q_fill = __shfl_sync(kFull, qw, wi);
+    const int j0 = i - w_max + k0;  // column of slot r: j0 + r
+    // band clamp for this row (ksw.c:414-416)
+    const int beg_r = max(beg, i - w_eff);
+    const int end_r = min(min(end, i + w_eff + 1), qlen);
+    const int h1_init =
+        beg_r == 0 ? max(h0 - (o_del + e_del * (i + 1)), 0) : 0;
+
+    // ---- cells; F: exclusive prefix max of A along the band ----
+    bool in_band[K];
+    int M[K], incl[K];
+    int run = kNegBig;
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      const int j = j0 + r;
+      in_band[r] = j >= beg_r && j < end_r;
+      const int qc = qband[r];
+      const int s =
+          (qc >= 4 || t_i >= 4) ? 0 : (qc == t_i ? match : -mismatch);
+      M[r] = Hband[r] != 0 && in_band[r] ? Hband[r] + s : 0;
+      const int A =
+          in_band[r] ? max(M[r] - oe_ins, 0) + (k0 + r) * e_ins : kNegBig;
+      run = max(run, A);
+      incl[r] = run;
     }
-    H[end * S] = h1;
-    E[end * S] = 0;
-    if (j == qlen) {  // reached the query end: ties take the latest row
-      if (h1 >= gscore) {
-        best_ie = i;
-        gscore = h1;
-      }
+    int tot = run;  // inclusive scan of the lane totals
+#pragma unroll
+    for (int d = 1; d < kLanes; d *= 2) {
+      const int v = __shfl_up_sync(kFull, tot, d);
+      tot = lane >= d ? max(tot, v) : tot;
     }
-    if (row_max == 0) break;
-    if (row_max > best) {
-      best = row_max;
+    int lane_excl = __shfl_up_sync(kFull, tot, 1);
+    lane_excl = lane == 0 ? kNegBig : lane_excl;
+    int h[K];
+    int lm = 0, hl = kNegBig;
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      const int p_excl = r == 0 ? lane_excl : max(lane_excl, incl[r - 1]);
+      const int f = max(p_excl - (k0 + r - 1) * e_ins, 0);
+      h[r] = in_band[r] ? max(max(M[r], Eband[r]), f) : 0;
+      lm = max(lm, h[r]);
+      hl = j0 + r == end_r - 1 ? h[r] : hl;
+    }
+
+    // ---- row statistics: the scalar row max moves to the LAST j
+    // achieving it (ksw.c:437) ----
+    const int rm = __reduce_max_sync(kFull, lm);
+    int lj = -1;
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      lj = in_band[r] && h[r] == rm && rm > 0 ? j0 + r : lj;
+    }
+    const int rmj = __reduce_max_sync(kFull, lj);
+    const int h_last = __reduce_max_sync(kFull, hl);
+    // gscore: the scalar code checks j == qlen after the row, where j =
+    // end_r if the row ran else beg_r, with h1 = h(i, end_r - 1) resp.
+    // h1_init (empty row)
+    const bool loop_ran = beg_r < end_r;
+    const int h_after = loop_ran ? h_last : h1_init;
+    if ((loop_ran ? end_r : beg_r) == qlen && h_after >= gscore) {
+      gscore = h_after;
+      best_ie = i;
+    }
+    // break on a dead row, then best / z-drop (ksw.c:451-461)
+    if (rm == 0) break;
+    if (rm > best) {
+      moff = max(moff, abs(rmj - i));
+      best = rm;
       best_i = i;
-      best_j = row_max_j;
-      max_off = max(max_off, abs(row_max_j - i));
+      best_j = rmj;
     } else if (zdrop > 0) {
-      if (i - best_i > row_max_j - best_j) {
-        if (best - row_max - ((i - best_i) - (row_max_j - best_j)) * e_del >
-            zdrop)
-          break;
-      } else {
-        if (best - row_max - ((row_max_j - best_j) - (i - best_i)) * e_ins >
-            zdrop)
-          break;
-      }
+      const int di = i - best_i, dj = rmj - best_j;
+      const int drop = di > dj ? best - rm - (di - dj) * e_del
+                               : best - rm - (dj - di) * e_ins;
+      if (drop > zdrop) break;
     }
-    // shrink the active interval to nonzero cells (ksw.c:466-469)
-    for (j = beg; j < end && H[j * S] == 0 && E[j * S] == 0; ++j) {
+
+    // ---- state for the next row: slot r now holds column j0 + r + 1 ----
+    const int fill_col = i + BW - w_max;  // the slot entering at the top
+    const int h_fill = fill_col <= qlen ? init_decay(fill_col) : 0;
+    // E: updated in [beg_r, end_r), E[end_r] = 0, else unchanged
+    int Enew[K];
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      const int Erec = max(Eband[r] - e_del, max(M[r] - oe_del, 0));
+      Enew[r] = in_band[r] ? Erec : (j0 + r == end_r ? 0 : Eband[r]);
     }
-    beg = j;
-    for (j = end; j >= beg && H[j * S] == 0 && E[j * S] == 0; --j) {
+    const bool top = lane == kLanes - 1;
+    const int h_up = __shfl_down_sync(kFull, Hband[0], 1);
+    const int e_up = __shfl_down_sync(kFull, Enew[0], 1);
+    const int q_up = __shfl_down_sync(kFull, qband[0], 1);
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      const int j = j0 + r, j_next = j + 1;
+      const int shifted = r + 1 < K ? Hband[r + 1] : (top ? h_fill : h_up);
+      const int hrow_eff = j == beg_r - 1 ? h1_init : h[r];
+      Hband[r] = j_next >= beg_r && j_next <= end_r ? hrow_eff : shifted;
+      Eband[r] = r + 1 < K ? Enew[r + 1] : (top ? 0 : e_up);
+      qband[r] = r + 1 < K ? qband[r + 1] : (top ? q_fill : q_up);
     }
-    end = j + 2 < qlen ? j + 2 : qlen;
+    // dead-cell shrink (ksw.c:466-469) on the post-update rows
+    int fz = kPosBig;
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      const int j_next = j0 + r + 1;
+      const bool nz = Hband[r] != 0 || Eband[r] != 0;
+      fz = nz && j_next >= beg_r && j_next < end_r ? min(fz, j_next) : fz;
+    }
+    const int first_nz = __reduce_min_sync(kFull, fz);
+    const int beg2 = first_nz == kPosBig ? end_r : first_nz;
+    int lz = kNegBig;
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      const int j_next = j0 + r + 1;
+      const bool nz = Hband[r] != 0 || Eband[r] != 0;
+      lz = nz && j_next >= beg2 && j_next <= end_r ? j_next : lz;
+    }
+    int last_nz = __reduce_max_sync(kFull, lz);
+    last_nz = last_nz == kNegBig ? beg2 - 1 : last_nz;
+    beg = beg2;
+    end = min(last_nz + 2, qlen);
   }
-  score_out[g] = best;
-  qle_out[g] = best_j + 1;
-  tle_out[g] = best_i + 1;
-  gtle_out[g] = best_ie + 1;
-  gscore_out[g] = gscore;
-  max_off_out[g] = max_off;
+  if (lane == 0) {
+    a.score[g] = best;
+    a.qle[g] = best_j + 1;
+    a.tle[g] = best_i + 1;
+    a.gtle[g] = best_ie + 1;
+    a.gscore[g] = gscore;
+    a.max_off[g] = moff;
+  }
+}
+
+template <int K>
+void launch(const Args& a, cudaStream_t stream) {
+  affine_warp_kernel<K><<<(a.G + kWarps - 1) / kWarps, kWarps * kLanes, 0,
+                          stream>>>(a);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  params: 11 device pointers to
 // (G,) int32 — qlen, tlen, o_del, e_del, o_ins, e_ins, w_eff, zdrop, h0,
-// match, mismatch; outs: 6 device pointers to (G,) int32 — score, qle,
-// tle, gtle, gscore, max_off; H/E: (Qe + 1, G) int32 scratch.  Launches on
-// `stream` without synchronising and returns cudaGetLastError().
+// match, mismatch, with w_eff <= w_max; outs: 6 device pointers to (G,)
+// int32 — score, qle, tle, gtle, gscore, max_off.  w_max sets the band's
+// slots (K = ceil((2 w_max + 2) / 32) <= 8, so 0 <= w_max <= 126).
+// Launches on `stream` without synchronising and returns
+// cudaGetLastError().
 extern "C" int lf_affine_extend(const void* qs, const void* ts,
                                 const void* const* params,
-                                void* const* outs, void* H, void* E, int G,
-                                int Qe, int Te, void* stream) {
+                                void* const* outs, int G, int Qe, int Te,
+                                int w_max, void* stream) {
+  if (w_max < 0 || w_max > 126) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (G <= 0) return 0;
   auto p = [&](int k) { return static_cast<const int32_t*>(params[k]); };
   auto o = [&](int k) { return static_cast<int32_t*>(outs[k]); };
-  const int grid = (G + kBlock - 1) / kBlock;
-  affine_extend_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(qs), static_cast<const uint8_t*>(ts), p(0),
-      p(1), p(2), p(3), p(4), p(5), p(6), p(7), p(8), p(9), p(10), o(0), o(1),
-      o(2), o(3), o(4), o(5), static_cast<int32_t*>(H),
-      static_cast<int32_t*>(E), G, Qe, Te);
+  const Args a{static_cast<const uint8_t*>(qs),
+               static_cast<const uint8_t*>(ts),
+               p(0), p(1), p(2), p(3), p(4), p(5), p(6), p(7), p(8), p(9),
+               p(10), o(0), o(1), o(2), o(3), o(4), o(5), G, Qe, Te, w_max};
+  auto st = static_cast<cudaStream_t>(stream);
+  switch ((2 * w_max + 2 + kLanes - 1) / kLanes) {
+    case 1: launch<1>(a, st); break;
+    case 2: launch<2>(a, st); break;
+    case 3: launch<3>(a, st); break;
+    case 4: launch<4>(a, st); break;
+    case 5: launch<5>(a, st); break;
+    case 6: launch<6>(a, st); break;
+    case 7: launch<7>(a, st); break;
+    case 8: launch<8>(a, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -231,7 +231,8 @@ def extend_batch(qs, ts, Qe: int, Te: int, BW: int, w_max: int, *, qlen,
     """Batched ksw_extend2 (see extend_batch_plain for the arguments):
     CPU tensors run the plain version, CUDA tensors the CUDA kernel
     (affine_cuda.extend_batch_cuda, which needs every parameter as an
-    int32 tensor on the card)."""
+    int32 tensor on the card, and sizes its band from w_max; BW is the
+    plain version's)."""
     kw = dict(qlen=qlen, tlen=tlen, o_del=o_del, e_del=e_del, o_ins=o_ins,
               e_ins=e_ins, w_eff=w_eff, zdrop=zdrop, h0=h0, match=match,
               mismatch=mismatch)
@@ -239,7 +240,7 @@ def extend_batch(qs, ts, Qe: int, Te: int, BW: int, w_max: int, *, qlen,
         return extend_batch_plain(qs, ts, Qe, Te, BW, w_max, **kw)
     from .affine_cuda import extend_batch_cuda
 
-    return extend_batch_cuda(qs, ts, Qe, Te, **kw)
+    return extend_batch_cuda(qs, ts, Qe, Te, w_max, **kw)
 
 
 def extend_from_desc(pac_words, reads, desc, Qe: int, Te: int, BW: int,

@@ -116,4 +116,4 @@ def test_extend_batch_on_cpu_is_plain_and_uncounted(rng):
     assert affine_cuda.extend_batch_cuda.launches == before
     assert cells > 0
     with pytest.raises(ValueError):
-        affine_cuda.extend_batch_cuda(*args[:4], **kw)
+        affine_cuda.extend_batch_cuda(*args[:4], W_MAX, **kw)

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: ``myers_dist`` (with and without
 its last column), ``myers_moves`` and ``extend_batch_cuda`` against
-their plain PyTorch versions (exact:
-every output is an integer), one test per kind of bucket.  Needs an
+their plain PyTorch versions (exact: every output is an integer), one
+test per kind of bucket, and the warp kernels' lane edges.  Needs an
 NVIDIA GPU (marker ``cuda``) and skips
 without one.  This file imports neither jax nor lordfast_tpu, so it also
 runs where JAX is not installed:
@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from lordfast_tpu_torch.ops import affine, affine_cuda, gap_dp, gap_dp_cuda
 from lordfast_tpu_torch.ops.gap_dp import myers_dist_plain
 
@@ -178,7 +179,8 @@ def _affine_problems(rng, Qe, Te, G):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bucket", [(512, 544, 128), (2048, 2080, 128)])
+@pytest.mark.parametrize("bucket", [(512, 544, 128), (2048, 2080, 128),
+                                    (8192, 8224, 128)])
 def test_cuda_affine_kernel_matches_plain(cuda_device, bucket):
     Qe, Te, G = bucket
     qs, ts, params = _affine_problems(np.random.default_rng(Qe), Qe, Te,
@@ -197,6 +199,49 @@ def test_cuda_affine_kernel_matches_plain(cuda_device, bucket):
     for name, g, w in zip(affine.ExtendResult._fields, got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
                                       err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_max", [15, 40, 100])
+def test_cuda_affine_lane_edges(cuda_device, w_max):
+    # K = 1, 3 and 7 slots a lane: w_eff on lane edges, the clip and split
+    # bands capped at w_max in one launch, tlen = 0 and 1
+    Qe, Te = 512, 544
+    qs, ts, params = chip_smoke.make_affine_edges(
+        np.random.default_rng(7 * w_max), Qe, Te, w_max)
+    cpu = {k: torch.from_numpy(v) for k, v in params.items()}
+    want = affine.extend_batch_plain(torch.from_numpy(qs),
+                                     torch.from_numpy(ts), Qe, Te, 256, w_max,
+                                     **cpu)
+    got = affine.extend_batch(
+        torch.from_numpy(qs).to(cuda_device),
+        torch.from_numpy(ts).to(cuda_device), Qe, Te, 256, w_max,
+        **{k: v.to(cuda_device) for k, v in cpu.items()})
+    torch.cuda.synchronize()
+    for name, g, w in zip(affine.ExtendResult._fields, got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_affine_rejects_wide_band(cuda_device):
+    # the band holds at most 8 slots a lane: w_max <= 126
+    qs, ts, params = _affine_problems(np.random.default_rng(3), 64, 96, 4)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (qs, ts)]
+    kw = {k: torch.from_numpy(v).to(cuda_device) for k, v in params.items()}
+    before = affine_cuda.extend_batch_cuda.launches
+    for w_max in (127, 200, -1):
+        with pytest.raises(ValueError):
+            affine_cuda.extend_batch_cuda(*args, 64, 96, w_max, **kw)
+    got = affine_cuda.extend_batch_cuda(*args, 64, 96, 126, **kw)
+    torch.cuda.synchronize()
+    assert affine_cuda.extend_batch_cuda.launches == before + 1
+    want = affine.extend_batch_plain(torch.from_numpy(qs),
+                                     torch.from_numpy(ts), 64, 96, 256, 126,
+                                     **{k: torch.from_numpy(v)
+                                        for k, v in params.items()})
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
 
 
 @pytest.mark.cuda
