@@ -55,13 +55,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    one with it off (the same SAM); the Hirschberg split fired; the stage
    counters equal the JAX package's on the same data; the 48 SV/junk
    reads mapped on the CPU (plain versions, offload on) give the same
-   records.
+   records;
+6. clasp: v2 with ``chain_alg="clasp"`` at the default config, two
+   passes with the offload on and one with it off (the same SAM, not
+   dp-n2's); the SV/junk reads on the CPU give the same records;
+7. dormant seeders (host seeding, then the device stage's post-seed
+   part): extend-whole-3 on the first 64 v1 reads at the default config
+   (the first 16 on the CPU give the same records) and extend-whole-2 on
+   golden at the golden config with sampling_count 100 (the CPU gives
+   the same SAM), with the host seeding seconds a read;
+8. profile: one warm v2 pass of phase 5's engine under
+   ``utils.metrics.profiler_trace``; its SAM equals phase 5's, and its
+   Chrome trace holds the ranges lf_seed, lf_vote, lf_select and lf_chain
+   and the Myers and affine kernels; the device busy share (the union of
+   the CUDA kernels' time over the pass) and the top five kernels by
+   self CUDA time;
+9. multi-process: two ``python -m lordfast_tpu_torch.cli`` processes on
+   the card (--numProcesses 2 --coordinator localhost:<free port>, a
+   gloo group) map the golden fixture's chunks and process 0 merges
+   them; the merged SAM equals a single-process run's, @PG aside.
 
 Phases 4 and 5 run the engine at verbosity 2, which adds the
 ``gpart_*`` counters (launches per bucket and part size) and prints them
 with the ``gaps_b*`` counters.  Every kernel's launch count is set to 0
-just before each of phases 3-5 and read just after; a kernel a path
-needs that did not launch there is a failure.  Then a line with the
+just before each pass of phases 3-8 and read just after; a kernel a path
+needs that did not launch there is a failure, and so is a count that
+differs from the sub-batches the engine counted.  Then a line with the
 kernel table (JSON), the nvidia-smi line, and last the contract line
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is available.  The datasets are cached in .smoke_cache/
@@ -824,16 +843,16 @@ def _index(ref, tag):
     return idx
 
 
-def _cpu_subset(idx, sam, reads, dst, keep, tag, **kw):
-    """The reads keep() selects, mapped on the CPU, against the cuda
-    records of the same reads."""
+def _cpu_subset(idx, sam, reads, dst, keep, tag, cfg=None, **kw):
+    """The reads keep() selects, mapped on the CPU (at cfg, default
+    LordfastConfig()), against the cuda records of the same reads."""
     from lordfast_tpu_torch.config import LordfastConfig
     from lordfast_tpu_torch.pipeline.engine import MappingEngine
 
     names = _subset(reads, dst, keep)
     cuda_sub = [r for r in sam_records(sam) if r.split("\t")[0] in names]
     t = time.time()
-    eng = MappingEngine(idx, LordfastConfig(), device="cpu", **kw)
+    eng = MappingEngine(idx, cfg or LordfastConfig(), device="cpu", **kw)
     out = io.StringIO()
     eng.map_file(dst, out, "chip_smoke")
     cpu_sub = sam_records(out.getvalue())
@@ -895,7 +914,7 @@ def _report_buckets(tag, eng):
 
 def phase_v1():
     """v1 with the offload on (two passes) and off (one), on the card;
-    returns the first pass's launch counts."""
+    returns the first pass's launch counts, the index and the reads."""
     import torch
 
     from lordfast_tpu_torch.config import LordfastConfig
@@ -932,13 +951,14 @@ def phase_v1():
         f"offload-on passes equals the offload-off pass's")
     _cpu_subset(idx, sam, reads, CACHE / "v1_first32.fq",
                 lambda name, i: i < N_SUBSET, "v1")
-    return runs[0][4]
+    return runs[0][4], idx, reads
 
 
 def phase_v2():
     """v2 with the offload on (two passes) and off (one); the JAX
     package's counters; the SV/junk reads on the CPU.  Returns the first
-    pass's launch counts and its part sizes (gap_parts)."""
+    pass's launch counts, its part sizes (gap_parts), and the index, the
+    offload-on engine, the SAM and the reads."""
     import torch
 
     from lordfast_tpu_torch.config import LordfastConfig
@@ -988,7 +1008,228 @@ def phase_v2():
     _cpu_subset(idx, sam, reads, CACHE / "v2_sv_junk.fq",
                 lambda name, i: name.startswith(("sv", "junk")), "v2",
                 esc_device=True)
-    return runs[0][4], parts
+    v2 = dict(idx=idx, eng=eng, sam=sam, reads=reads, warm_s=runs[1][1])
+    return runs[0][4], parts, v2
+
+
+def _sv_junk(name, i):
+    return name.startswith(("sv", "junk"))
+
+
+def phase_clasp(v2):
+    """v2 with -a clasp at the default config: two passes with the
+    offload on (the SAM repeats) and one with it off (the same SAM); the
+    SV/junk reads on the CPU give the same records.  Returns the first
+    pass's launch counts."""
+    from lordfast_tpu_torch.config import LordfastConfig
+    from lordfast_tpu_torch.pipeline.engine import MappingEngine
+
+    cfg = LordfastConfig(chain_alg="clasp")
+    idx, reads = v2["idx"], v2["reads"]
+    eng = MappingEngine(idx, cfg, device="cuda")
+    runs = []
+    for label in ("first pass, offload on", "second pass, offload on"):
+        runs.append(map_pass(eng, reads))
+        _report("v2 clasp", label, eng, runs[-1])
+        c = eng.metrics.counters
+        # myers_moves serves phase C, which needs a segment for it
+        needed = ("myers_dist", "affine_extend") + (
+            ("myers_moves",) if c.get("esc_nw_parts", 0) else ())
+        check_launches("v2 clasp", runs[-1][4], c, needed)
+    log("[v2 clasp] counters: " + " ".join(
+        f"{k} {c.get(k, 0)}" for k in (*V2_EXPECTED, "esc_sites",
+                                       "esc_splits", "esc_nw_parts")))
+    eng_off = MappingEngine(idx, cfg, device="cuda", esc_device=False)
+    runs.append(map_pass(eng_off, reads))
+    _report("v2 clasp", "pass, offload off", eng_off, runs[-1])
+    sam, _, n_reads, n_mapped, _ = runs[0]
+    if runs[1][0] != sam:
+        raise AssertionError("v2 clasp: the two offload-on passes differ")
+    if runs[2][0] != sam:
+        raise AssertionError("v2 clasp: offload on and off give different "
+                             "SAM")
+    if sam == v2["sam"]:
+        raise AssertionError("v2 clasp: the SAM equals dp-n2's")
+    log(f"[v2 clasp] {n_mapped} of {n_reads} reads mapped, "
+        f"{len(sam_records(sam))} SAM records; both offload-on passes and "
+        f"the offload-off pass byte-equal; warm pass "
+        f"{runs[1][2] / runs[1][1]:.2f} reads/s (dp-n2, phase 5: "
+        f"{n_reads / v2['warm_s']:.2f})")
+    _cpu_subset(idx, sam, reads, CACHE / "v2_sv_junk.fq", _sv_junk,
+                "v2 clasp", cfg=cfg, esc_device=True)
+    return runs[0][4]
+
+
+def phase_seeders(v1_idx, v1_reads):
+    """The dormant seeders on the card: extend-whole-3 on the first 64
+    v1 reads at the default config (the first 16 again on the CPU), and
+    extend-whole-2 on golden at the golden config with sampling_count
+    100 (the CPU gives the same SAM).  Returns their launch counts."""
+    from lordfast_tpu_torch.config import LordfastConfig
+    from lordfast_tpu_torch.index.builder import build_index
+    from lordfast_tpu_torch.pipeline.engine import MappingEngine
+
+    def host_seed_line(tag, eng, n):
+        sec = eng.metrics.timers["host_seed"]
+        log(f"[{tag}] host seeding {sec:.2f} s for {n} reads: "
+            f"{sec / n:.4f} s a read")
+
+    by_path = {}
+    sub = CACHE / "v1_first64.fq"
+    _subset(v1_reads, sub, lambda name, i: i < 64)
+    cfg = LordfastConfig(seeder="extend-whole-3")
+    eng = MappingEngine(v1_idx, cfg, device="cuda")
+    res = map_pass(eng, sub)
+    _report("v1 extend-whole-3", "64 reads, offload on", eng, res)
+    check_launches("v1 extend-whole-3", res[4], eng.metrics.counters,
+                   ("myers_dist",))
+    host_seed_line("v1 extend-whole-3", eng, res[2])
+    by_path["v1_extend_whole_3"] = res[4]
+    _cpu_subset(v1_idx, res[0], sub, CACHE / "v1_first16.fq",
+                lambda name, i: i < 16, "v1 extend-whole-3", cfg=cfg)
+
+    cfg = LordfastConfig(**GOLDEN_CFG, seeder="extend-whole-2",
+                         sampling_count=100)
+    idx = build_index(DATA / "ref.fa", LordfastConfig(kmer_cache_k=8),
+                      verbose=False)
+    eng = MappingEngine(idx, cfg, device="cuda")
+    res = map_pass(eng, DATA / "reads.fq")
+    _report("golden extend-whole-2", "offload on", eng, res)
+    check_launches("golden extend-whole-2", res[4], eng.metrics.counters,
+                   ("myers_dist",))
+    host_seed_line("golden extend-whole-2", eng, res[2])
+    by_path["golden_extend_whole_2"] = res[4]
+    t = time.time()
+    out = io.StringIO()
+    MappingEngine(idx, cfg, device="cpu").map_file(DATA / "reads.fq", out,
+                                                    "chip_smoke")
+    if sam_records(out.getvalue()) != sam_records(res[0]):
+        raise AssertionError("golden extend-whole-2: cpu and cuda differ")
+    log(f"[golden extend-whole-2] {len(sam_records(res[0]))} SAM records "
+        f"byte-equal between cuda and cpu (cpu run {time.time() - t:.1f} s)")
+    return by_path
+
+
+def trace_summary(events, wall_s):
+    """(busy share, [(kernel, self ms, launches)] by time) of the CUDA
+    kernel events of a Chrome trace: the union of their intervals over
+    wall_s."""
+    kern = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                  if e.get("cat") == "kernel")
+    busy, end = 0.0, float("-inf")
+    per = {}
+    for a, b, name in kern:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+        ms, n = per.get(name, (0.0, 0))
+        per[name] = (ms + (b - a) / 1e3, n + 1)
+    top = sorted(((k, ms, n) for k, (ms, n) in per.items()),
+                 key=lambda x: -x[1])
+    return busy / 1e6 / wall_s, top
+
+
+def phase_profile(v2):
+    """One warm v2 pass (dp-n2, offload on: phase 5's engine) under
+    utils.metrics.profiler_trace on cuda: its SAM equals phase 5's, the
+    trace holds the device stage's four named ranges and the Myers and
+    affine kernels' CUDA events.  Logs the device busy share and the top
+    five kernels by self CUDA time; returns the pass's launch counts."""
+    import shutil
+
+    from lordfast_tpu_torch.utils.metrics import profiler_trace
+
+    tdir = CACHE / "profile"
+    shutil.rmtree(tdir, ignore_errors=True)
+    with profiler_trace(tdir, "cuda"):
+        res = map_pass(v2["eng"], v2["reads"])
+    if res[0] != v2["sam"]:
+        raise AssertionError("profile: the traced v2 pass's SAM differs "
+                             "from phase 5's")
+    traces = list(tdir.glob("lordfast_*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"profile: {len(traces)} trace files in {tdir}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    missing = {"lf_seed", "lf_vote", "lf_select", "lf_chain"} - names
+    if missing:
+        raise AssertionError(f"profile: no range {sorted(missing)}")
+    busy, top = trace_summary(events, res[1])
+    for kind in ("myers_", "affine_"):
+        if not any(kind in k for k, _, _ in top):
+            raise AssertionError(f"profile: no {kind}* kernel in the trace")
+    kern_ms = sum(ms for _, ms, _ in top)
+    log(f"[profile] traced warm v2 pass {res[1]:.3f} s (untraced, phase 5: "
+        f"{v2['warm_s']:.3f} s); trace {traces[0].stat().st_size >> 20} "
+        f"MiB, {len(events)} events; {sum(n for _, _, n in top)} kernels, "
+        f"{kern_ms:.1f} ms of kernel time; device busy share {busy:.4f} of "
+        f"the traced pass ({busy * res[1] / v2['warm_s']:.4f} of the "
+        f"untraced one)")
+    for k, ms, n in top[:5]:
+        log(f"[profile] top kernel: {ms:.2f} ms in {n} launches: {k[:120]}")
+    return res[4]
+
+
+def phase_multiprocess():
+    """Two ``python -m lordfast_tpu_torch.cli`` processes on the one card
+    (--numProcesses 2 --coordinator localhost:<free port>, gloo) map the
+    golden fixture's chunks (--minReadLen 100 --chunkSize 40000); process
+    0 merges the shards, and the merged SAM equals a single-process
+    run's, @PG aside."""
+    import shutil
+    import socket
+
+    from lordfast_tpu_torch import cli
+    from lordfast_tpu_torch.config import LordfastConfig
+    from lordfast_tpu_torch.index.builder import (build_index,
+                                                  index_path_for, save_index)
+
+    d = CACHE / "multiprocess"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    ref = d / "ref.fa"
+    shutil.copy(DATA / "ref.fa", ref)
+    save_index(build_index(ref, LordfastConfig(kmer_cache_k=8),
+                           verbose=False), index_path_for(ref))
+    args = ["--search", str(ref), "--seq", str(DATA / "reads.fq"),
+            "--minReadLen", "100", "--chunkSize", "40000"]
+    single, merged = d / "single.sam", d / "merged.sam"
+    t = time.time()
+    if cli.main(args + ["-o", str(single)]) != 0:
+        raise AssertionError("multiprocess: the single-process run failed")
+    t_single = time.time() - t
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "lordfast_tpu_torch.cli", *args, "-o",
+         str(merged), "--numProcesses", "2", "--processIndex", str(pid),
+         "--coordinator", f"localhost:{port}"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for pid, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"multiprocess: process {pid} exited "
+                                 f"{p.returncode}: {err[-2000:]}")
+
+    def body(path):
+        return [l for l in path.read_text().splitlines()
+                if not l.startswith("@PG")]
+
+    if body(merged) != body(single):
+        raise AssertionError("multiprocess: the merged SAM differs from "
+                             "the single-process SAM")
+    chunks = [sum(l.startswith("[engine] [chunk") for l in err.splitlines())
+              for _, err in outs]
+    log(f"[multiprocess] 2 processes on one card ({chunks[0]} + {chunks[1]} "
+        f"chunks) in {time.time() - t:.1f} s, merged by process 0: "
+        f"{len(body(merged))} lines equal to the single-process run's "
+        f"({t_single:.1f} s in process), @PG aside")
 
 
 def main() -> int:
@@ -1002,9 +1243,17 @@ def main() -> int:
     t0 = time.time()
     int_rate = phase_env()
     rows = phase_kernel_gaps(int_rate) + [phase_kernel_affine(int_rate)]
-    by_path = {"golden": phase_golden(), "v1": phase_v1()}
-    by_path["v2"], v2_parts = phase_v2()
+    by_path = {"golden": phase_golden()}
+    by_path["v1"], v1_idx, v1_reads = phase_v1()
+    by_path["v2"], v2_parts, v2 = phase_v2()
     time_at_parts(v2_parts)
+    t5 = time.time()
+    log(f"[smoke] phases 1-5 done in {t5 - t0:.1f} s")
+    by_path["v2_clasp"] = phase_clasp(v2)
+    by_path.update(phase_seeders(v1_idx, v1_reads))
+    by_path["v2_profiled"] = phase_profile(v2)
+    phase_multiprocess()
+    log(f"[smoke] phases 6-9 done in {time.time() - t5:.1f} s")
     for row in rows:
         row["launches"] = by_path["v2"][row["name"]]
         row["launches_by_path"] = {p: n[row["name"]]

@@ -13,6 +13,8 @@ and j): reward = chainReward * MIN_ANCHOR_LEN, penalty = 0.1*d +
 chainPenalty*log(d) with d = |distR - distT| (src/Chain.cpp:211-225), in
 float64 like the reference's double dp[].  Ties follow the reference:
 predecessor = largest j among score ties, chain end = smallest i.
+``chain_clasp_sop`` (``-a clasp``) is the same loop with clasp's
+sum-of-pairs gap cost and local reset.
 
 The loops over seeds (DP) and chain links (backtrack) are plain PyTorch
 with one op sequence per step; on a GPU they are launch-bound.  A hand
@@ -326,8 +328,47 @@ def chain_dpn2(ws: WindowSeeds, cfg) -> ChainBatch:
 
 
 def chain_clasp_sop(ws: WindowSeeds, cfg) -> ChainBatch:
-    """clasp sum-of-pairs chaining (``-a clasp``) is not ported yet."""
-    raise NotImplementedError(
-        "chain_alg='clasp' is not ported to lordfast_tpu_torch yet; "
-        "use the default dp-n2"
-    )
+    """clasp sum-of-pairs local chaining (``-a clasp``; chain_seeds_clasp,
+    src/Chain.cpp:39-209 -> bl_slClusterSop/bl_slChainSop,
+    lib/clasp/slchain.c:568-828) as a masked O(n^2) DP, the same loop as
+    chain_dpn2.
+
+    fragment score scr = len; precedence strictly before on both axes;
+    gap cost GSOP(i,j) = lambda*max(DX,DY) + (eps-lambda)*min(DX,DY),
+    DX = tStart_i - tEnd_j - 1, DY = qStart_i - qEnd_j - 1; chain score
+    dp[i] = scr_i + max_j(dp[j] - GSOP(i,j)), the link dropped when
+    dp[j] < GSOP (slchain.c:719); eps = 0, lambda = 0.15
+    (src/Chain.cpp:52-55).  Ties: predecessor = largest j, chain end =
+    smallest i."""
+    lead, N, W, q, t, ln, ok = _flatten_ws(ws)
+    fdt = _dp_dtype(cfg)
+    dev = q.device
+
+    lam = torch.tensor(cfg.clasp_lambda, dtype=fdt, device=dev)
+    eps = torch.tensor(cfg.clasp_epsilon, dtype=fdt, device=dev)
+    jidx = torch.arange(N, device=dev)
+    q_end = q + ln - 1
+    t_end = t + ln - 1
+    scr = ln.to(fdt)
+    neg_inf = torch.tensor(float("-inf"), dtype=fdt, device=dev)
+
+    dp = torch.full((W, N), float("-inf"), dtype=fdt, device=dev)
+    prev = torch.full((W, N), -1, dtype=torch.int64, device=dev)
+    for i in range(_n_live(ok)):
+        dy = q[:, i : i + 1] - q_end - 1  # (W, N)
+        dx = (t[:, i : i + 1] - t_end - 1).to(torch.int32)
+        can = ok & (jidx[None, :] < i) & (dy >= 0) & (dx >= 0)
+        dxf, dyf = dx.to(fdt), dy.to(fdt)
+        gsop = (lam * torch.maximum(dxf, dyf)
+                + (eps - lam) * torch.minimum(dxf, dyf))
+        val = torch.where(can, dp - gsop, neg_inf)
+        best = val.max(dim=1).values
+        # local chaining: keep the link only while dp[j] >= GSOP (strict
+        # < drops it, slchain.c:717-721), i.e. best >= 0
+        take = best >= 0
+        pj = torch.where(val == best[:, None], jidx, -1).max(dim=1).values
+        ok_i = ok[:, i]
+        dp[:, i] = torch.where(ok_i, scr[:, i] + best.clamp(min=0),
+                               neg_inf)
+        prev[:, i] = torch.where(ok_i & take, pj, -1)
+    return _finish_chains(ws, dp, prev, q, t, ln, ok, lead, W, N)

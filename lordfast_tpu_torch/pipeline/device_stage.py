@@ -5,7 +5,9 @@ Counterpart of ``lordfast_tpu/parallel/mesh.py:35-131`` for one device
 and no mesh: ``device_pipeline`` returns a plain function (PyTorch runs
 eagerly; there is nothing to jit), ``post_seed_stage`` runs everything
 after seeding and trims the host payload, and the returned ``host_out``
-dict has the JAX version's keys.
+dict has the JAX version's keys.  Each step runs in the named range of
+the JAX version's ``jax.named_scope`` (``lf_seed``, ``lf_vote``,
+``lf_select``, ``lf_chain``; utils/metrics.py ``named_range``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 from ..ops import chain as chain_ops
 from ..ops import fm_index as fm_ops
 from ..ops import voting as vote_ops
+from ..utils.metrics import named_range
 
 
 def device_pipeline(meta, cfg):
@@ -23,11 +26,12 @@ def device_pipeline(meta, cfg):
     int32 and pos (B, S) int32 are tensors on the index's device."""
 
     def fn(arrs, reads, lens, pos, page=None):
-        seeds = fm_ops._seed_anchors_impl(
-            arrs, reads, lens, pos, meta,
-            cfg.sampling_count, cfg.min_anchor_len, cfg.max_ref_hits,
-            cfg.max_seeds_per_read, cfg.seed_phase1_steps,
-        )
+        with named_range("lf_seed", reads.device):
+            seeds = fm_ops._seed_anchors_impl(
+                arrs, reads, lens, pos, meta,
+                cfg.sampling_count, cfg.min_anchor_len, cfg.max_ref_hits,
+                cfg.max_seeds_per_read, cfg.seed_phase1_steps,
+            )
         return post_seed_stage(arrs, seeds, reads, lens, cfg, page)
 
     return fn
@@ -38,11 +42,15 @@ def post_seed_stage(arrs, seeds, reads, lens, cfg, page=None):
     trimming).  page: optional candidate-rank page (vote_windows), the
     engine's window paging for reads whose qualifying windows exceed one
     pipeline budget."""
-    cands = vote_ops.vote_windows(seeds, lens, cfg, page)
+    dev = reads.device
+    with named_range("lf_vote", dev):
+        cands = vote_ops.vote_windows(seeds, lens, cfg, page)
     k_windows = reads.shape[0] * cfg.compact_windows_per_read
-    cw = chain_ops.compact_candidates(cands, cfg, k_windows)
-    ws = chain_ops.select_window_seeds(seeds, cw, lens, arrs, cfg)
-    chains = chain_ops.chain_seeds(ws, cfg)
+    with named_range("lf_select", dev):
+        cw = chain_ops.compact_candidates(cands, cfg, k_windows)
+        ws = chain_ops.select_window_seeds(seeds, cw, lens, arrs, cfg)
+    with named_range("lf_chain", dev):
+        chains = chain_ops.chain_seeds(ws, cfg)
 
     # host-bound results: the chains tensor cut to the first
     # chain_transfer_cap slots with (qPos, len) packed into one int32

@@ -15,11 +15,13 @@ initFASTChunk -> mapSeqMT -> releaseChunk):
   src/LordFAST.cpp:542-569), SAM output in input order.
 
 The host methods are the JAX engine's; only the device seams differ.
-Ported path: the extend-whole seeder, any chaining the device stage
-supports, a replicated index on one device, and the escalation DPs either
-on the device (``esc_device``, on by default on a CUDA device, as the
-JAX engine's is on its accelerator) or in the host stitcher.  A mesh, a
-sharded index and the dormant seeders raise NotImplementedError.
+Ported path: every seeder (the extend-whole seeder on the device, the
+dormant extend-whole-2 / -3 on the host, ops/seeders.py, followed by the
+device stage's post-seed part), dp-n2 and clasp chaining, a replicated
+index on one device, and the escalation DPs either on the device
+(``esc_device``, on by default on a CUDA device, as the JAX engine's is
+on its accelerator) or in the host stitcher.  A mesh and a sharded index
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from ..ops import gap_dp_cuda
 from ..utils.checkpoint import ChunkProgress
 from ..utils.metrics import Metrics
 from ..utils.pack import seq_to_codes, revcomp_codes
-from .device_stage import device_pipeline
+from .device_stage import device_pipeline, post_seed_stage
 
 
 def _pad_to_bucket(n: int, buckets=(1024, 2048, 4096, 8192, 16384, 32768,
@@ -82,10 +84,6 @@ class MappingEngine:
         if mesh is not None or shard_index:
             raise NotImplementedError(
                 "mesh / shard_index are not ported to lordfast_tpu_torch")
-        if self.cfg.seeder != "extend-whole":
-            raise NotImplementedError(
-                f"seeder {self.cfg.seeder!r} is not ported; only "
-                "'extend-whole' is")
         # the voting keys pack the window id into 30 bits (ops/voting.py);
         # win = t_pos // read_len stays below 2^30 whenever
         # 2*l_pac / min_read_len does (~54 Gbp at the default floor).
@@ -124,27 +122,67 @@ class MappingEngine:
     def _put_reads(self, arr: np.ndarray):
         return torch.from_numpy(arr).to(self.device)
 
+    def _stage_cfg(self, key: str):
+        """The config of the base, 8x-budget ("big") or solo pipeline."""
+        cfg = self.cfg
+        if key == "big":
+            return cfg.replace(
+                max_candidates=min(4 * cfg.max_candidates, 256),
+                compact_windows_per_read=8 * cfg.compact_windows_per_read,
+            )
+        if key == "solo":
+            return cfg.replace(max_candidates=512,
+                               compact_windows_per_read=512)
+        return cfg
+
     def _fetch(self, host_out: dict) -> dict:
         """Device -> host copy of a batch's host payload."""
         return {k: v.cpu().numpy() for k, v in host_out.items()}
 
     # ---- device stage ----
-    def _device_stage(self, reads_dev, lens: np.ndarray, big: bool = False):
+    def _device_stage(self, reads_dev, lens: np.ndarray, big: bool = False,
+                      host_seeds=None):
+        lens_dev = torch.from_numpy(np.asarray(lens, np.int32)).to(
+            self.device)
+        if host_seeds is not None:
+            return post_seed_stage(self.arrs, host_seeds, reads_dev,
+                                   lens_dev,
+                                   self._stage_cfg("big" if big else "base"))
         pos = fm_ops.sample_positions_host(lens, self.cfg.sampling_count)
         fn = self._get_big_fn() if big else self._device_fn
-        return fn(self.arrs, reads_dev,
-                  torch.from_numpy(np.asarray(lens, np.int32)).to(
-                      self.device),
+        return fn(self.arrs, reads_dev, lens_dev,
                   torch.from_numpy(pos).to(self.device))
+
+    def _host_seeds(self, arr: np.ndarray, lens: np.ndarray):
+        """Dormant-seeder path (cfg.seeder != "extend-whole"): seed on
+        the host (ops/seeders.py, timer ``host_seed``) and put the seeds
+        on the device with the device seeder's dtypes, for the post-seed
+        stage."""
+        from ..ops.seeders import host_seed_batch
+
+        with self.metrics.timer("host_seed"):
+            sb = host_seed_batch(self.idx, arr, lens, self.cfg,
+                                 self.cfg.max_seeds_per_read)
+
+        def put(a, dt):
+            return torch.from_numpy(np.ascontiguousarray(a, dt)).to(
+                self.device)
+
+        return fm_ops.SeedBatch(
+            t_pos=put(sb.t_pos, self.idx.pos_dtype),
+            q_pos=put(sb.q_pos, np.int32),
+            length=put(sb.length, np.int32),
+            is_rev=put(sb.is_rev, bool),
+            valid=put(sb.valid, bool),
+            n_total=put(sb.n_total, np.int32),
+            n_anchors=put(sb.n_anchors, np.int32),
+        )
 
     def _get_big_fn(self):
         """Device pipeline with 8x the candidate/compact-window budget."""
         if self._big_fn is None:
-            self._big_fn = device_pipeline(self.meta, self.cfg.replace(
-                max_candidates=min(4 * self.cfg.max_candidates, 256),
-                compact_windows_per_read=8
-                * self.cfg.compact_windows_per_read,
-            ))
+            self._big_fn = device_pipeline(self.meta,
+                                           self._stage_cfg("big"))
         return self._big_fn
 
     def _solo_retry(self, codes, L, page: int = 0):
@@ -155,18 +193,22 @@ class MappingEngine:
         of them, src/LordFAST.cpp:874-904).  page > 0 selects candidate
         ranks [512*page, 512*(page+1)); the caller pages until a page is
         not saturated.  Returns (out, chains_dev) with the read at batch
-        row 0."""
-        if self._solo_fn is None:
-            self._solo_fn = device_pipeline(self.meta, self.cfg.replace(
-                max_candidates=512, compact_windows_per_read=512,
-            ))
+        row 0.  A dormant seeder seeds the read on the host again."""
         arr = np.full((1, L), 4, dtype=np.uint8)
         arr[0, : len(codes)] = codes
         lens = np.array([len(codes)], np.int32)
+        lens_dev = torch.from_numpy(lens).to(self.device)
+        if self.cfg.seeder != "extend-whole":
+            _, chains, host_out = post_seed_stage(
+                self.arrs, self._host_seeds(arr, lens), self._put_reads(arr),
+                lens_dev, self._stage_cfg("solo"), page)
+            return self._fetch(host_out), chains
+        if self._solo_fn is None:
+            self._solo_fn = device_pipeline(self.meta,
+                                            self._stage_cfg("solo"))
         pos = fm_ops.sample_positions_host(lens, self.cfg.sampling_count)
         _, chains, host_out = self._solo_fn(
-            self.arrs, self._put_reads(arr),
-            torch.from_numpy(lens).to(self.device),
+            self.arrs, self._put_reads(arr), lens_dev,
             torch.from_numpy(pos).to(self.device), page,
         )
         return self._fetch(host_out), chains
@@ -1024,10 +1066,15 @@ class MappingEngine:
             # ship reads once; the same device buffer feeds the seeding
             # stage and the gap-DP gathers (no second upload)
             reads_dev = self._put_reads(arr)
+            # a dormant seeder seeds the batch once, on the host; the 8x
+            # retry reuses its seeds
+            seeds = (self._host_seeds(arr, lens)
+                     if cfg.seeder != "extend-whole" else None)
             with self.metrics.timer("device"):
-                _, chains_dev, host_out = self._device_stage(reads_dev,
-                                                             lens)
-            return (idxs, batch, reads_dev, lens, (chains_dev, host_out))
+                _, chains_dev, host_out = self._device_stage(
+                    reads_dev, lens, host_seeds=seeds)
+            return (idxs, batch, reads_dev, lens, (chains_dev, host_out),
+                    seeds)
 
         def _rows_by_read(out):
             rows = {}
@@ -1038,7 +1085,7 @@ class MappingEngine:
                     rows.setdefault(int(cw_read[k]), []).append(k)
             return rows
 
-        def resolve(idxs, batch, reads_dev, lens, dev):
+        def resolve(idxs, batch, reads_dev, lens, dev, seeds):
             # one device->host transfer per batch, trimmed on device
             # (seeds and full chains stay on device)
             chains_dev, host_out = dev
@@ -1072,7 +1119,7 @@ class MappingEngine:
                 self.metrics.add("compact_retry", len(overflow))
                 with self.metrics.timer("device"):
                     _, chains2, host_out2 = self._device_stage(
-                        reads_dev, lens, big=True
+                        reads_dev, lens, big=True, host_seeds=seeds
                     )
                     out2 = self._fetch(host_out2)
                 rows2 = _rows_by_read(out2)

@@ -7,12 +7,16 @@ The TPU build replaces both with runtime-structured counters (SURVEY.md
 §5.5): per-stage wall timers, per-batch device scalars (seeds found,
 candidate windows, fine-mode reads) reduced on device and fetched with the
 batch's host payload, and per-chunk host counters (splits, inversions,
-clip escalations).  Device tracing (``--profile``) is not ported yet.
+clip escalations).  ``torch.profiler`` tracing wraps the whole mapping
+run when enabled (``--profile DIR``), and the device stage's steps run
+inside named ranges (``named_range``: a profiler range, and an NVTX range
+on a CUDA device).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 from collections import defaultdict
@@ -81,3 +85,44 @@ class Metrics:
              "timers": {k: round(v, 4) for k, v in self.timers.items()}}
         )
 
+
+
+@contextmanager
+def named_range(name: str, device):
+    """A ``torch.profiler`` range named ``name`` (a user annotation in a
+    trace), and an NVTX range of the same name when ``device`` is a CUDA
+    device (a CPU build of torch has no NVTX)."""
+    import torch
+
+    with torch.profiler.record_function(name):
+        if device.type == "cuda":
+            with torch.cuda.nvtx.range(name):
+                yield
+        else:
+            yield
+
+
+@contextmanager
+def profiler_trace(trace_dir: str | None, device):
+    """``torch.profiler`` trace around the mapping run, written as a
+    Chrome trace ``lordfast_<pid>.pt.trace.json`` into trace_dir (made if
+    missing); CPU activity always, CUDA activity when ``device`` is a
+    CUDA device.  A no-op when trace_dir is falsy."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            trace_dir, f"lordfast_{os.getpid()}.pt.trace.json"))

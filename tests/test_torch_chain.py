@@ -78,10 +78,24 @@ def test_compact_select_chain_match_jax(seeded, chain_cfg):
 
 
 def test_chain_clasp_not_ported(seeded):
+    """clasp is ported (tests/test_torch_clasp.py holds it against JAX):
+    chain_seeds dispatches -a clasp to chain_clasp_sop, and on the seeded
+    windows its chains and scores equal the JAX package's."""
     jidx, kw, reads, lens, s = seeded
-    ws = tchain.WindowSeeds(*(torch.zeros((2, 8), dtype=torch.int32)
-                              for _ in range(3)),
-                            valid=torch.zeros((2, 8), dtype=torch.bool),
-                            n_in_range=torch.zeros(2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        tchain.chain_seeds(ws, TCfg(chain_alg="clasp"))
+    jcfg = JCfg(**kw, chain_alg="clasp")
+    tcfg = TCfg(**kw, chain_alg="clasp")
+    js = jfm.SeedBatch(**{k: jnp.asarray(v) for k, v in s.items()})
+    ts = tfm.SeedBatch(**{k: torch.from_numpy(np.array(v))
+                          for k, v in s.items()})
+    jl, tl = jnp.asarray(lens), torch.from_numpy(lens)
+    K = len(lens) * jcfg.compact_windows_per_read
+    jcw = jchain.compact_candidates(jvote.vote_windows(js, jl, jcfg), jcfg, K)
+    tcw = tchain.compact_candidates(tvote.vote_windows(ts, tl, tcfg), tcfg, K)
+    jws = jchain.select_window_seeds(js, jcw, jl, jidx.device_arrays(), jcfg)
+    tws = tchain.select_window_seeds(ts, tcw, tl,
+                                     port_index(jidx).device_arrays("cpu"),
+                                     tcfg)
+    jch = jchain.chain_seeds(jws, jcfg)
+    tch = tchain.chain_seeds(tws, tcfg)
+    _eq(tch, jch, ("q_pos", "t_pos", "length", "chain_len", "score"))
+    assert np.asarray(jch.chain_len).max() > 5

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: ``myers_dist`` (with and without
 its last column), ``myers_moves`` and ``extend_batch_cuda`` against
 their plain PyTorch versions (exact: every output is an integer), one
-test per kind of bucket, and the warp kernels' lane edges.  Needs an
+test per kind of bucket, the warp kernels' lane edges, and ``-a clasp``
+through the engine on the card against the CPU.  Needs an
 NVIDIA GPU (marker ``cuda``) and skips
 without one.  This file imports neither jax nor lordfast_tpu, so it also
 runs where JAX is not installed:
@@ -262,3 +263,29 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
         gap_dp_cuda.myers_dist(qs, n, buf[8:].view(4, 48), n, shw, 32, 48)
     with pytest.raises(ValueError):
         gap_dp_cuda.myers_dist(qs, n, buf[:160].view(4, 40), n, shw, 32, 40)
+
+
+@pytest.mark.cuda
+def test_cuda_clasp_engine_matches_cpu(cuda_device):
+    """-a clasp through the engine on the golden fixture: cuda (the
+    escalation offload on) gives the CPU's SAM, and the kernels ran."""
+    import io
+
+    from lordfast_tpu_torch.config import LordfastConfig
+    from lordfast_tpu_torch.index.builder import build_index
+    from lordfast_tpu_torch.pipeline.engine import MappingEngine
+
+    cfg = LordfastConfig(**chip_smoke.GOLDEN_CFG, chain_alg="clasp")
+    idx = build_index(chip_smoke.DATA / "ref.fa",
+                      LordfastConfig(kmer_cache_k=8), verbose=False)
+    sams = {}
+    chip_smoke.reset_launches()
+    for dev in ("cpu", cuda_device):
+        out = io.StringIO()
+        MappingEngine(idx, cfg, device=dev).map_file(
+            chip_smoke.DATA / "reads.fq", out, "clasp")
+        sams[str(dev)] = chip_smoke.sam_records(out.getvalue())
+    launches = chip_smoke.read_launches()
+    assert len(sams["cpu"]) == 78
+    assert sams["cuda"] == sams["cpu"]
+    assert launches["myers_dist"] > 0 and launches["affine_extend"] > 0

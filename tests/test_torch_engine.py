@@ -101,8 +101,20 @@ def test_engine_refuses_unported_options(port_idx, kw):
 
 
 def test_engine_refuses_dormant_seeders(port_idx):
-    with pytest.raises(NotImplementedError):
-        MappingEngine(port_idx, TCfg(seeder="extend-whole-2"), device="cpu")
+    """The dormant seeders are ported (tests/test_torch_seeders.py): the
+    engine takes them and seeds on the host, and only a mesh or a sharded
+    index is refused (test_engine_refuses_unported_options)."""
+    for seeder in ("extend-whole-2", "extend-whole-3"):
+        eng = MappingEngine(port_idx, TCfg(**TEST_CFG, seeder=seeder),
+                            device="cpu")
+        arr = np.full((2, 1024), 4, np.uint8)
+        arr[0] = seq_to_codes(next(iter(read_chunks(
+            DATA / "reads.fq", 1 << 20)))[0].seq[:1024])
+        seeds = eng._host_seeds(arr, np.array([1024, 0], np.int32))
+        assert seeds.t_pos.dtype == torch.int32
+        assert seeds.q_pos.dtype == seeds.length.dtype == torch.int32
+        assert seeds.is_rev.dtype == seeds.valid.dtype == torch.bool
+        assert int(seeds.n_total[0]) > 0 and int(seeds.n_total[1]) == 0
 
 
 def test_cli_refuses_cuda_without_a_card(tmp_path, capsys):
@@ -121,8 +133,15 @@ def test_cli_refuses_cuda_without_a_card(tmp_path, capsys):
                                    ["-a", "clasp"], ["--profile", "p"],
                                    ["--mergeShards"]])
 def test_cli_refuses_unported_flags(tmp_path, capsys, flags):
-    rc = cli.main(["--search", str(DATA / "ref.fa"), "--seq",
-                   str(DATA / "reads.fq"), "-o", str(tmp_path / "o.sam"),
-                   "--device", "cpu", *flags])
-    assert rc == 1
-    assert "not ported" in capsys.readouterr().err
+    """Only --shardIndex is refused; every other flag of the JAX CLI is
+    ported (tests/test_torch_{multihost,seeders,clasp,profile}.py)."""
+    args = ["--search", str(DATA / "ref.fa"), "--seq",
+            str(DATA / "reads.fq"), "-o", str(tmp_path / "o.sam"),
+            "--device", "cpu", *flags]
+    refused = flags == ["--shardIndex"]
+    assert cli.unported_flags(cli.build_parser().parse_args(args)) == (
+        ["--shardIndex"] if refused else [])
+    if refused:
+        assert cli.main(args) == 1
+        assert "not ported" in capsys.readouterr().err
+        assert not (tmp_path / "o.sam").exists()
