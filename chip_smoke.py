@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (lordfast_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--mesh]
 
+(``--mesh``: phases 1, 3, 5 and 10 only, for a host of several cards.)
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. environment: torch/CUDA versions, the card's name, power limit and
@@ -73,7 +74,26 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. multi-process: two ``python -m lordfast_tpu_torch.cli`` processes on
    the card (--numProcesses 2 --coordinator localhost:<free port>, a
    gloo group) map the golden fixture's chunks and process 0 merges
-   them; the merged SAM equals a single-process run's, @PG aside.
+   them; the merged SAM equals a single-process run's, @PG aside;
+10. mesh and sharded index: ranks started as processes of this script
+   (``--mesh-rank``), one process per rank, each on a group that the
+   script sets up before it builds the mesh (parallel/mesh.make_mesh):
+   - NCCL at D = torch.cuda.device_count(), one rank per card:
+     MappingEngine(mesh=..., shard_index=True) and mesh= alone (the
+     index whole on every rank) on golden at the golden config and on
+     the whole of v2 at the default config; each SAM equals golden.sam
+     (records) or phase 5's SAM (byte for byte);
+   - gloo at D = 2 on card 0 (two ranks on one card, which NCCL does
+     not allow), so that the sharded index's routed gathers run between
+     two ranks on CUDA tensors: shard_index=True on golden and on the
+     first 64 v2 reads, equal to golden.sam and to phase 5's records of
+     those reads;
+   with each rank's bytes of the striped arrays against the replicated
+   index's and its peak device memory, each pass's seconds and rank 0's
+   stage timers beside the replicated pass's (rank 0 of the NCCL job
+   also maps golden and v2 with no mesh, and phases 3 and 5's warm
+   passes), and rank 0's kernel launches, which must equal the
+   sub-batches its engine counted.
 
 Phases 4 and 5 run the engine at verbosity 2, which adds the
 ``gpart_*`` counters (launches per bucket and part size) and prints them
@@ -91,6 +111,7 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -746,7 +767,9 @@ def phase_golden():
         f"{c['gap_parts']}, esc_nw_parts {c['esc_nw_parts']}, "
         f"esc_affine_parts {c['esc_affine_parts']})")
     check_split_paths(eng, idx)
-    return launches
+    sam, warm_s, _, _, _ = map_pass(eng, DATA / "reads.fq")
+    log(f"[golden] warm pass {warm_s:.3f} s")
+    return launches, dict(idx=idx, warm_s=warm_s)
 
 
 def check_split_paths(eng, idx, n=40):
@@ -1232,7 +1255,217 @@ def phase_multiprocess():
         f"({t_single:.1f} s in process), @PG aside")
 
 
-def main() -> int:
+def _striped_bytes(idx, arrs: dict):
+    """(this rank's device bytes of the arrays a sharded index stripes,
+    the same arrays' bytes in the replicated layout of
+    FMIndex.device_arrays, which holds uint32 words as int64)."""
+    from lordfast_tpu_torch.parallel.sharded_index import _SHARDED_KEYS
+
+    whole = sum((8 if v.dtype.name == "uint32" else v.itemsize) * v.size
+                for k, v in idx.host_arrays().items() if k in _SHARDED_KEYS)
+    return sum(arrs[k].nbytes for k in _SHARDED_KEYS if k in arrs), whole
+
+
+def mesh_rank(spec_path: str) -> int:
+    """One rank of phase 10 (``python3 chip_smoke.py --mesh-rank SPEC``,
+    RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT in the environment, and
+    LOCAL_RANK for one rank a card): set up the process group of the
+    spec's backend on this rank's card, build the mesh on it, and map
+    each of the spec's runs; every rank appends a JSON line of its
+    figures to SPEC.<rank>.jsonl, and rank 0 writes each run's SAM and
+    checks its kernel launches against its engine's sub-batches."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from lordfast_tpu_torch.config import LordfastConfig
+    from lordfast_tpu_torch.index.builder import load_index
+    from lordfast_tpu_torch.parallel.mesh import make_mesh
+    from lordfast_tpu_torch.pipeline.engine import MappingEngine
+
+    spec = json.loads(Path(spec_path).read_text())
+    rank = int(os.environ["RANK"])
+    torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group(spec["backend"],
+                            timeout=timedelta(seconds=spec["timeout_s"]))
+    mesh = make_mesh("cuda")
+    indexes = {}
+    for run in spec["runs"]:
+        if run["index"] not in indexes:
+            indexes[run["index"]] = load_index(run["index"])
+        idx = indexes[run["index"]]
+        if run["replicated"]:
+            # rank 0 maps alone, with no mesh: the replicated pass in
+            # this process; the others go on to the next run's barrier
+            if rank != 0:
+                continue
+            eng = MappingEngine(idx, LordfastConfig(**run["cfg"]),
+                                device="cuda")
+        else:
+            eng = MappingEngine(idx, LordfastConfig(**run["cfg"]),
+                                device="cuda", mesh=mesh,
+                                shard_index=run["shard_index"])
+        mine, whole = _striped_bytes(idx, eng.arrs)
+        rec = {"name": run["name"], "rank": rank,
+               "backend": dist.get_backend(), "world": dist.get_world_size(),
+               "device": str(eng.device), "seconds": [],
+               "index_bytes": mine, "replicated_bytes": whole}
+        torch.cuda.reset_peak_memory_stats()
+        sams = []
+        for _ in range(run["passes"]):
+            out = io.StringIO()
+            if not run["replicated"]:
+                dist.barrier()
+            reset_launches()
+            t = time.time()
+            eng.map_file(run["reads"], out, "chip_smoke")
+            torch.cuda.synchronize()
+            rec["seconds"].append(time.time() - t)
+            rec["launches"] = read_launches()
+            sams.append(out.getvalue())
+        rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        if rank == 0:
+            # every pass, the cold one too, must give the same SAM, which
+            # the smoke then holds against the replicated one
+            if any(x != sams[0] for x in sams[1:]):
+                raise AssertionError(f"mesh {run['name']}: the passes' "
+                                     f"SAMs differ")
+            Path(run["out"]).write_text(sams[0])
+            c = eng.metrics.counters
+            check_launches(run["name"], rec["launches"], c, ("myers_dist",))
+            rec["counters"] = {k: c.get(k, 0) for k in V2_EXPECTED}
+            rec["timers"] = {k: eng.metrics.timers.get(k, 0.0)
+                             for k in ("device", "gap_dp", "stitch")}
+        with open(f"{spec_path}.{rank}.jsonl", "a") as f:
+            f.write(json.dumps(rec) + "\n")
+    dist.destroy_process_group()
+    return 0
+
+
+def _mesh_job(d: Path, tag: str, backend: str, world: int, runs: list,
+              timeout_s: int):
+    """Start ``world`` ranks of mesh_rank on one group (a card a rank
+    under NCCL, all on card 0 under gloo) and wait for them; returns
+    each rank's records ({run name: record})."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_mesh_ranks import launch
+
+    spec = d / f"{tag}.json"
+    for old in d.glob(f"{tag}.json.*.jsonl"):
+        old.unlink()
+    spec.write_text(json.dumps({"backend": backend, "runs": runs,
+                                "timeout_s": timeout_s}))
+    res, dt = launch([sys.executable, ROOT / "chip_smoke.py", "--mesh-rank",
+                      spec], world, timeout_s,
+                     card_per_rank=backend == "nccl")
+    for rank, (rc, _, err) in enumerate(res):
+        if rc != 0:
+            raise AssertionError(f"mesh {tag}: rank {rank} exited "
+                                 f"{rc}: {err[-3000:]}")
+    recs = []
+    for rank in range(world):
+        lines = Path(f"{spec}.{rank}.jsonl").read_text().splitlines()
+        recs.append({r["name"]: r for r in map(json.loads, lines)})
+    log(f"[mesh] {tag}: {world} rank(s) on {backend} in {dt:.1f} s")
+    return recs
+
+
+def phase_mesh(golden, v2):
+    """Phase 10: the mesh and the sharded index (see the module
+    docstring).  Returns rank 0's launch counts by path."""
+    import shutil
+
+    import torch
+
+    from lordfast_tpu_torch.config import LordfastConfig
+    from lordfast_tpu_torch.index.builder import save_index
+
+    d = CACHE / "mesh"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    t = time.time()
+    save_index(golden["idx"], d / "golden.lft.npz")
+    save_index(v2["idx"], d / "v2.lft.npz")
+    log(f"[mesh] indexes saved for the ranks in {time.time() - t:.1f} s")
+    names64 = _subset(v2["reads"], d / "v2_first64.fq",
+                      lambda name, i: i < 64)
+    golden_recs = sam_records((DATA / "golden.sam").read_text())
+    v2_64 = [r for r in sam_records(v2["sam"])
+             if r.split("\t")[0] in names64]
+    gcfg, vcfg = GOLDEN_CFG, {}
+    D = torch.cuda.device_count()
+
+    def run(name, index, reads, cfg, shard, passes=1, replicated=False):
+        return {"name": name, "index": str(d / index), "reads": str(reads),
+                "cfg": cfg, "shard_index": shard, "passes": passes,
+                "replicated": replicated, "out": str(d / f"{name}.sam")}
+
+    jobs = [
+        # the sharded runs first: a rank's peak memory then holds no
+        # replicated copy of the index
+        ("nccl", D, [
+            run("golden_shard", "golden.lft.npz", DATA / "reads.fq", gcfg,
+                True, 2),
+            run("golden_mesh", "golden.lft.npz", DATA / "reads.fq", gcfg,
+                False, 2),
+            run("golden_repl", "golden.lft.npz", DATA / "reads.fq", gcfg,
+                False, 2, True),
+            run("v2_shard", "v2.lft.npz", v2["reads"], vcfg, True, 2),
+            run("v2_mesh", "v2.lft.npz", v2["reads"], vcfg, False, 2),
+            run("v2_repl", "v2.lft.npz", v2["reads"], vcfg, False, 2, True)]),
+        ("gloo", 2, [
+            run("golden_shard", "golden.lft.npz", DATA / "reads.fq", gcfg,
+                True),
+            run("v2_64_shard", "v2.lft.npz", d / "v2_first64.fq", vcfg,
+                True)]),
+    ]
+    want = {"golden": ("records", golden_recs), "v2": ("sam", v2["sam"]),
+            "v2_64": ("records", v2_64)}
+    replicated_s = {"golden": golden["warm_s"], "v2": v2["warm_s"]}
+    by_path = {}
+    for backend, world, runs in jobs:
+        recs = _mesh_job(d, backend, backend, world, runs, 600)
+        for r in runs:
+            name = r["name"]
+            data = name.rsplit("_", 1)[0]
+            kind, expect = want[data]
+            text = Path(r["out"]).read_text()
+            got = sam_records(text) if kind == "records" else text
+            if got != expect:
+                raise AssertionError(f"mesh {backend} D={world} {name}: the "
+                                     f"SAM differs from the replicated one")
+            r0 = recs[0][name]
+            secs = " / ".join(f"{x:.3f}" for x in r0["seconds"])
+            ref = replicated_s.get(data)
+            log(f"[mesh] {backend} D={world} {name}: SAM equal to the "
+                f"replicated one ({len(sam_records(text))} records); "
+                f"passes {secs} s"
+                + (f" (replicated warm pass in the smoke's process: "
+                   f"{ref:.3f} s)" if ref else "")
+                + f"; rank 0 timers of the last pass {r0['timers']}; "
+                f"launches {r0['launches']}")
+            by_path[f"{name}_{backend}{world}"] = r0["launches"]
+            if data == "v2" and r0["counters"] != V2_EXPECTED:
+                raise AssertionError(f"mesh {name}: counters "
+                                     f"{r0['counters']} != {V2_EXPECTED}")
+            if r["replicated"]:
+                continue
+            for rank in range(world):
+                x = recs[rank][name]
+                log(f"[mesh] {backend} D={world} {name} rank {rank} on "
+                    f"{x['device']}: striped arrays {x['index_bytes']} B "
+                    f"of {x['replicated_bytes']} B replicated "
+                    f"({x['index_bytes'] / x['replicated_bytes']:.4f}); "
+                    f"peak device memory {x['peak_mib']:.0f} MiB")
+    return by_path
+
+
+def main(mesh_only: bool = False) -> int:
+    """Every phase; with ``mesh_only`` (``--mesh``) the builds, the
+    golden and v2 phases that phase 10 is held against, and phase 10,
+    with no kernel table and no contract line: the run for a host of
+    several cards, where phase 10's NCCL job takes one rank a card."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1242,8 +1475,18 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     t0 = time.time()
     int_rate = phase_env()
+    if mesh_only:
+        _, golden = phase_golden()
+        _, _, v2 = phase_v2()
+        t9 = time.time()
+        phase_mesh(golden, v2)
+        log(f"[smoke] phase 10 done in {time.time() - t9:.1f} s; phases "
+            f"1, 3, 5 and 10 passed in {time.time() - t0:.1f} s")
+        print(nvidia_smi_line())
+        return 0
     rows = phase_kernel_gaps(int_rate) + [phase_kernel_affine(int_rate)]
-    by_path = {"golden": phase_golden()}
+    by_path = {}
+    by_path["golden"], golden = phase_golden()
     by_path["v1"], v1_idx, v1_reads = phase_v1()
     by_path["v2"], v2_parts, v2 = phase_v2()
     time_at_parts(v2_parts)
@@ -1253,7 +1496,10 @@ def main() -> int:
     by_path.update(phase_seeders(v1_idx, v1_reads))
     by_path["v2_profiled"] = phase_profile(v2)
     phase_multiprocess()
-    log(f"[smoke] phases 6-9 done in {time.time() - t5:.1f} s")
+    t9 = time.time()
+    log(f"[smoke] phases 6-9 done in {t9 - t5:.1f} s")
+    by_path.update(phase_mesh(golden, v2))
+    log(f"[smoke] phase 10 done in {time.time() - t9:.1f} s")
     for row in rows:
         row["launches"] = by_path["v2"][row["name"]]
         row["launches_by_path"] = {p: n[row["name"]]
@@ -1268,4 +1514,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.path.insert(0, str(ROOT))
+        sys.exit(mesh_rank(sys.argv[2]))
+    sys.exit(main(mesh_only=sys.argv[1:2] == ["--mesh"]))

@@ -10,8 +10,15 @@ JAX_PLATFORMS; cuda without a usable card is an error.  ``--profile DIR``
 writes a torch.profiler Chrome trace into DIR; ``--numProcesses N
 --processIndex I --coordinator HOST:PORT`` map chunk shards in N
 processes under a torch.distributed (gloo) group, and process 0 merges
-them (parallel/multihost.py).  ``--shardIndex`` (a sharded index across
-cards) is not ported and is refused.
+them (parallel/multihost.py).  ``--shardIndex`` stripes the index over
+the ranks of a torch.distributed group, one process per device
+(parallel/sharded_index.py): run under torchrun, every rank maps and
+rank 0 writes the SAM,
+
+    torchrun --nproc_per_node N -m lordfast_tpu_torch.cli --search ref.fa \
+        --seq reads.fq -o out.sam --shardIndex [--device cuda|cpu]
+
+on NCCL for cuda and gloo for cpu; without torchrun, on a group of one.
 """
 
 from __future__ import annotations
@@ -63,10 +70,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default="", metavar="DIR",
                    help="write a torch.profiler Chrome trace of the "
                         "mapping run into DIR (with NVTX ranges on cuda)")
-    # the JAX package's sharded index: parsed so that it is refused with
-    # a clear message
     p.add_argument("--shardIndex", action="store_true",
-                   help="not ported yet")
+                   help="stripe the FM-index over the ranks of a "
+                        "torch.distributed group, one process per device "
+                        "(run under torchrun; rank 0 writes the SAM)")
     # ---- multi-process flags (parallel/multihost.py) ----
     p.add_argument("--numProcesses", type=int, default=1,
                    help="total mapping processes; this process maps "
@@ -93,9 +100,15 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def unported_flags(args) -> list:
-    """The flags of args that select a path the port does not have."""
-    return ["--shardIndex"] if args.shardIndex else []
+def _wait_for_index(ipath, ref, poll_s: float = 1.0) -> None:
+    """Block until the index of ``ref`` can be loaded: its saved file
+    (written whole by rank 0) or the reference-format files."""
+    import time
+
+    from .index.bwa_io import bwa_files_present
+
+    while not (ipath.exists() or bwa_files_present(ref)):
+        time.sleep(poll_s)
 
 
 def parse_read_group(rg_line: str):
@@ -166,10 +179,11 @@ def main(argv=None) -> int:
         print(f"lordfast_tpu_torch {__version__}")
         return 0
 
-    bad = unported_flags(args)
-    if bad:
-        print(f"[ERROR] not ported to lordfast_tpu_torch yet: "
-              f"{', '.join(bad)}", file=sys.stderr)
+    if args.shardIndex and args.numProcesses > 1:
+        print("[ERROR] --shardIndex cannot be combined with --numProcesses "
+              "> 1: each process maps chunks of its own, while the sharded "
+              "index needs every rank in the same device-stage calls; run "
+              "--shardIndex under torchrun instead", file=sys.stderr)
         return 1
 
     if args.mergeShards:
@@ -221,9 +235,18 @@ def main(argv=None) -> int:
                                 save_index)
     from .pipeline.engine import MappingEngine
 
+    import os as _os
+
     ipath = index_path_for(args.search)
+    if args.shardIndex and int(_os.environ.get("RANK", "0")) != 0:
+        # rank 0 builds a missing index before any rank joins the group,
+        # so no rank waits out the build (up to an hour at Gbp scale) in
+        # a collective; under torchrun a rank 0 that fails ends the rest
+        _wait_for_index(ipath, args.search)
     try:
-        idx = load_index(ipath)
+        # mmap: the ranks of one host share the device-layout sidecar's
+        # pages, where there is one (index/builder.py save_device_cache)
+        idx = load_index(ipath, mmap=args.shardIndex)
     except FileNotFoundError:
         # fall back to a reference-built on-disk index (bwa files) before
         # rebuilding — mirrors bwt_load's reuse (src/BWT.cpp:189-242)
@@ -237,11 +260,22 @@ def main(argv=None) -> int:
             print(f"[WARNING] could not locate index file: {ipath}; "
                   f"building", file=sys.stderr)
             idx = build_index(args.search, cfg)
-            save_index(idx, ipath)
+            # written whole under another name and renamed, so a waiting
+            # rank never loads a part of it
+            tmp = ipath.with_name(f"{ipath.name}.{_os.getpid()}.tmp.npz")
+            save_index(idx, tmp)
+            _os.replace(tmp, ipath)
+
+    mesh, rank = None, 0
+    if args.shardIndex:
+        import torch.distributed as dist
+
+        from .parallel.mesh import make_mesh
+
+        mesh = make_mesh(device.type)
+        rank = dist.get_rank()
 
     # ---- multi-process setup (parallel/multihost.py) ----
-    import os as _os
-
     num_procs = max(1, args.numProcesses)
     proc_idx = (args.processIndex if args.processIndex >= 0
                 else int(_os.environ.get("LORDFAST_PROCESS_INDEX", "0")))
@@ -256,10 +290,18 @@ def main(argv=None) -> int:
         maybe_init_distributed(args.coordinator, num_procs, proc_idx)
         out_path = shard_path(args.out, proc_idx)
 
-    engine = MappingEngine(idx, cfg, device=device)
+    engine = MappingEngine(idx, cfg, device=device, mesh=mesh,
+                           shard_index=args.shardIndex)
     cmdline = "lordfast-tpu " + " ".join(argv)
     from .utils.checkpoint import ChunkProgress
     from .utils.metrics import profiler_trace
+
+    if rank:
+        # ranks > 0 serve rank 0's device-stage calls; rank 0 writes
+        with profiler_trace(args.profile, device):
+            engine.map_file(args.seq, None)
+        dist.destroy_process_group()
+        return 0
 
     progress = None
     mode = "w"
@@ -335,6 +377,8 @@ def main(argv=None) -> int:
             print(f"[NOTE] merged {n} chunks into {args.out}",
                   file=sys.stderr)
         barrier("lordfast-merge-done")
+    if mesh is not None:
+        dist.destroy_process_group()
     if cfg.verbosity >= 1:
         print("[metrics] " + engine.metrics.to_json(), file=sys.stderr)
     # cumulative across resumed runs (persisted in the progress sidecar)

@@ -25,6 +25,17 @@ PyTorch has dynamic shapes.  Which lanes ride which stage does not
 change any lane's result, so the outputs are the JAX version's.  Each
 compaction is a host sync on a GPU; the loops are plain PyTorch, not
 kernels (hand kernels for them are later work).
+
+Sharded index (``group=``, parallel/sharded_index.py): the row arrays
+``fm_blocks`` / ``occ_cp`` / ``bwt_blocks`` / ``bwt_words`` / ``sa_samp``
+hold only this rank's stripe, and every row gather goes to the rank that
+owns the row through torch.distributed collectives (``_row_gather``).
+Each collective needs every rank of the group, so under a group the
+seeder takes the JAX version's sharded branches: the plain lockstep
+extension loop (no occ==1 text-compare fast path) and the walk over
+every slot, each loop ending on a group-wide any (``_global_any``), so
+all ranks make the same calls.  The ``nonzero`` compactions above would
+give each rank its own lane set and stay on the ``group=None`` path.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 # Maximum anchor length; the reference stores seed length in a 12-bit
 # field (Seed_t.len, src/LordFAST.h:30-35), so 4095 is its hard cap too.
@@ -54,13 +66,70 @@ def _popcount32(x):
     return ((x * 0x01010101) & M32) >> 24
 
 
-def occ(arrs, meta, k, c):
+def _row_gather(stripe, rows, group=None):
+    """Row gather from an index array, local or routed to the owners.
+
+    group=None: ``stripe`` is the whole array, a plain gather.  Else
+    ``stripe`` is this rank's stripe of a row-striped array (global row r
+    lives on rank r // rps at local row r % rps, rps = stripe.shape[0]),
+    every rank of ``group`` calls this at the same time, and each query
+    goes to the rank that owns its row: sort this rank's queries by
+    owner, send each owner its rows with ``all_to_all_single``, answer
+    with one local gather, and send the values straight back (JAX
+    ``_row_gather_routed``).  The result has a plain gather's bits.
+
+    JAX's ``all_to_all`` moves fixed (D, cap) buckets, cap =
+    2*ceil(Q/D), so a skewed step overflows a bucket and falls back to
+    its all-gather routing (``_row_gather_ag``); that is the only way JAX
+    reaches it, since its tiny-set test (cap*D >= 2Q + 8D) cannot hold.
+    ``all_to_all_single`` takes split sizes (one exchange of D counts
+    first), so every bucket holds exactly its rows: nothing overflows,
+    and the port has no cap, no fallback and no all-gather routing."""
+    if group is None:
+        return stripe[rows]
+    D, d = dist.get_world_size(group), dist.get_rank(group)
+    rps = stripe.shape[0]
+    q = rows.reshape(-1).long()
+    owner = (q // rps).clamp(0, D - 1)
+    order = torch.argsort(owner, stable=True)
+    send = q[order].contiguous()
+    counts = torch.bincount(owner, minlength=D)
+    recv_counts = torch.empty_like(counts)
+    dist.all_to_all_single(recv_counts, counts, group=group)
+    sc, rc = counts.tolist(), recv_counts.tolist()
+    recv = q.new_empty(sum(rc))
+    dist.all_to_all_single(recv, send, rc, sc, group=group)
+    loc = recv - d * rps
+    ok = (loc >= 0) & (loc < rps)
+    vals = stripe[loc.clamp(0, rps - 1)]
+    vals = torch.where(ok.view(ok.shape + (1,) * (stripe.dim() - 1)), vals,
+                       torch.zeros((), dtype=vals.dtype, device=vals.device))
+    back = vals.new_empty((q.numel(),) + tuple(stripe.shape[1:]))
+    dist.all_to_all_single(back, vals.contiguous(), sc, rc, group=group)
+    out = torch.empty_like(back)
+    out[order] = back
+    return out.reshape(tuple(rows.shape) + tuple(stripe.shape[1:]))
+
+
+def _global_any(x, group=None) -> bool:
+    """any(x), over every rank of ``group`` when there is one (a MAX
+    all-reduce of a 0/1 flag), so lockstep loops whose bodies make
+    collective calls end together on every rank."""
+    if group is None:
+        return bool(x.any())
+    flag = x.any().to(torch.int32).reshape(1)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    return bool(flag.item())
+
+
+def occ(arrs, meta, k, c, group=None):
     """Occ(c, k): count of char c in the $-removed BWT prefix at row k.
 
     Semantics of bwt_occ (lib/bwa/bwt.c:107-129) including the primary-row
     adjustment; k in [-1, seq_len], c in [0, 3] (int64 tensors, shapes
     broadcast).  Reads the fused ``fm_blocks`` rank rows when the index
-    has them, else the ``occ_cp``/``bwt_blocks`` pair (l_pac >= 2^32)."""
+    has them, else the ``occ_cp``/``bwt_blocks`` pair (l_pac >= 2^32);
+    group: their stripes' process group (_row_gather)."""
     seq_len = meta["seq_len"]
     primary = meta["primary"]
     k, c = torch.broadcast_tensors(k, c)
@@ -74,12 +143,14 @@ def occ(arrs, meta, k, c):
     off = kp & 127
     cidx = c[..., None]
     if "fm_blocks" in arrs:
-        row = arrs["fm_blocks"][blk]  # (..., 12): cp(A..T) | 8 words
+        # (..., 12): cp(A..T) | 8 words
+        row = _row_gather(arrs["fm_blocks"], blk, group)
         base = row[..., :4].gather(-1, cidx)[..., 0]
         w = row[..., 4:]
     else:
-        base = arrs["occ_cp"][blk].gather(-1, cidx)[..., 0]
-        w = arrs["bwt_blocks"][blk]  # (..., 8)
+        base = _row_gather(arrs["occ_cp"], blk, group).gather(
+            -1, cidx)[..., 0]
+        w = _row_gather(arrs["bwt_blocks"], blk, group)  # (..., 8)
     hi = torch.where((cidx & 2) != 0, w, w ^ M32)
     lo = torch.where((cidx & 1) != 0, w, w ^ M32)
     matched = (hi >> 1) & lo & 0x55555555
@@ -99,31 +170,31 @@ def occ(arrs, meta, k, c):
     return torch.where(is_none, 0, res)
 
 
-def backward_ext(arrs, meta, k, l, c):
+def backward_ext(arrs, meta, k, l, c, group=None):
     """One backward-search step: [k, l] -> interval of c+pattern
     (bwt_count_exact inner step, src/BWT.cpp:255-258).  The two rank
     queries go through one stacked occ call (bwa's bwt_2occ fusion)."""
-    both = occ(arrs, meta, torch.stack([k - 1, l]), c[None])
+    both = occ(arrs, meta, torch.stack([k - 1, l]), c[None], group)
     L2c = arrs["L2"].long()[c]
     return L2c + both[0] + 1, L2c + both[1]
 
 
-def bwt_b0(arrs, k):
+def bwt_b0(arrs, k, group=None):
     """BWT char at $-removed position k (bwt_B0, lib/bwa/bwt.h:78)."""
-    w = arrs["bwt_words"][k >> 4]
+    w = _row_gather(arrs["bwt_words"], k >> 4, group)
     return (w >> (((k ^ -1) & 15) << 1)) & 3
 
 
-def _walk_step(arrs, meta, rows):
+def _walk_step(arrs, meta, rows, group=None):
     """One inverse-Psi step (bwt_invPsi, lib/bwa/bwt.c:53-59)."""
     primary = meta["primary"]
     x = rows - (rows > primary).long()
-    ch = bwt_b0(arrs, x)
-    nxt = arrs["L2"].long()[ch] + occ(arrs, meta, rows, ch)
+    ch = bwt_b0(arrs, x, group)
+    nxt = arrs["L2"].long()[ch] + occ(arrs, meta, rows, ch, group)
     return torch.where(rows == primary, 0, nxt)
 
 
-def sa_lookup(arrs, meta, rows, valid):
+def sa_lookup(arrs, meta, rows, valid, group=None):
     """SA values for a batch of rows: inverse-Psi walk until a sampled
     row (bwt_sa, lib/bwa/bwt.c:86-96).  Rows outside ``valid`` return 0.
 
@@ -131,18 +202,29 @@ def sa_lookup(arrs, meta, rows, valid):
     the walk runs in two phases like the JAX version's: intv/2 lockstep
     steps over every lane (the remaining walk length is uniform in
     [0, intv), so about half the lanes finish), then the survivors are
-    compacted and walked to the end."""
+    compacted and walked to the end.  Under a sharded index (group) every
+    lane walks until no lane of any rank is active, as JAX's does."""
     rows = rows.long()
     intv = meta["sa_intv"]
     sa = arrs["sa_samp"]
     if intv == 1:
-        r = torch.where(valid, rows, 0).clamp(0, sa.shape[0] - 1)
-        return torch.where(valid, sa[r].long(), 0)
+        r = torch.where(valid, rows, 0)
+        if group is None:
+            r = r.clamp(0, sa.shape[0] - 1)
+        return torch.where(valid, _row_gather(sa, r, group).long(), 0)
     mask = intv - 1
     log2_intv = int(intv).bit_length() - 1
     rows = torch.where(valid, rows, 0)
     steps = torch.zeros_like(rows)
     active = valid & ((rows & mask) != 0)
+    if group is not None:
+        while _global_any(active, group):
+            rows = torch.where(active, _walk_step(arrs, meta, rows, group),
+                               rows)
+            steps = steps + active.long()
+            active = active & ((rows & mask) != 0)
+        out = steps + _row_gather(sa, rows >> log2_intv, group).long()
+        return torch.where(valid, out, 0)
     for _ in range(intv // 2):
         rows = torch.where(active, _walk_step(arrs, meta, rows), rows)
         steps = steps + active.long()
@@ -210,17 +292,22 @@ class _Reads:
         return (self.rw[b, qc >> 4] >> (3 * (15 - (qc & 15)))) & 7
 
 
-def _ext_steps(arrs, meta, rd, alive, k, l, m, posf, bf, n_steps):
-    """n_steps lockstep greedy-extension steps: each lane consumes the
-    complement of its next read char as one backward-extension step and
-    dies at the first step that fails."""
+def _ext_steps(arrs, meta, rd, alive, k, l, m, posf, bf, n_steps,
+               group=None):
+    """n_steps lockstep greedy-extension steps (None: until no lane of
+    any rank in ``group`` is alive, JAX's ``ext_loop_flat``): each lane
+    consumes the complement of its next read char as one
+    backward-extension step and dies at the first step that fails."""
     lens = rd.lens[bf]
-    for _ in range(n_steps):
+    step = 0
+    while (step < n_steps if n_steps is not None
+           else _global_any(alive, group)):
+        step += 1
         q = posf + m  # next read position to consume
         c = rd.char(bf, q)
         ok_char = (q < lens) & (c < 4)
         cc = torch.where(ok_char, 3 - c, 0)  # complemented
-        nk, nl = backward_ext(arrs, meta, k, l, cc)
+        nk, nl = backward_ext(arrs, meta, k, l, cc, group)
         alive = alive & ok_char & (nk <= nl) & (m < MAX_ANCHOR_LEN)
         k = torch.where(alive, nk, k)
         l = torch.where(alive, nl, l)
@@ -309,13 +396,15 @@ def _staged_ext(arrs, meta, rd, alive, k, l, m, posf, bf, phase1_steps):
 
 def _seed_anchors_impl(arrs, reads, read_lens, pos, meta, sampling_count,
                        min_anchor_len, max_ref_hits, max_seeds,
-                       phase1_steps=24):
+                       phase1_steps=24, group=None):
     """Seeding for a padded read batch (JAX ``_seed_anchors_impl``).
 
     reads: (B, L) uint8 codes (4 = N/pad); read_lens: (B,) int32;
     pos: (B, S) int32 sample positions (sample_positions_host), all on
     the index's device.  Returns a SeedBatch with up to max_seeds slots
-    per read across both strands."""
+    per read across both strands.  group: the process group of a
+    sharded index's stripes (this rank's rows of the batch; every rank
+    passes the same B)."""
     dev = reads.device
     pdt = torch_pos_dtype(meta)
     B, L = reads.shape
@@ -351,9 +440,15 @@ def _seed_anchors_impl(arrs, reads, read_lens, pos, meta, sampling_count,
 
     # ---- staged lockstep greedy extension ----
     m0 = torch.full((BS,), kc, dtype=torch.int64, device=dev)
-    kf, lf, mf, rposf, rflagf = _staged_ext(
-        arrs, meta, rd, alive0, k0, l0, m0, pos_f, b_lane, phase1_steps
-    )
+    if group is None:
+        kf, lf, mf, rposf, rflagf = _staged_ext(
+            arrs, meta, rd, alive0, k0, l0, m0, pos_f, b_lane, phase1_steps
+        )
+    else:
+        _, kf, lf, mf = _ext_steps(arrs, meta, rd, alive0, k0, l0, m0,
+                                   pos_f, b_lane, None, group)
+        rposf = torch.zeros_like(kf)
+        rflagf = torch.zeros_like(alive0)
     kf, lf, mf = kf.view(B, S), lf.view(B, S), mf.view(B, S)
     rposf, rflagf = rposf.view(B, S), rflagf.view(B, S)
 
@@ -397,9 +492,12 @@ def _seed_anchors_impl(arrs, reads, read_lens, pos, meta, sampling_count,
     # only the rest walk the SA, compacted to the slots that need it
     res_f = rflagf.gather(1, sidx)
     walk = (slot_valid & ~res_f).reshape(-1)
-    sel = walk.nonzero().squeeze(1)
-    p_occ = torch.zeros(B * MS, dtype=torch.int64, device=dev)
-    p_occ[sel] = sa_lookup(arrs, meta, row.reshape(-1)[sel], walk[sel])
+    if group is None:
+        sel = walk.nonzero().squeeze(1)
+        p_occ = torch.zeros(B * MS, dtype=torch.int64, device=dev)
+        p_occ[sel] = sa_lookup(arrs, meta, row.reshape(-1)[sel], walk[sel])
+    else:
+        p_occ = sa_lookup(arrs, meta, row.reshape(-1), walk, group)
     p_occ = torch.where(res_f, rposf.gather(1, sidx), p_occ.view(B, MS))
 
     # ---- mirror back to the reference's seed coordinates ----

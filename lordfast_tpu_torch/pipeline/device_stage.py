@@ -52,16 +52,23 @@ def post_seed_stage(arrs, seeds, reads, lens, cfg, page=None):
     with named_range("lf_chain", dev):
         chains = chain_ops.chain_seeds(ws, cfg)
 
-    # host-bound results: the chains tensor cut to the first
-    # chain_transfer_cap slots with (qPos, len) packed into one int32
-    # (qPos < 2^18 given SEQ_MAX_LENGTH=250k, len < 2^12 given the 12-bit
-    # Seed_t.len field); longer chains are fetched from the full tensor
+    return seeds, chains, host_payload(seeds.n_total, cands, lens, cw,
+                                       chains, cfg)
+
+
+def host_payload(n_total, cands, lens, cw, chains, cfg) -> dict:
+    """The host-bound results of a batch, from its seeds' per-read hit
+    counts, its candidates, its window compaction and its chains: the
+    chains tensor cut to the first chain_transfer_cap slots with (qPos,
+    len) packed into one int32 (qPos < 2^18 given SEQ_MAX_LENGTH=250k,
+    len < 2^12 given the 12-bit Seed_t.len field); longer chains are
+    fetched from the full tensor."""
     ncap = min(cfg.chain_transfer_cap, chains.q_pos.shape[-1])
     packed = (chains.q_pos[:, :ncap] << 12) | chains.length[:, :ncap]
     need = chain_ops.need_mask(cands)  # JAX: mesh._need_mask
-    host_out = {
+    return {
         # per-batch stage counters, reduced on device
-        "stat_seeds": seeds.n_total.long().sum().to(torch.int32),
+        "stat_seeds": n_total.long().sum().to(torch.int32),
         "stat_candidates": cands.valid.sum().to(torch.int32),
         # mask padding rows (lens == 0): their empty vote tables can
         # classify as "fine" and inflate the counter
@@ -87,4 +94,3 @@ def post_seed_stage(arrs, seeds, reads, lens, cfg, page=None):
         "chain_t": chains.t_pos[:, :ncap],
         "chain_ql": packed,
     }
-    return seeds, chains, host_out

@@ -20,18 +20,29 @@ dormant extend-whole-2 / -3 on the host, ops/seeders.py, followed by the
 device stage's post-seed part), dp-n2 and clasp chaining, a replicated
 index on one device, and the escalation DPs either on the device
 (``esc_device``, on by default on a CUDA device, as the JAX engine's is
-on its accelerator) or in the host stitcher.  A mesh and a sharded index
-raise NotImplementedError.
+on its accelerator) or in the host stitcher.
+
+With a mesh (parallel/mesh.py: one process per device under
+torch.distributed), rank 0 is the controller, as the JAX engine's single
+controller is: it reads the input, runs every host stage and the gap DP
+and writes the SAM.  Each device-stage call (the base pass, the 8x
+retry, a solo retry page) is broadcast to the other ranks, which serve
+such calls in ``map_file`` until rank 0 ends it: a header (which
+pipeline, B, L, page) and the read batch, then every rank runs its B / D
+rows (parallel/mesh.py, parallel/sharded_index.py) and rank 0 gets the
+whole batch's host payload and chains.
 """
 
 from __future__ import annotations
 
+import functools
 import sys
 import time
 from typing import List, Optional, TextIO
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..align.chain_align import Mapping, align_and_score
 from ..config import LordfastConfig
@@ -68,6 +79,12 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+# the device-stage pipelines a mesh call names in its header
+_STAGES = ("base", "big", "solo")
+# header ops: run a stage, end the serve loop, or fail it
+_RUN, _STOP, _FAIL = 0, 1, 2
+
+
 class MappingEngine:
     def __init__(self, idx: FMIndex, cfg: Optional[LordfastConfig] = None,
                  device="cuda", mesh=None, shard_index: bool = False,
@@ -76,14 +93,36 @@ class MappingEngine:
         ("cuda", "cuda:1", "cpu").  esc_device: run the clip / split
         escalation DPs on the device (_escalation_pass) instead of in
         the host stitcher; None = on for a CUDA device, off on the CPU.
-        Both give the same SAM.  mesh / shard_index are the JAX engine's
-        multi-device options, not ported yet."""
+        Both give the same SAM.
+
+        mesh: a 1-D DeviceMesh with a "data" dimension
+        (parallel/mesh.make_mesh), built on every rank; the read batch is
+        split over its ranks with the index whole on each, and this
+        rank's device is the mesh's (``device`` must name the same
+        type).  cfg.batch_reads is rounded up to a multiple of the mesh
+        size.  shard_index: stripe the index's row arrays over the mesh
+        instead (parallel/sharded_index.py); requires mesh."""
         self.idx = idx
         self.cfg = (cfg or LordfastConfig()).validate()
         self.meta = idx.meta
-        if mesh is not None or shard_index:
-            raise NotImplementedError(
-                "mesh / shard_index are not ported to lordfast_tpu_torch")
+        if shard_index and mesh is None:
+            raise ValueError("shard_index requires a mesh")
+        self._mesh = mesh
+        self._shard_index = shard_index
+        self._group, self._D, self._rank = None, 1, 0
+        if mesh is not None:
+            from ..parallel.mesh import mesh_device, mesh_group
+
+            if torch.device(device).type != mesh.device_type:
+                raise ValueError(f"device {device!r} is not the mesh's "
+                                 f"{mesh.device_type!r}")
+            device = mesh_device(mesh)
+            self._group = mesh_group(mesh)
+            self._D, self._rank = self._group.size(), self._group.rank()
+            B = self.cfg.batch_reads
+            if B % self._D:
+                self.cfg = self.cfg.replace(
+                    batch_reads=-(-B // self._D) * self._D)
         # the voting keys pack the window id into 30 bits (ops/voting.py);
         # win = t_pos // read_len stays below 2^30 whenever
         # 2*l_pac / min_read_len does (~54 Gbp at the default floor).
@@ -110,7 +149,14 @@ class MappingEngine:
             self._pool = ThreadPoolExecutor(max_workers=n_workers)
         else:
             self._pool = None
-        self.arrs = idx.device_arrays(self.device)
+        if shard_index:
+            from ..parallel.sharded_index import shard_index_arrays
+
+            self.arrs = shard_index_arrays(idx, mesh)
+        else:
+            self.arrs = idx.device_arrays(self.device)
+        self._mesh_fns = {}  # stage key -> this rank's mesh pipeline
+        self._in_call = False  # inside a mesh call's collectives
         self._device_fn = device_pipeline(self.meta, self.cfg)
         # wide-budget pipelines for the compact-overflow retries
         # (fine-mode reads whose windows ran out of K slots; the reference
@@ -131,8 +177,10 @@ class MappingEngine:
                 compact_windows_per_read=8 * cfg.compact_windows_per_read,
             )
         if key == "solo":
+            # the solo batch has one row per rank: K = D * per-read
+            # slots must reach the 512 candidate cap (ceil division)
             return cfg.replace(max_candidates=512,
-                               compact_windows_per_read=512)
+                               compact_windows_per_read=-(-512 // self._D))
         return cfg
 
     def _fetch(self, host_out: dict) -> dict:
@@ -142,6 +190,8 @@ class MappingEngine:
     # ---- device stage ----
     def _device_stage(self, reads_dev, lens: np.ndarray, big: bool = False,
                       host_seeds=None):
+        if self._mesh is not None:
+            return self._mesh_call("big" if big else "base", reads_dev, lens)
         lens_dev = torch.from_numpy(np.asarray(lens, np.int32)).to(
             self.device)
         if host_seeds is not None:
@@ -193,10 +243,17 @@ class MappingEngine:
         of them, src/LordFAST.cpp:874-904).  page > 0 selects candidate
         ranks [512*page, 512*(page+1)); the caller pages until a page is
         not saturated.  Returns (out, chains_dev) with the read at batch
-        row 0.  A dormant seeder seeds the read on the host again."""
-        arr = np.full((1, L), 4, dtype=np.uint8)
+        row 0.  A dormant seeder seeds the read on the host again.  On a
+        mesh the batch has a row for each rank, the read's and D - 1
+        empty ones, as the JAX engine's has."""
+        arr = np.full((self._D, L), 4, dtype=np.uint8)
         arr[0, : len(codes)] = codes
-        lens = np.array([len(codes)], np.int32)
+        lens = np.zeros(self._D, np.int32)
+        lens[0] = len(codes)
+        if self._mesh is not None:
+            _, chains, host_out = self._mesh_call(
+                "solo", self._put_reads(arr), lens, page)
+            return self._fetch(host_out), chains
         lens_dev = torch.from_numpy(lens).to(self.device)
         if self.cfg.seeder != "extend-whole":
             _, chains, host_out = post_seed_stage(
@@ -212,6 +269,81 @@ class MappingEngine:
             torch.from_numpy(pos).to(self.device), page,
         )
         return self._fetch(host_out), chains
+
+    # ---- the mesh: rank 0's device-stage calls, served by every rank --
+    def _mesh_call(self, key: str, reads_dev, lens: np.ndarray,
+                   page: Optional[int] = None):
+        """Rank 0: broadcast a device-stage call (header, reads, lens) and
+        run this rank's part of it; returns the whole batch's (seeds,
+        chains, host_out), seeds this rank's."""
+        B, L = reads_dev.shape
+        self._in_call = True
+        self._bcast([_RUN, _STAGES.index(key), B, L,
+                     -1 if page is None else page])
+        reads_dev = reads_dev.contiguous()
+        dist.broadcast(reads_dev, self._root, group=self._group)
+        lens_dev = torch.from_numpy(np.asarray(lens, np.int32)).to(
+            self.device)
+        dist.broadcast(lens_dev, self._root, group=self._group)
+        res = self._rank_stage(key, reads_dev, lens_dev, page)
+        self._in_call = False
+        return res
+
+    @property
+    def _root(self) -> int:
+        return dist.get_global_rank(self._group, 0)
+
+    def _bcast(self, header):
+        h = torch.tensor(header, dtype=torch.int64, device=self.device)
+        dist.broadcast(h, self._root, group=self._group)
+        return h.tolist()
+
+    def _serve(self):
+        """Ranks > 0: run rank 0's device-stage calls until it ends the
+        loop; raise if it failed."""
+        while True:
+            op, key, B, L, page = self._bcast([0] * 5)
+            if op == _STOP:
+                return
+            if op == _FAIL:
+                raise RuntimeError("rank 0 of the mesh failed")
+            reads = torch.empty((B, L), dtype=torch.uint8,
+                                device=self.device)
+            dist.broadcast(reads, self._root, group=self._group)
+            lens = torch.empty(B, dtype=torch.int32, device=self.device)
+            dist.broadcast(lens, self._root, group=self._group)
+            self._rank_stage(_STAGES[key], reads, lens,
+                             None if page < 0 else page)
+
+    def _rank_stage(self, key: str, reads, lens, page):
+        """This rank's rows of a device-stage call, through the mesh
+        pipeline of ``key``'s config.  A dormant seeder seeds the rows
+        on this rank's host."""
+        from ..parallel import mesh as mesh_ops
+
+        Br = reads.shape[0] // self._D
+        rows = slice(self._rank * Br, (self._rank + 1) * Br)
+        reads, lens = reads[rows], lens[rows]
+        cfg = self._stage_cfg(key)
+        lens_np = lens.cpu().numpy()
+        if cfg.seeder != "extend-whole":
+            seeds = self._host_seeds(reads.cpu().numpy(), lens_np)
+            return mesh_ops.post_seed_stage_sharded(
+                self.arrs, seeds, reads, lens, cfg, self._group, page)
+        if key not in self._mesh_fns:
+            if self._shard_index:
+                from ..parallel.sharded_index import sharded_index_pipeline
+
+                fn, _ = sharded_index_pipeline(self.idx, cfg, self._mesh,
+                                               arrs=self.arrs)
+                self._mesh_fns[key] = functools.partial(fn, self.arrs)
+            else:
+                self._mesh_fns[key] = mesh_ops.sharded_pipeline(
+                    self.idx, cfg, self._mesh)
+        pos = fm_ops.sample_positions_host(lens_np, cfg.sampling_count)
+        return self._mesh_fns[key](reads, lens,
+                                   torch.from_numpy(pos).to(self.device),
+                                   page)
 
     # ---- per-read host resolution ----
     def _chain_rows(self, out, chains_dev, k: int, n: int, wide=None):
@@ -974,7 +1106,29 @@ class MappingEngine:
 
         process_index / num_processes: this process maps only chunks with
         chunk_id % num_processes == process_index.  self.chunk_table
-        records (chunk_id, byte_start, byte_end) per completed chunk."""
+        records (chunk_id, byte_start, byte_end) per completed chunk.
+
+        On a mesh every rank calls map_file: rank 0 maps, and the other
+        ranks serve its device-stage calls and ignore the arguments.  A
+        failure on rank 0 between calls ends the others' loop with an
+        error; inside a call, the others fail in the collective it left
+        (when its process exits, or at the group's timeout)."""
+        if self._mesh is None:
+            return self._map_file(seq_path, out, command_line, progress,
+                                  process_index, num_processes)
+        if self._rank != 0:
+            return self._serve()
+        try:
+            self._map_file(seq_path, out, command_line, progress,
+                           process_index, num_processes)
+        except BaseException:
+            if not self._in_call:
+                self._bcast([_FAIL, 0, 0, 0, 0])
+            raise
+        self._bcast([_STOP, 0, 0, 0, 0])
+
+    def _map_file(self, seq_path, out, command_line, progress,
+                  process_index, num_processes):
         cfg = self.cfg
         # fresh counters/timers per run (chunk lines report deltas)
         self.metrics.reset()
@@ -1067,9 +1221,10 @@ class MappingEngine:
             # stage and the gap-DP gathers (no second upload)
             reads_dev = self._put_reads(arr)
             # a dormant seeder seeds the batch once, on the host; the 8x
-            # retry reuses its seeds
+            # retry reuses its seeds (on a mesh each rank seeds its rows)
             seeds = (self._host_seeds(arr, lens)
-                     if cfg.seeder != "extend-whole" else None)
+                     if cfg.seeder != "extend-whole" and self._mesh is None
+                     else None)
             with self.metrics.timer("device"):
                 _, chains_dev, host_out = self._device_stage(
                     reads_dev, lens, host_seeds=seeds)

@@ -2,7 +2,7 @@
 the device stage's host payload on the fixture's first batch (integers
 exact, chain scores to rtol 1e-12: float64 DP, last-bit log differences
 only), the port's engine on the CPU byte-equal to the golden SAM, and
-the CLI and engine refusing what the port does not have."""
+the CLI and engine refusing what the JAX package refuses."""
 
 import io
 from pathlib import Path
@@ -92,18 +92,37 @@ def test_port_engine_cpu_matches_golden_sam(port_idx):
     assert c["gaps_b32"] > 0 and c["gaps_b2048"] > 0 and c["gap_parts"] >= 5
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object(), shard_index=True),
-                                dict(shard_index=True),
-                                dict(mesh=object())])
+class _CpuMesh:
+    """What the engine reads of a DeviceMesh before it builds anything."""
+
+    device_type = "cpu"
+
+
+@pytest.mark.parametrize("kw", [dict(shard_index=True, mesh=None),
+                                dict(shard_index=False, mesh=_CpuMesh()),
+                                dict(shard_index=True, mesh="cuda")])
 def test_engine_refuses_unported_options(port_idx, kw):
-    with pytest.raises(NotImplementedError):
-        MappingEngine(port_idx, TCfg(**TEST_CFG), device="cpu", **kw)
+    """The mesh and the sharded index are ported
+    (tests/test_torch_mesh.py, tests/test_torch_sharded_index.py); the
+    engine refuses what the JAX engine refuses, shard_index without a
+    mesh, and a mesh on another device type than ``device``, and
+    make_mesh("cuda") without a usable card raises rather than run on
+    the CPU."""
+    if kw["mesh"] == "cuda":
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present")
+        from lordfast_tpu_torch.parallel.mesh import make_mesh
+
+        with pytest.raises(RuntimeError, match="cuda"):
+            make_mesh("cuda")
+        return
+    with pytest.raises(ValueError):
+        MappingEngine(port_idx, TCfg(**TEST_CFG), device="cuda", **kw)
 
 
 def test_engine_refuses_dormant_seeders(port_idx):
     """The dormant seeders are ported (tests/test_torch_seeders.py): the
-    engine takes them and seeds on the host, and only a mesh or a sharded
-    index is refused (test_engine_refuses_unported_options)."""
+    engine takes them and seeds on the host."""
     for seeder in ("extend-whole-2", "extend-whole-3"):
         eng = MappingEngine(port_idx, TCfg(**TEST_CFG, seeder=seeder),
                             device="cpu")
@@ -133,15 +152,19 @@ def test_cli_refuses_cuda_without_a_card(tmp_path, capsys):
                                    ["-a", "clasp"], ["--profile", "p"],
                                    ["--mergeShards"]])
 def test_cli_refuses_unported_flags(tmp_path, capsys, flags):
-    """Only --shardIndex is refused; every other flag of the JAX CLI is
-    ported (tests/test_torch_{multihost,seeders,clasp,profile}.py)."""
+    """Every flag of the JAX CLI is ported
+    (tests/test_torch_{multihost,seeders,clasp,profile,mesh}.py) and
+    parses; the CLI refuses only --shardIndex with --numProcesses > 1
+    (chunk shards map their own chunks, the sharded index needs every
+    rank in the same calls), before it reads anything."""
     args = ["--search", str(DATA / "ref.fa"), "--seq",
             str(DATA / "reads.fq"), "-o", str(tmp_path / "o.sam"),
             "--device", "cpu", *flags]
-    refused = flags == ["--shardIndex"]
-    assert cli.unported_flags(cli.build_parser().parse_args(args)) == (
-        ["--shardIndex"] if refused else [])
-    if refused:
-        assert cli.main(args) == 1
-        assert "not ported" in capsys.readouterr().err
+    parsed = cli.build_parser().parse_args(args)
+    assert parsed.shardIndex == (flags == ["--shardIndex"])
+    if flags == ["--shardIndex"]:
+        assert cli.main(args + ["--numProcesses", "2"]) == 1
+        err = capsys.readouterr().err
+        assert "--shardIndex" in err and "--numProcesses" in err
+        assert "torchrun" in err
         assert not (tmp_path / "o.sam").exists()
