@@ -7,11 +7,12 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. environment: torch/CUDA versions, the card's name, power limit and
-   maximum SM clock, and the builds (the two CUDA kernel libraries,
+   maximum SM clock, and the builds (the four CUDA kernel libraries,
    one nvcc each, started together, with ptxas's register and stack
    lines, and each ``myers`` and ``affine_warp_kernel`` instantiation's
-   registers, stack and spills: a warp-per-gap Myers instantiation or
-   an affine one (K = 1..8) with a stack frame or a spill fails; the
+   registers, stack and spills: a warp-per-gap Myers instantiation, an
+   affine one (K = 1..8), or a ``chain_dp_kernel`` or
+   ``seed_ext_kernel`` one with a stack frame or a spill fails; the
    native host library) with their seconds;
 2. kernels against plain, each with its time (CUDA events: the kernel's
    mean over 5 launches queued behind a spin kernel, so that the
@@ -36,6 +37,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      version on the CPU); all six outputs equal exactly; after phase 5,
      each bucket the v2 pass launched is timed again at its median part
      size there (from the ``esc_b*`` counters);
+   - after phase 5, the device stage's loop kernels, on the first call
+     each that the golden, v1 and v2 passes made (recorded by
+     ``record_loops``): ``chain_dp`` on the windows those passes
+     chained, with the dp-n2 and the clasp cost, against the plain
+     full-width DP on the card (the float bits of dp, prev and every
+     chain field equal), and ``seed_ext`` on their lanes against
+     ``_staged_ext`` on the card (every lane's k, l, m, rpos and rflag
+     equal), then on golden's reads over a sampled-SA index (sa_intv 32)
+     and over the split rank layout (occ_cp + bwt_blocks), with the full
+     SA and the sampled one; each kernel timed at v2's call against its
+     plain version (``_chain_bucketed``, ``_staged_ext``), with its
+     bound (chain_dp: the pairs' FP64 operations over 34 TFLOP/s or its
+     bytes; seed_ext: the rank rows its lane-steps read over the HBM
+     rate) and seed_ext's warp efficiency;
 3. golden: MappingEngine(device="cuda") on tests/data (the golden test's
    config, the escalation offload on by default); the SAM must equal
    tests/data/golden.sam byte for byte, the offload must have fired, and
@@ -43,20 +58,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    then 40 segments of the golden reference, most at edlib's Hirschberg
    size, aligned by the offload's phase-C path on the card (Hirschberg
    splits from myers_dist's last column, myers_moves on the pieces) give
-   native edlib's paths;
+   native edlib's paths; a pass of an engine with ``plain_loops=True``
+   (the seed-extension and chaining loops through their plain PyTorch
+   versions) gives the same SAM;
 4. v1: the repo's v1 bench dataset (bench.gen_dataset(easy=True): a 28
    Mbp genome, 512 PacBio-CLR-like reads of 2-20 kb at ~12% error),
    indexed at the default config and mapped on the card twice with the
    offload on and once with it off, in one call; the three SAMs equal;
-   at least 95% of the reads mapped; the first 32 reads mapped again on
-   the CPU give the same SAM;
+   at least 95% of the reads mapped; two passes of a plain_loops engine
+   give the same SAM (the second timed beside the kernels' warm pass);
+   the first 32 reads mapped again on the CPU give the same SAM;
 5. v2: bench.gen_dataset(easy=False) — the same genome with 120 implanted
    2 kb repeat families, plus 40 SV/clip reads and 8 junk reads — at the
    default config: two passes with the offload on (the SAM repeats) and
    one with it off (the same SAM); the Hirschberg split fired; the stage
-   counters equal the JAX package's on the same data; the 48 SV/junk
-   reads mapped on the CPU (plain versions, offload on) give the same
-   records;
+   counters equal the JAX package's on the same data; two passes of a
+   plain_loops engine give the same SAM; the 48 SV/junk reads mapped on
+   the CPU (plain versions, offload on) give the same records;
 6. clasp: v2 with ``chain_alg="clasp"`` at the default config, two
    passes with the offload on and one with it off (the same SAM, not
    dp-n2's); the SV/junk reads on the CPU give the same records;
@@ -68,9 +86,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. profile: one warm v2 pass of phase 5's engine under
    ``utils.metrics.profiler_trace``; its SAM equals phase 5's, and its
    Chrome trace holds the ranges lf_seed, lf_vote, lf_select and lf_chain
-   and the Myers and affine kernels; the device busy share (the union of
-   the CUDA kernels' time over the pass) and the top five kernels by
-   self CUDA time;
+   and the Myers, affine, chain_dp and seed_ext kernels; the device busy
+   share (the union of the CUDA kernels' time over the pass), the kernel
+   count and the top five kernels by self CUDA time; then the same for
+   one pass of phase 5's plain_loops engine;
 9. multi-process: two ``python -m lordfast_tpu_torch.cli`` processes on
    the card (--numProcesses 2 --coordinator localhost:<free port>, a
    gloo group) map the golden fixture's chunks and process 0 merges
@@ -97,14 +116,22 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 Phases 4 and 5 run the engine at verbosity 2, which adds the
 ``gpart_*`` counters (launches per bucket and part size) and prints them
-with the ``gaps_b*`` counters.  Every kernel's launch count is set to 0
-just before each pass of phases 3-8 and read just after; a kernel a path
-needs that did not launch there is a failure, and so is a count that
-differs from the sub-batches the engine counted.  Then a line with the
+with the ``gaps_b*`` counters.  Every kernel's launch count, and the
+entry counts of the loops chain_dp and seed_ext replace
+(``chain._chain_bucketed``, ``fm_index._staged_ext``), are set to 0
+just before each pass of phases 3-8 and 10 and read just after; a
+kernel a path needs that did not launch there is a failure, and so is a
+gap or affine kernel's count that differs from the sub-batches the
+engine counted, and an entry into either loop on cuda (a plain_loops
+pass must enter both and launch neither kernel).  The host seeders of
+phase 7 and the sharded index of phase 10 seed without seed_ext.  Then a line with the
 kernel table (JSON), the nvidia-smi line, and last the contract line
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is available.  The datasets are cached in .smoke_cache/
-(gitignored).
+(gitignored).  The v1 and v2 datasets and their indexes are made there
+by two processes of their own (``chip_smoke.py --build-bench v1|v2``),
+started after phase 1; they run on the host while phases 2 and 3 use
+the card, and phases 4 and 5 load the saved indexes.
 """
 
 from __future__ import annotations
@@ -150,7 +177,24 @@ INT32_LANES = 132 * 64
 MYERS_OPS_PER_WORD = 20
 TB_OPS_PER_COL = 12
 AFFINE_OPS_PER_CELL = 16
-KERNELS = ("myers_dist", "myers_moves", "affine_extend")
+# chain_dp's bound: FP64 operations per (i, j) pair over the card's FP64
+# rate outside the tensor cores (NVIDIA's H100 SXM data sheet, 34
+# TFLOP/s).  dp-n2: the log (~20 operations in the CUDA math library's
+# double log), 0.1 d, penalty log d, their sum, + reward, - pen and the
+# compare; clasp: max, min, two products, their sum, - gsop and the
+# compare.
+FP64_FLOPS = 34e12
+CHAIN_OPS_PER_PAIR = {"dpn2": 26, "clasp": 7}
+# seed_ext's bound: the rank rows its lane-steps read, in the device
+# layout (fm_blocks: 12 int64 words a row; occ_cp + bwt_blocks: 4 + 8),
+# two a step, one and a BWT word a walk step, and a pac word a 16 chars
+# compared
+RANK_ROW_BYTES = 96
+KERNELS = ("myers_dist", "myers_moves", "affine_extend", "chain_dp",
+           "seed_ext")
+# the loops these two kernels replace, counted on entry
+LOOP_KERNELS = ("chain_dp", "seed_ext")
+LOOPS = ("_chain_bucketed", "_staged_ext")
 
 
 def log(msg):
@@ -170,20 +214,112 @@ def nvidia_smi_line() -> str:
 
 
 def _wrappers():
-    from lordfast_tpu_torch.ops import affine_cuda, gap_dp_cuda
+    """Each kernel's wrapper and each replaced loop, by name (through a
+    record_loops stand-in to the function it wraps)."""
+    from lordfast_tpu_torch.ops import (affine_cuda, chain, chain_cuda,
+                                        fm_index, fm_index_cuda,
+                                        gap_dp_cuda)
 
-    return {"myers_dist": gap_dp_cuda.myers_dist,
-            "myers_moves": gap_dp_cuda.myers_moves,
-            "affine_extend": affine_cuda.extend_batch_cuda}
+    fns = {"myers_dist": gap_dp_cuda.myers_dist,
+           "myers_moves": gap_dp_cuda.myers_moves,
+           "affine_extend": affine_cuda.extend_batch_cuda,
+           "chain_dp": chain_cuda.chain_dp,
+           "seed_ext": fm_index_cuda.seed_ext,
+           "_chain_bucketed": chain._chain_bucketed,
+           "_staged_ext": fm_index._staged_ext}
+    return {k: getattr(f, "__wrapped__", f) for k, f in fns.items()}
 
 
 def reset_launches():
-    for fn in _wrappers().values():
-        fn.launches = 0
+    """Every kernel's launch count and every replaced loop's entry count
+    to 0."""
+    for name, fn in _wrappers().items():
+        setattr(fn, "entries" if name in LOOPS else "launches", 0)
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """{kernel: launches, loop: entries} since reset_launches."""
+    return {name: getattr(fn, "entries" if name in LOOPS else "launches")
+            for name, fn in _wrappers().items()}
+
+
+class _Recorder:
+    """A wrapper's stand-in at its module attribute: calls record(*args,
+    **kw), then the wrapper.  The wrapper counts its launches through
+    its module attribute, so ``launches`` reads and writes go to the
+    wrapper's own count."""
+
+    def __init__(self, fn, record):
+        self.__wrapped__ = fn
+        self._record = record
+
+    def __call__(self, *args, **kw):
+        self._record(*args, **kw)
+        return self.__wrapped__(*args, **kw)
+
+    @property
+    def launches(self):
+        return self.__wrapped__.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.__wrapped__.launches = n
+
+
+class record_loops:
+    """Context manager: the first ``limit`` calls of chain_cuda.chain_dp
+    and of fm_index_cuda.seed_ext made inside it are recorded with their
+    inputs (cloned) in ``self.chain`` and ``self.seed``, and run as
+    usual: the module attributes the call sites read are _Recorder
+    stand-ins for the two wrappers."""
+
+    def __init__(self, limit: int = 1):
+        self.limit = limit
+        self.chain, self.seed = [], []
+
+    def _chain(self, ws, cfg, want_dp=False):
+        if len(self.chain) < self.limit:
+            self.chain.append((type(ws)(*(x.clone() for x in ws)), cfg))
+
+    def _seed(self, arrs, meta, reads, read_lens, *lanes, **kw):
+        if len(self.seed) < self.limit:
+            self.seed.append(dict(
+                arrs=arrs, meta=meta, reads=reads.clone(),
+                read_lens=read_lens.clone(),
+                lanes=[x.clone() for x in lanes[:6]],
+                phase1_steps=lanes[6]))
+
+    def __enter__(self):
+        from lordfast_tpu_torch.ops import chain_cuda, fm_index_cuda
+
+        self._saved = (chain_cuda.chain_dp, fm_index_cuda.seed_ext)
+        chain_cuda.chain_dp = _Recorder(self._saved[0], self._chain)
+        fm_index_cuda.seed_ext = _Recorder(self._saved[1], self._seed)
+        return self
+
+    def __exit__(self, *exc):
+        from lordfast_tpu_torch.ops import chain_cuda, fm_index_cuda
+
+        chain_cuda.chain_dp, fm_index_cuda.seed_ext = self._saved
+        return False
+
+
+def seed_lanes(arrs, meta, reads, lens, cfg):
+    """The staged extension's call (record_loops' record) in the seeding
+    of reads (B, L) uint8 / lens (B,) int32 tensors on the card under
+    cfg, by fm_index._seed_anchors_impl on the index arrays arrs."""
+    import torch
+
+    from lordfast_tpu_torch.ops import fm_index
+
+    pos = torch.from_numpy(fm_index.sample_positions_host(
+        lens.cpu().numpy(), cfg.sampling_count)).to(reads.device)
+    with record_loops() as rec:
+        fm_index._seed_anchors_impl(
+            arrs, reads, lens, pos, meta, cfg.sampling_count,
+            cfg.min_anchor_len, cfg.max_ref_hits, cfg.max_seeds_per_read,
+            cfg.seed_phase1_steps)
+    return rec.seed[0]
 
 
 def bound(nbytes: float, ops: float, int_rate: float):
@@ -220,6 +356,8 @@ def phase_env() -> float:
                 log(f"[env] ptxas {name}: {line.strip()}")
     check_myers_frames(cuda_build.logs.get("myers", ""))
     check_affine_frames(cuda_build.logs.get("affine_ext", ""))
+    check_loop_frames(cuda_build.logs.get("chain_dp", ""),
+                      cuda_build.logs.get("seed_ext", ""))
     t = time.time()
     native._load()
     log(f"[env] native host library built in {time.time() - t:.1f} s")
@@ -292,6 +430,27 @@ def check_affine_frames(ptxas_log: str):
                              f"spills: {bad}")
 
 
+def check_loop_frames(chain_log: str, seed_log: str):
+    """Every chain_dp_kernel (8: two position dtypes x two float types x
+    two costs) and seed_ext_kernel (4: two rank layouts x two position
+    dtypes) instantiation in ptxas's report, none with a stack frame or
+    a spill (a lane's state stays in registers, a window's in shared
+    memory)."""
+    for name, text, n in (("chain_dp_kernel", chain_log, 8),
+                          ("seed_ext_kernel", seed_log, 4)):
+        frames = ptxas_frames(text, f"({name})")
+        if len(frames) != n:
+            raise AssertionError(f"ptxas reported {len(frames)} {name} "
+                                 f"instantiations, not {n}")
+        bad = [f for f in frames if any(f[2:])]
+        if bad:
+            raise AssertionError(f"{name} instantiations with a stack frame "
+                                 f"or spills: {bad}")
+        log(f"[env] ptxas {name}: {n} instantiations, "
+            f"{min(f[1] for f in frames)}-{max(f[1] for f in frames)} "
+            "registers, no stack frame, no spill")
+
+
 def make_gaps(rng, Q, T, G):
     """G ragged gaps for bucket (Q, T): mutated-copy targets (so the
     distances are non-trivial), random NW/SHW modes, and the edge cases
@@ -329,6 +488,40 @@ def make_gaps(rng, Q, T, G):
         ts[g, : tl[g]] = base
     shw = rng.integers(0, 2, G).astype(bool)
     return qs, ql, ts, tl, shw
+
+
+def make_windows(rng, W, N, counts, wrap=False):
+    """W chaining windows of N slots (q, t int64, len, valid, as
+    chain.WindowSeeds holds them), window w with counts[w] seeds in its
+    first slots sorted by (qPos, tPos), near a diagonal with indels.
+    Every third window repeats some of its seeds, so exact score ties
+    decide predecessors (the largest j) and best ends (the smallest i).
+    With ``wrap``, every fourth window moves the t of its second half by
+    3 * 2^30 (t differences that cut to negative int32 values) or by 2^32
+    + 5 (cut to small positive ones)."""
+    import numpy as np
+
+    q = np.zeros((W, N), np.int32)
+    t = np.zeros((W, N), np.int64)
+    ln = np.zeros((W, N), np.int32)
+    va = np.zeros((W, N), bool)
+    for w in range(W):
+        base_t = int(rng.integers(0, 50_000))
+        s = []
+        while len(s) < counts[w]:
+            qp = int(rng.integers(0, 3000))
+            tp = max(base_t + qp + int(rng.integers(-150, 150)), 0)
+            s.append((qp, tp, int(rng.integers(14, 60))))
+            if w % 3 == 0 and len(s) < counts[w] and rng.random() < 0.3:
+                s.append(s[-1])
+        s.sort()
+        if wrap and w % 4 == 1:
+            jump = 3 * 2**30 if w % 8 == 1 else 2**32 + 5
+            s = [(qp, tp + (jump if i >= len(s) // 2 else 0), m)
+                 for i, (qp, tp, m) in enumerate(s)]
+        for i, (qp, tp, m) in enumerate(s):
+            q[w, i], t[w, i], ln[w, i], va[w, i] = qp, tp, m, True
+    return q, t, ln, va
 
 
 def _time_cuda(fn, reps):
@@ -693,40 +886,247 @@ def phase_kernel_affine(int_rate):
                      "lordfast_tpu/ops/affine_pl.py:85")
 
 
+def _bits(x):
+    """A float tensor's bits as integers (the tensor itself otherwise)."""
+    import torch
+
+    if x.dtype == torch.float64:
+        return x.view(torch.int64)
+    if x.dtype == torch.float32:
+        return x.view(torch.int32)
+    return x
+
+
+def check_chain_dp(ws, cfg):
+    """chain_dp's kernel against the plain full-width DP (chain_dpn2 /
+    chain_clasp_sop) on the card, on the windows ws and cfg's cost: the
+    float bits of dp, prev and every ChainBatch field must be equal."""
+    from lordfast_tpu_torch.ops import chain
+
+    got, dp, prev = _wrappers()["chain_dp"](ws, cfg, want_dp=True)
+    want, dp_w, prev_w = chain.dp_function(cfg)(ws, cfg, return_dp=True)
+    pairs = [(dp, dp_w), (prev, prev_w)] + [
+        (getattr(got, f), getattr(want, f)) for f in chain.ChainBatch._fields]
+    bad = [i for i, (a, b) in enumerate(pairs)
+           if not bool((_bits(a) == _bits(b)).all())]
+    if bad:
+        names = ["dp", "prev", *chain.ChainBatch._fields]
+        raise AssertionError(f"chain_dp ({cfg.chain_alg}): kernel != plain "
+                             f"in {[names[i] for i in bad]}")
+
+
+def check_seed_ext(rec):
+    """seed_ext's kernel against _staged_ext on the card, on one recorded
+    call (record_loops): every lane's k, l, m, rpos and rflag equal.
+    Returns the kernel's (BS, 3) step counts as numpy."""
+    from lordfast_tpu_torch.ops import fm_index
+
+    got = _wrappers()["seed_ext"](
+        rec["arrs"], rec["meta"], rec["reads"], rec["read_lens"],
+        *rec["lanes"], rec["phase1_steps"], want_stats=True)
+    want = fm_index._staged_ext(
+        rec["arrs"], rec["meta"],
+        fm_index._Reads(rec["reads"], rec["read_lens"]), *rec["lanes"],
+        rec["phase1_steps"])
+    for name, a, b in zip(("k", "l", "m", "rpos", "rflag"), got, want):
+        if not bool((a == b).all()):
+            raise AssertionError(f"seed_ext: kernel != _staged_ext in {name}"
+                                 f" ({int((a != b).sum())} lanes)")
+    return got[5].cpu().numpy()
+
+
+def chain_work(ws):
+    """(pairs, bytes) of chain_dp on ws: the (i, j) pairs of every window
+    to its count; the valid flag of every slot read once, q, t and len
+    of the live slots only (a window's seeds fill its first slots), and
+    the (W, N) chain fields and the W chain lengths and scores written
+    once."""
+    import numpy as np
+
+    N = ws.q_pos.shape[-1]
+    n = ws.valid.reshape(-1, N).sum(-1).cpu().numpy().astype(np.int64)
+    tb = ws.t_pos.element_size()
+    W = len(n)
+    return (int((n * (n - 1) // 2).sum()),
+            W * N + int(n.sum()) * (4 + tb + 4) + W * N * (4 + tb + 4)
+            + W * 8)
+
+
+def seed_work(rec, stats):
+    """Bytes seed_ext's lane-steps read (RANK_ROW_BYTES a rank row) and
+    its per-lane inputs and outputs, from the kernel's step counts."""
+    import numpy as np
+
+    n_ext, n_walk, n_cmp = (stats[:, i].astype(np.int64).sum()
+                            for i in range(3))
+    BS = stats.shape[0]
+    return float(2 * RANK_ROW_BYTES * n_ext + (RANK_ROW_BYTES + 8) * n_walk
+                 + 8 * -(-n_cmp // 16) + BS * (1 + 5 * 8 + 4 * 8 + 1))
+
+
+def warp_efficiency(stats):
+    """Active lane-steps over issued ones, per kind of step and in all:
+    a warp (32 consecutive lanes) issues each kind as often as its
+    busiest lane takes it."""
+    import numpy as np
+
+    BS = stats.shape[0]
+    pad = np.zeros((-(-BS // 32) * 32, 4), np.int64)
+    pad[:BS, :3] = stats
+    pad[:BS, 3] = stats.sum(1)
+    warps = pad.reshape(-1, 32, 4)
+    issued = 32 * warps.max(1).sum(0)
+    return {k: float(pad[:, i].sum() / issued[i]) if issued[i] else 1.0
+            for i, k in enumerate(("ext", "walk", "cmp", "all"))}
+
+
+def split_layout(idx, arrs):
+    """The device arrays of idx in the rank layout of l_pac >= 2^32:
+    occ_cp + bwt_blocks instead of the fused fm_blocks rows."""
+    import torch
+
+    out = {k: v for k, v in arrs.items() if k != "fm_blocks"}
+    dev = arrs["L2"].device
+    out["occ_cp"] = torch.from_numpy(idx.occ_cp.astype("int64")).to(dev)
+    out["bwt_blocks"] = arrs["bwt_words"].reshape(-1, 8)
+    return out
+
+
+def phase_loops(caps, golden_idx):
+    """chain_dp and seed_ext against their plain versions on the card, on
+    the first call each that the golden, v1 and v2 passes made (caps:
+    record_loops by tag): chain_dp on the windows with both costs,
+    seed_ext on the lanes; then seed_ext on golden's reads over a
+    sampled-SA index (sa_intv 32) and over the split rank layout, each
+    in both.  Times each kernel at v2's call (_time_launches) against
+    its plain version; returns their two kernel-table rows."""
+    from lordfast_tpu_torch.config import LordfastConfig
+    from lordfast_tpu_torch.index.builder import build_index
+    from lordfast_tpu_torch.ops import chain, fm_index
+
+    chain_t, seed_t = Tally(), Tally()
+    for tag in ("golden", "v1", "v2"):
+        ws, cfg = caps[tag].chain[0]
+        N = ws.q_pos.shape[-1]
+        counts = ws.valid.reshape(-1, N).sum(-1)
+        for alg in ("dpn2", "clasp"):
+            c = cfg.replace(chain_alg=alg)
+            check_chain_dp(ws, c)
+            pairs, nbytes = chain_work(ws)
+            b = bound(nbytes, CHAIN_OPS_PER_PAIR[alg] * pairs, FP64_FLOPS)
+            line = (f"[loops] chain_dp {tag} {alg}: {counts.numel()} windows"
+                    f" x {N} slots ({int((counts > 0).sum())} with seeds, "
+                    f"{int(counts.max())} at most, {pairs} pairs): dp, prev "
+                    "and chains bit-equal to the plain version")
+            if tag == "v2":
+                ms = _time_launches(
+                    lambda: _wrappers()["chain_dp"](ws, c), 5)
+                plain_ms = _time_cuda(
+                    lambda: chain._chain_bucketed(ws, c,
+                                                  chain.dp_function(c)), 1)
+                if alg == "dpn2":  # the table's row: the main path's cost
+                    chain_t.add(ms, plain_ms, b, 0)
+                line += (f" | kernel {ms:.3f} ms | plain (_chain_bucketed) "
+                         f"{plain_ms:.1f} ms | bound {b[0]:.5f} ms ({b[1]})")
+            log(line)
+        rec = caps[tag].seed[0]
+        stats = check_seed_ext(rec)
+        line = _seed_line(f"{tag}", rec, stats)
+        if tag == "v2":
+            args = (rec["arrs"], rec["meta"], rec["reads"], rec["read_lens"],
+                    *rec["lanes"], rec["phase1_steps"])
+            ms = _time_launches(lambda: _wrappers()["seed_ext"](*args), 5)
+            rd = fm_index._Reads(rec["reads"], rec["read_lens"])
+            plain_ms = _time_cuda(lambda: fm_index._staged_ext(
+                rec["arrs"], rec["meta"], rd, *rec["lanes"],
+                rec["phase1_steps"]), 1)
+            b = bound(seed_work(rec, stats), 0, FP64_FLOPS)
+            seed_t.add(ms, plain_ms, b, 0)
+            line += (f" | kernel {ms:.3f} ms | plain (_staged_ext) "
+                     f"{plain_ms:.1f} ms | bound {b[0]:.5f} ms ({b[1]})")
+        log(line)
+    g = caps["golden"].seed[0]
+    cfg = LordfastConfig(**GOLDEN_CFG)
+    sampled = build_index(DATA / "ref.fa", LordfastConfig(
+        kmer_cache_k=8, sa_interval=32), verbose=False)
+    fused = {"sampled": (sampled, sampled.device_arrays("cuda")),
+             "full": (golden_idx, g["arrs"])}
+    for sa, (idx, arrs) in fused.items():
+        for layout in ("fused", "split"):
+            a = arrs if layout == "fused" else split_layout(idx, arrs)
+            rec = seed_lanes(a, idx.meta, g["reads"], g["read_lens"], cfg)
+            stats = check_seed_ext(rec)
+            log(_seed_line(f"golden, {sa} SA (sa_intv {idx.sa_intv}), "
+                           f"{layout} rank rows", rec, stats))
+    log("[loops] chain_dp and seed_ext bit-equal to their plain versions "
+        "in every case")
+    return [
+        chain_t.row("chain_dp", "lordfast_tpu_torch/csrc/chain_dp.cu",
+                    "lordfast_tpu/ops/chain.py:350",
+                    also_replaces="lordfast_tpu/ops/chain.py:409, :213"),
+        seed_t.row("seed_ext", "lordfast_tpu_torch/csrc/seed_ext.cu",
+                   "lordfast_tpu/ops/fm_index.py:492",
+                   also_replaces="lordfast_tpu/ops/fm_index.py:568, :602"),
+    ]
+
+
+def _seed_line(tag, rec, stats):
+    eff = warp_efficiency(stats)
+    n = stats.sum(0)
+    return (f"[loops] seed_ext {tag}: {stats.shape[0]} lanes "
+            f"({int(rec['lanes'][0].sum())} alive), {int(n[0])} extension "
+            f"steps, {int(n[1])} walk steps, {int(n[2])} chars compared: k, "
+            f"l, m, rpos, rflag equal to _staged_ext | warp efficiency "
+            + " ".join(f"{k} {v:.3f}" for k, v in eff.items()))
+
+
 def sam_records(text: str):
     return [line for line in text.splitlines() if not line.startswith("@")]
 
 
-def map_pass(eng, reads_path):
+def map_pass(eng, reads_path, record=None):
     """One synchronised map_file pass with the launch counts set to 0
     just before it and read just after: (sam, seconds, reads, mapped,
-    launches)."""
+    launches).  record: a record_loops to run the pass in."""
+    import contextlib
+
     import torch
 
     n0, m0 = eng.stats["reads"], eng.stats["mapped"]
     out = io.StringIO()
     reset_launches()
     t = time.time()
-    eng.map_file(reads_path, out, "chip_smoke")
-    torch.cuda.synchronize()
+    with record if record is not None else contextlib.nullcontext():
+        eng.map_file(reads_path, out, "chip_smoke")
+        torch.cuda.synchronize()
     dt = time.time() - t
     return (out.getvalue(), dt, eng.stats["reads"] - n0,
             eng.stats["mapped"] - m0, read_launches())
 
 
-def check_launches(path, launches, counters, needed):
-    """Each kernel's launches equal the sub-batches its stages counted,
-    and every kernel in ``needed`` launched."""
+def check_launches(path, launches, counters, needed, plain=False):
+    """Each gap and affine kernel's launches equal the sub-batches its
+    stages counted, every kernel in ``needed`` launched, and the loops
+    chain_dp and seed_ext replace were not entered (with ``plain``, the
+    engine's plain_loops pass: neither kernel launched)."""
     stages = {"myers_dist": ("gap_parts", "esc_split_parts"),
               "myers_moves": ("esc_nw_parts",),
               "affine_extend": ("esc_affine_parts",)}
     for name, n in launches.items():
-        parts = sum(counters.get(k, 0) for k in stages[name])
-        if n != parts:
-            raise AssertionError(f"{path}: {name} launched {n} times for "
-                                 f"{parts} {' + '.join(stages[name])}")
+        if name in stages:
+            parts = sum(counters.get(k, 0) for k in stages[name])
+            if n != parts:
+                raise AssertionError(f"{path}: {name} launched {n} times "
+                                     f"for {parts} "
+                                     f"{' + '.join(stages[name])}")
         if name in needed and n <= 0:
             raise AssertionError(f"{path}: {name} never launched")
+    if plain:
+        if any(launches[k] for k in LOOP_KERNELS):
+            raise AssertionError(f"{path}: plain loops, yet {launches}")
+    elif any(launches[k] for k in LOOPS):
+        raise AssertionError(f"{path}: an eager loop ran on cuda: "
+                             f"{ {k: launches[k] for k in LOOPS} }")
 
 
 def _stage_line(eng):
@@ -747,7 +1147,8 @@ def phase_golden():
     eng = MappingEngine(idx, cfg, device="cuda")
     if not eng._esc_device:
         raise AssertionError("golden: the offload is not on by default")
-    sam, dt, _, _, launches = map_pass(eng, DATA / "reads.fq")
+    caps = record_loops()
+    sam, dt, _, _, launches = map_pass(eng, DATA / "reads.fq", caps)
     c = eng.metrics.counters
     ours = sam_records(sam)
     golden = sam_records((DATA / "golden.sam").read_text())
@@ -769,7 +1170,32 @@ def phase_golden():
     check_split_paths(eng, idx)
     sam, warm_s, _, _, _ = map_pass(eng, DATA / "reads.fq")
     log(f"[golden] warm pass {warm_s:.3f} s")
-    return launches, dict(idx=idx, warm_s=warm_s)
+    plain_pass("golden", MappingEngine(idx, cfg, device="cuda",
+                                       plain_loops=True),
+               DATA / "reads.fq", sam, warm_s)
+    return launches, dict(idx=idx, warm_s=warm_s, caps=caps)
+
+
+def plain_pass(tag, eng, reads, sam, warm_s, passes=1):
+    """``passes`` passes of an engine with plain_loops=True (the device
+    stage's seed-extension and chaining loops through their plain
+    PyTorch versions): each SAM equals the kernels' ``sam``, neither
+    loop kernel launched and both loops ran.  Logs the last pass beside
+    the kernels' warm pass (warm_s); returns its map_pass result."""
+    for i in range(passes):
+        res = map_pass(eng, reads)
+        if res[0] != sam:
+            raise AssertionError(f"{tag}: the plain loops' SAM differs from "
+                                 "the kernels'")
+        check_launches(f"{tag} plain loops", res[4], eng.metrics.counters,
+                       ("myers_dist",), plain=True)
+        if not all(res[4][k] for k in LOOPS):
+            raise AssertionError(f"{tag}: plain loops not entered: "
+                                 f"{res[4]}")
+    log(f"[{tag}] plain loops (MappingEngine(plain_loops=True)), pass "
+        f"{passes}: {res[1]:.3f} s against the kernels' warm {warm_s:.3f} s"
+        f", SAM equal | {_stage_line(eng)} | launches {res[4]}")
+    return res
 
 
 def check_split_paths(eng, idx, n=40):
@@ -866,6 +1292,62 @@ def _index(ref, tag):
     return idx
 
 
+def build_bench(tag: str) -> int:
+    """Generate the bench dataset ``tag`` (v1 or v2) into .smoke_cache/
+    and save its index there as ``{tag}.lft.npz``: the process that
+    start_builds starts (``chip_smoke.py --build-bench TAG``)."""
+    from lordfast_tpu_torch.index.builder import save_index
+
+    ref, _ = _dataset(easy=tag == "v1")
+    idx = _index(ref, tag)
+    tmp = CACHE / f"{tag}.part.npz"
+    save_index(idx, tmp)
+    os.replace(tmp, CACHE / f"{tag}.lft.npz")
+    return 0
+
+
+def start_builds(tags=("v1", "v2")) -> dict:
+    """One process for each bench dataset of tags, started together,
+    that generates it and builds and saves its index (build_bench) on
+    the host while phases 2 and 3 run; {tag: (process, its output
+    file)}.  The processes see no card."""
+    CACHE.mkdir(exist_ok=True)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    builds = {}
+    for tag in tags:
+        out = CACHE / f"build_{tag}.log"
+        with open(out, "w") as f:
+            builds[tag] = (subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--build-bench",
+                 tag], cwd=ROOT, env=env, stdout=f,
+                stderr=subprocess.STDOUT), out)
+    return builds
+
+
+def _built(builds, tag):
+    """(ref, reads, index) of the bench dataset tag, once its build_bench
+    process has ended; its log lines are relayed."""
+    from lordfast_tpu_torch.index.builder import load_index
+
+    proc, out = builds[tag]
+    t = time.time()
+    rc = proc.wait(timeout=900)
+    waited = time.time() - t
+    text = out.read_text()
+    if rc != 0:
+        raise AssertionError(f"{tag}: the dataset and index build exited "
+                             f"{rc}: {text[-2000:]}")
+    for line in text.splitlines():
+        if line.startswith(f"[{tag}]"):
+            log(line)
+    t = time.time()
+    idx = load_index(CACHE / f"{tag}.lft.npz")
+    log(f"[{tag}] built in a process of its own alongside phases 2-3 "
+        f"(waited {waited:.1f} s for it); index loaded in "
+        f"{time.time() - t:.1f} s")
+    return (*_dataset(easy=tag == "v1"), idx)
+
+
 def _cpu_subset(idx, sam, reads, dst, keep, tag, cfg=None, **kw):
     """The reads keep() selects, mapped on the CPU (at cfg, default
     LordfastConfig()), against the cuda records of the same reads."""
@@ -935,16 +1417,16 @@ def _report_buckets(tag, eng):
             for (k, Q, T), v in gap_parts(c).items()))
 
 
-def phase_v1():
+def phase_v1(builds):
     """v1 with the offload on (two passes) and off (one), on the card;
-    returns the first pass's launch counts, the index and the reads."""
+    returns the first pass's launch counts, the index and the reads.
+    builds: start_builds'."""
     import torch
 
     from lordfast_tpu_torch.config import LordfastConfig
     from lordfast_tpu_torch.pipeline.engine import MappingEngine
 
-    ref, reads = _dataset(easy=True)
-    idx = _index(ref, "v1")
+    _, reads, idx = _built(builds, "v1")
     cfg = LordfastConfig(verbosity=2)
     torch.cuda.reset_peak_memory_stats()
     t = time.time()
@@ -952,12 +1434,13 @@ def phase_v1():
     log(f"[v1] engine set up (index arrays on the card) in "
         f"{time.time() - t:.2f} s")
     runs = []
+    caps = record_loops()
     for label in ("first pass, offload on", "second pass, offload on"):
-        runs.append(map_pass(eng, reads))
+        runs.append(map_pass(eng, reads, caps if not runs else None))
         _report("v1", label, eng, runs[-1])
+        check_launches("v1", runs[-1][4], eng.metrics.counters,
+                       ("myers_dist", *LOOP_KERNELS))
         if label.startswith("first"):
-            check_launches("v1", runs[-1][4], eng.metrics.counters,
-                           ("myers_dist",))
             _report_buckets("v1", eng)
     log(f"[v1] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; metrics "
@@ -965,6 +1448,8 @@ def phase_v1():
     eng_off = MappingEngine(idx, cfg, device="cuda", esc_device=False)
     runs.append(map_pass(eng_off, reads))
     _report("v1", "pass, offload off (warm process)", eng_off, runs[-1])
+    check_launches("v1 offload off", runs[-1][4], eng_off.metrics.counters,
+                   ("myers_dist", *LOOP_KERNELS))
     sam, _, n_reads, n_mapped, _ = runs[0]
     if any(r[0] != sam for r in runs[1:]):
         raise AssertionError("v1: the passes gave different SAM")
@@ -972,37 +1457,40 @@ def phase_v1():
         raise AssertionError(f"v1: only {n_mapped} of {n_reads} mapped")
     log(f"[v1] {n_mapped} of {n_reads} reads mapped; the SAM of both "
         f"offload-on passes equals the offload-off pass's")
+    plain_pass("v1", MappingEngine(idx, cfg, device="cuda",
+                                   plain_loops=True),
+               reads, sam, runs[1][1], passes=2)
     _cpu_subset(idx, sam, reads, CACHE / "v1_first32.fq",
                 lambda name, i: i < N_SUBSET, "v1")
-    return runs[0][4], idx, reads
+    return runs[0][4], idx, reads, caps
 
 
-def phase_v2():
+def phase_v2(builds):
     """v2 with the offload on (two passes) and off (one); the JAX
     package's counters; the SV/junk reads on the CPU.  Returns the first
     pass's launch counts, its part sizes (gap_parts), and the index, the
-    offload-on engine, the SAM and the reads."""
+    offload-on engine, the SAM and the reads.  builds: start_builds'."""
     import torch
 
     from lordfast_tpu_torch.config import LordfastConfig
     from lordfast_tpu_torch.pipeline.engine import MappingEngine
 
-    ref, reads = _dataset(easy=False)
-    idx = _index(ref, "v2")
+    _, reads, idx = _built(builds, "v2")
     cfg = LordfastConfig(verbosity=2)
     torch.cuda.reset_peak_memory_stats()
     eng = MappingEngine(idx, cfg, device="cuda")
     runs = []
+    caps = record_loops()
     for label in ("first pass, offload on", "second pass, offload on"):
-        runs.append(map_pass(eng, reads))
+        runs.append(map_pass(eng, reads, caps if not runs else None))
         c = eng.metrics.counters
         _report("v2", label, eng, runs[-1])
         log(f"[v2] counters: " + " ".join(
             f"{k} {c.get(k, 0)}" for k in (*V2_EXPECTED, "esc_sites",
                                            "esc_host", "esc_splits",
                                            "gaps_host")))
+        check_launches("v2", runs[-1][4], c, KERNELS)
         if label.startswith("first"):
-            check_launches("v2", runs[-1][4], c, KERNELS)
             _report_buckets("v2", eng)
             parts = {**gap_parts(c), **affine_parts(c)}
             if c.get("esc_splits", 0) <= 0:
@@ -1017,6 +1505,8 @@ def phase_v2():
     eng_off = MappingEngine(idx, cfg, device="cuda", esc_device=False)
     runs.append(map_pass(eng_off, reads))
     _report("v2", "pass, offload off", eng_off, runs[-1])
+    check_launches("v2 offload off", runs[-1][4], eng_off.metrics.counters,
+                   ("myers_dist", *LOOP_KERNELS))
     sam, _, n_reads, _, _ = runs[0]
     n_rec = len(sam_records(sam))
     if (n_reads, n_rec) != (V2_READS, V2_RECORDS):
@@ -1028,10 +1518,13 @@ def phase_v2():
         raise AssertionError("v2: offload on and off give different SAM")
     log(f"[v2] {n_rec} SAM records for {n_reads} reads; both offload-on "
         f"passes and the offload-off pass byte-equal")
+    eng_plain = MappingEngine(idx, cfg, device="cuda", plain_loops=True)
+    plain = plain_pass("v2", eng_plain, reads, sam, runs[1][1], passes=2)
     _cpu_subset(idx, sam, reads, CACHE / "v2_sv_junk.fq",
                 lambda name, i: name.startswith(("sv", "junk")), "v2",
                 esc_device=True)
-    v2 = dict(idx=idx, eng=eng, sam=sam, reads=reads, warm_s=runs[1][1])
+    v2 = dict(idx=idx, eng=eng, sam=sam, reads=reads, warm_s=runs[1][1],
+              caps=caps, eng_plain=eng_plain, plain_warm_s=plain[1])
     return runs[0][4], parts, v2
 
 
@@ -1056,7 +1549,7 @@ def phase_clasp(v2):
         _report("v2 clasp", label, eng, runs[-1])
         c = eng.metrics.counters
         # myers_moves serves phase C, which needs a segment for it
-        needed = ("myers_dist", "affine_extend") + (
+        needed = ("myers_dist", "affine_extend", *LOOP_KERNELS) + (
             ("myers_moves",) if c.get("esc_nw_parts", 0) else ())
         check_launches("v2 clasp", runs[-1][4], c, needed)
     log("[v2 clasp] counters: " + " ".join(
@@ -1065,6 +1558,8 @@ def phase_clasp(v2):
     eng_off = MappingEngine(idx, cfg, device="cuda", esc_device=False)
     runs.append(map_pass(eng_off, reads))
     _report("v2 clasp", "pass, offload off", eng_off, runs[-1])
+    check_launches("v2 clasp offload off", runs[-1][4],
+                   eng_off.metrics.counters, ("myers_dist", *LOOP_KERNELS))
     sam, _, n_reads, n_mapped, _ = runs[0]
     if runs[1][0] != sam:
         raise AssertionError("v2 clasp: the two offload-on passes differ")
@@ -1105,7 +1600,7 @@ def phase_seeders(v1_idx, v1_reads):
     res = map_pass(eng, sub)
     _report("v1 extend-whole-3", "64 reads, offload on", eng, res)
     check_launches("v1 extend-whole-3", res[4], eng.metrics.counters,
-                   ("myers_dist",))
+                   ("myers_dist", "chain_dp"))
     host_seed_line("v1 extend-whole-3", eng, res[2])
     by_path["v1_extend_whole_3"] = res[4]
     _cpu_subset(v1_idx, res[0], sub, CACHE / "v1_first16.fq",
@@ -1119,7 +1614,7 @@ def phase_seeders(v1_idx, v1_reads):
     res = map_pass(eng, DATA / "reads.fq")
     _report("golden extend-whole-2", "offload on", eng, res)
     check_launches("golden extend-whole-2", res[4], eng.metrics.counters,
-                   ("myers_dist",))
+                   ("myers_dist", "chain_dp"))
     host_seed_line("golden extend-whole-2", eng, res[2])
     by_path["golden_extend_whole_2"] = res[4]
     t = time.time()
@@ -1154,20 +1649,31 @@ def trace_summary(events, wall_s):
 def phase_profile(v2):
     """One warm v2 pass (dp-n2, offload on: phase 5's engine) under
     utils.metrics.profiler_trace on cuda: its SAM equals phase 5's, the
-    trace holds the device stage's four named ranges and the Myers and
-    affine kernels' CUDA events.  Logs the device busy share and the top
-    five kernels by self CUDA time; returns the pass's launch counts."""
+    trace holds the device stage's four named ranges and the Myers,
+    affine, chain_dp and seed_ext kernels' CUDA events; then one of
+    phase 5's plain_loops engine, the same SAM.  Logs each pass's kernel
+    count, device busy share and top five kernels by self CUDA time;
+    returns the first pass's launch counts."""
+    res = _traced_pass(v2, "eng", "kernels", v2["warm_s"],
+                       ("myers_", "affine_", "chain_dp_kernel",
+                        "seed_ext_kernel"))
+    _traced_pass(v2, "eng_plain", "plain loops", v2["plain_warm_s"],
+                 ("myers_", "affine_"))
+    return res[4]
+
+
+def _traced_pass(v2, key, label, warm_s, kinds):
     import shutil
 
     from lordfast_tpu_torch.utils.metrics import profiler_trace
 
-    tdir = CACHE / "profile"
+    tdir = CACHE / "profile" / key
     shutil.rmtree(tdir, ignore_errors=True)
     with profiler_trace(tdir, "cuda"):
-        res = map_pass(v2["eng"], v2["reads"])
+        res = map_pass(v2[key], v2["reads"])
     if res[0] != v2["sam"]:
-        raise AssertionError("profile: the traced v2 pass's SAM differs "
-                             "from phase 5's")
+        raise AssertionError(f"profile ({label}): the traced v2 pass's SAM "
+                             "differs from phase 5's")
     traces = list(tdir.glob("lordfast_*.pt.trace.json"))
     if len(traces) != 1:
         raise AssertionError(f"profile: {len(traces)} trace files in {tdir}")
@@ -1177,19 +1683,21 @@ def phase_profile(v2):
     if missing:
         raise AssertionError(f"profile: no range {sorted(missing)}")
     busy, top = trace_summary(events, res[1])
-    for kind in ("myers_", "affine_"):
+    for kind in kinds:
         if not any(kind in k for k, _, _ in top):
-            raise AssertionError(f"profile: no {kind}* kernel in the trace")
+            raise AssertionError(f"profile ({label}): no {kind}* kernel in "
+                                 "the trace")
     kern_ms = sum(ms for _, ms, _ in top)
-    log(f"[profile] traced warm v2 pass {res[1]:.3f} s (untraced, phase 5: "
-        f"{v2['warm_s']:.3f} s); trace {traces[0].stat().st_size >> 20} "
-        f"MiB, {len(events)} events; {sum(n for _, _, n in top)} kernels, "
-        f"{kern_ms:.1f} ms of kernel time; device busy share {busy:.4f} of "
-        f"the traced pass ({busy * res[1] / v2['warm_s']:.4f} of the "
-        f"untraced one)")
+    log(f"[profile] {label}: traced warm v2 pass {res[1]:.3f} s (untraced, "
+        f"phase 5: {warm_s:.3f} s); trace "
+        f"{traces[0].stat().st_size >> 20} MiB, {len(events)} events; "
+        f"{sum(n for _, _, n in top)} kernels, {kern_ms:.1f} ms of kernel "
+        f"time; device busy share {busy:.4f} of the traced pass "
+        f"({busy * res[1] / warm_s:.4f} of the untraced one)")
     for k, ms, n in top[:5]:
-        log(f"[profile] top kernel: {ms:.2f} ms in {n} launches: {k[:120]}")
-    return res[4]
+        log(f"[profile] {label}: top kernel: {ms:.2f} ms in {n} launches: "
+            f"{k[:120]}")
+    return res
 
 
 def phase_multiprocess():
@@ -1333,7 +1841,10 @@ def mesh_rank(spec_path: str) -> int:
                                      f"SAMs differ")
             Path(run["out"]).write_text(sams[0])
             c = eng.metrics.counters
-            check_launches(run["name"], rec["launches"], c, ("myers_dist",))
+            # a sharded index seeds eagerly (collectives between steps)
+            check_launches(run["name"], rec["launches"], c,
+                           ("myers_dist", "chain_dp")
+                           + (() if run["shard_index"] else ("seed_ext",)))
             rec["counters"] = {k: c.get(k, 0) for k in V2_EXPECTED}
             rec["timers"] = {k: eng.metrics.timers.get(k, 0.0)
                              for k in ("device", "gap_dp", "stitch")}
@@ -1475,9 +1986,21 @@ def main(mesh_only: bool = False) -> int:
     sys.path.insert(0, str(ROOT))
     t0 = time.time()
     int_rate = phase_env()
+    builds = start_builds(("v2",) if mesh_only else ("v1", "v2"))
+    try:
+        return _phases(mesh_only, int_rate, builds, t0)
+    finally:
+        for proc, _ in builds.values():
+            proc.kill()
+            proc.wait()
+
+
+def _phases(mesh_only, int_rate, builds, t0) -> int:
+    import torch
+
     if mesh_only:
         _, golden = phase_golden()
-        _, _, v2 = phase_v2()
+        _, _, v2 = phase_v2(builds)
         t9 = time.time()
         phase_mesh(golden, v2)
         log(f"[smoke] phase 10 done in {time.time() - t9:.1f} s; phases "
@@ -1487,9 +2010,11 @@ def main(mesh_only: bool = False) -> int:
     rows = phase_kernel_gaps(int_rate) + [phase_kernel_affine(int_rate)]
     by_path = {}
     by_path["golden"], golden = phase_golden()
-    by_path["v1"], v1_idx, v1_reads = phase_v1()
-    by_path["v2"], v2_parts, v2 = phase_v2()
+    by_path["v1"], v1_idx, v1_reads, v1_caps = phase_v1(builds)
+    by_path["v2"], v2_parts, v2 = phase_v2(builds)
     time_at_parts(v2_parts)
+    rows += phase_loops({"golden": golden["caps"], "v1": v1_caps,
+                         "v2": v2["caps"]}, golden["idx"])
     t5 = time.time()
     log(f"[smoke] phases 1-5 done in {t5 - t0:.1f} s")
     by_path["v2_clasp"] = phase_clasp(v2)
@@ -1517,4 +2042,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.path.insert(0, str(ROOT))
         sys.exit(mesh_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--build-bench"]:
+        sys.path.insert(0, str(ROOT))
+        sys.exit(build_bench(sys.argv[2]))
     sys.exit(main(mesh_only=sys.argv[1:2] == ["--mesh"]))

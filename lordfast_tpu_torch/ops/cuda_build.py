@@ -1,4 +1,8 @@
-"""Builds the port's CUDA sources (``lordfast_tpu_torch/csrc/*.cu``).
+"""Builds the port's CUDA sources (``lordfast_tpu_torch/csrc/*.cu``):
+``myers.cu`` (the Myers gap DP, ``gap_dp_cuda``), ``affine_ext.cu``
+(ksw_extend2, ``affine_cuda``), ``chain_dp.cu`` (the chaining DP and its
+backtrack, ``chain_cuda``) and ``seed_ext.cu`` (the seeder's staged
+extension, ``fm_index_cuda``).
 
 Each source is compiled by ``nvcc`` for sm_90a into a shared library
 with a plain C interface in ``lordfast_tpu_torch/_build`` at first use
@@ -25,7 +29,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # the port's kernel sources, by library name (csrc/<name>.cu)
-SOURCES = ("myers", "affine_ext")
+SOURCES = ("myers", "affine_ext", "chain_dp", "seed_ext")
 
 logs: dict = {}   # name -> nvcc/ptxas output of its last build
 _libs: dict = {}

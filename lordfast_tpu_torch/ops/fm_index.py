@@ -18,13 +18,17 @@ holding the same values (``FMIndex.device_arrays``), so every shift here
 is logical; ``~w`` is written ``w ^ 0xFFFFFFFF``.  Positions and rows are
 int64 inside and cast to the index's position dtype on output.
 
-Where the JAX version bounds its lockstep loops with fixed-width
-compaction (``top_k`` into capped buffers inside ``lax.cond``), this port
-compacts to the exact surviving lane set with ``nonzero`` — eager
-PyTorch has dynamic shapes.  Which lanes ride which stage does not
-change any lane's result, so the outputs are the JAX version's.  Each
-compaction is a host sync on a GPU; the loops are plain PyTorch, not
-kernels (hand kernels for them are later work).
+On a CUDA tensor the staged extension (``_staged_ext``: the greedy
+extension steps and the occ==1 finish) is one launch of the hand-written
+kernel ``csrc/seed_ext.cu`` (``fm_index_cuda.seed_ext``), one thread per
+lane.  The plain PyTorch loops here are its plain version, the CPU path
+and the oracle.  Where the JAX version bounds its lockstep loops with
+fixed-width compaction (``top_k`` into capped buffers inside
+``lax.cond``), they compact to the exact surviving lane set with
+``nonzero`` — eager PyTorch has dynamic shapes.  Which lanes ride which
+stage does not change any lane's result, so the outputs are the JAX
+version's.  The locate walk (``sa_lookup``) stays plain PyTorch on every
+device: with a full SA it is one gather.
 
 Sharded index (``group=``, parallel/sharded_index.py): the row arrays
 ``fm_blocks`` / ``occ_cp`` / ``bwt_blocks`` / ``bwt_words`` / ``sa_samp``
@@ -368,7 +372,9 @@ def _staged_ext(arrs, meta, rd, alive, k, l, m, posf, bf, phase1_steps):
     occ==1 lanes by direct text comparison, compact to the lanes still
     alive, and repeat until none is.  Returns per-lane final (k, l, m)
     plus (rpos, rflag): the mirror-space position of the lanes the
-    comparison resolved (their k/l predate the comparison tail)."""
+    comparison resolved (their k/l predate the comparison tail).  Each
+    call adds one to ``_staged_ext.entries``."""
+    _staged_ext.entries += 1
     k, l, m = k.clone(), l.clone(), m.clone()
     rpos = torch.zeros_like(k)
     rflag = torch.zeros_like(alive)
@@ -394,9 +400,12 @@ def _staged_ext(arrs, meta, rd, alive, k, l, m, posf, bf, phase1_steps):
     return k, l, m, rpos, rflag
 
 
+_staged_ext.entries = 0
+
+
 def _seed_anchors_impl(arrs, reads, read_lens, pos, meta, sampling_count,
                        min_anchor_len, max_ref_hits, max_seeds,
-                       phase1_steps=24, group=None):
+                       phase1_steps=24, group=None, plain=False):
     """Seeding for a padded read batch (JAX ``_seed_anchors_impl``).
 
     reads: (B, L) uint8 codes (4 = N/pad); read_lens: (B,) int32;
@@ -404,7 +413,9 @@ def _seed_anchors_impl(arrs, reads, read_lens, pos, meta, sampling_count,
     the index's device.  Returns a SeedBatch with up to max_seeds slots
     per read across both strands.  group: the process group of a
     sharded index's stripes (this rank's rows of the batch; every rank
-    passes the same B)."""
+    passes the same B).  The staged extension runs in the seed_ext
+    kernel on a CUDA device, in _staged_ext on the CPU or with ``plain``
+    (the smoke's and the tests' comparison pass)."""
     dev = reads.device
     pdt = torch_pos_dtype(meta)
     B, L = reads.shape
@@ -415,6 +426,7 @@ def _seed_anchors_impl(arrs, reads, read_lens, pos, meta, sampling_count,
     BS = B * S
     b_lane = torch.arange(BS, device=dev) // S  # flat lane -> read row
     rd = _Reads(reads, read_lens)
+    lens32 = read_lens.to(torch.int32)
     pos = pos.long()
     read_lens = read_lens.long()
 
@@ -440,7 +452,13 @@ def _seed_anchors_impl(arrs, reads, read_lens, pos, meta, sampling_count,
 
     # ---- staged lockstep greedy extension ----
     m0 = torch.full((BS,), kc, dtype=torch.int64, device=dev)
-    if group is None:
+    if group is None and dev.type == "cuda" and not plain:
+        from .fm_index_cuda import seed_ext
+
+        kf, lf, mf, rposf, rflagf = seed_ext(
+            arrs, meta, reads.contiguous(), lens32, alive0, k0, l0, m0,
+            pos_f, b_lane, phase1_steps)
+    elif group is None:
         kf, lf, mf, rposf, rflagf = _staged_ext(
             arrs, meta, rd, alive0, k0, l0, m0, pos_f, b_lane, phase1_steps
         )

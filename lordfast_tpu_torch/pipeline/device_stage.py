@@ -20,28 +20,33 @@ from ..ops import voting as vote_ops
 from ..utils.metrics import named_range
 
 
-def device_pipeline(meta, cfg):
+def device_pipeline(meta, cfg, plain: bool = False):
     """The full device stage as a function of (arrs, reads, lens, pos,
     page=None), with meta/cfg closed over.  reads (B, L) uint8, lens (B,)
-    int32 and pos (B, S) int32 are tensors on the index's device."""
+    int32 and pos (B, S) int32 are tensors on the index's device.
+    plain: run the seed-extension and chaining loops through their plain
+    PyTorch versions on a CUDA device too, instead of the kernels (for
+    the smoke's and the tests' comparisons; on the CPU they always
+    are)."""
 
     def fn(arrs, reads, lens, pos, page=None):
         with named_range("lf_seed", reads.device):
             seeds = fm_ops._seed_anchors_impl(
                 arrs, reads, lens, pos, meta,
                 cfg.sampling_count, cfg.min_anchor_len, cfg.max_ref_hits,
-                cfg.max_seeds_per_read, cfg.seed_phase1_steps,
+                cfg.max_seeds_per_read, cfg.seed_phase1_steps, plain=plain,
             )
-        return post_seed_stage(arrs, seeds, reads, lens, cfg, page)
+        return post_seed_stage(arrs, seeds, reads, lens, cfg, page, plain)
 
     return fn
 
 
-def post_seed_stage(arrs, seeds, reads, lens, cfg, page=None):
+def post_seed_stage(arrs, seeds, reads, lens, cfg, page=None,
+                    plain: bool = False):
     """Everything after seeding (voting, selection, chaining, host-payload
     trimming).  page: optional candidate-rank page (vote_windows), the
     engine's window paging for reads whose qualifying windows exceed one
-    pipeline budget."""
+    pipeline budget.  plain: as device_pipeline's."""
     dev = reads.device
     with named_range("lf_vote", dev):
         cands = vote_ops.vote_windows(seeds, lens, cfg, page)
@@ -50,7 +55,7 @@ def post_seed_stage(arrs, seeds, reads, lens, cfg, page=None):
         cw = chain_ops.compact_candidates(cands, cfg, k_windows)
         ws = chain_ops.select_window_seeds(seeds, cw, lens, arrs, cfg)
     with named_range("lf_chain", dev):
-        chains = chain_ops.chain_seeds(ws, cfg)
+        chains = chain_ops.chain_seeds(ws, cfg, plain)
 
     return seeds, chains, host_payload(seeds.n_total, cands, lens, cw,
                                        chains, cfg)

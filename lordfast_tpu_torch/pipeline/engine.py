@@ -88,7 +88,8 @@ _RUN, _STOP, _FAIL = 0, 1, 2
 class MappingEngine:
     def __init__(self, idx: FMIndex, cfg: Optional[LordfastConfig] = None,
                  device="cuda", mesh=None, shard_index: bool = False,
-                 esc_device: Optional[bool] = None):
+                 esc_device: Optional[bool] = None,
+                 plain_loops: bool = False):
         """device: the torch device of the index and the device stage
         ("cuda", "cuda:1", "cpu").  esc_device: run the clip / split
         escalation DPs on the device (_escalation_pass) instead of in
@@ -101,12 +102,22 @@ class MappingEngine:
         rank's device is the mesh's (``device`` must name the same
         type).  cfg.batch_reads is rounded up to a multiple of the mesh
         size.  shard_index: stripe the index's row arrays over the mesh
-        instead (parallel/sharded_index.py); requires mesh."""
+        instead (parallel/sharded_index.py); requires mesh.
+
+        plain_loops: run the device stage's seed-extension and chaining
+        loops through their plain PyTorch versions on a CUDA device too,
+        instead of the seed_ext and chain_dp kernels: the same SAM,
+        slower.  For the smoke's and the tests' kernel-against-plain
+        passes; on the CPU the loops are always the plain versions.  Not
+        with a mesh."""
         self.idx = idx
         self.cfg = (cfg or LordfastConfig()).validate()
         self.meta = idx.meta
         if shard_index and mesh is None:
             raise ValueError("shard_index requires a mesh")
+        if plain_loops and mesh is not None:
+            raise ValueError("plain_loops is for one device, not a mesh")
+        self._plain_loops = plain_loops
         self._mesh = mesh
         self._shard_index = shard_index
         self._group, self._D, self._rank = None, 1, 0
@@ -157,7 +168,7 @@ class MappingEngine:
             self.arrs = idx.device_arrays(self.device)
         self._mesh_fns = {}  # stage key -> this rank's mesh pipeline
         self._in_call = False  # inside a mesh call's collectives
-        self._device_fn = device_pipeline(self.meta, self.cfg)
+        self._device_fn = device_pipeline(self.meta, self.cfg, plain_loops)
         # wide-budget pipelines for the compact-overflow retries
         # (fine-mode reads whose windows ran out of K slots; the reference
         # chains every qualifying local max, src/LordFAST.cpp:874-904):
@@ -197,7 +208,8 @@ class MappingEngine:
         if host_seeds is not None:
             return post_seed_stage(self.arrs, host_seeds, reads_dev,
                                    lens_dev,
-                                   self._stage_cfg("big" if big else "base"))
+                                   self._stage_cfg("big" if big else "base"),
+                                   plain=self._plain_loops)
         pos = fm_ops.sample_positions_host(lens, self.cfg.sampling_count)
         fn = self._get_big_fn() if big else self._device_fn
         return fn(self.arrs, reads_dev, lens_dev,
@@ -232,7 +244,8 @@ class MappingEngine:
         """Device pipeline with 8x the candidate/compact-window budget."""
         if self._big_fn is None:
             self._big_fn = device_pipeline(self.meta,
-                                           self._stage_cfg("big"))
+                                           self._stage_cfg("big"),
+                                           self._plain_loops)
         return self._big_fn
 
     def _solo_retry(self, codes, L, page: int = 0):
@@ -258,11 +271,12 @@ class MappingEngine:
         if self.cfg.seeder != "extend-whole":
             _, chains, host_out = post_seed_stage(
                 self.arrs, self._host_seeds(arr, lens), self._put_reads(arr),
-                lens_dev, self._stage_cfg("solo"), page)
+                lens_dev, self._stage_cfg("solo"), page, self._plain_loops)
             return self._fetch(host_out), chains
         if self._solo_fn is None:
             self._solo_fn = device_pipeline(self.meta,
-                                            self._stage_cfg("solo"))
+                                            self._stage_cfg("solo"),
+                                            self._plain_loops)
         pos = fm_ops.sample_positions_host(lens, self.cfg.sampling_count)
         _, chains, host_out = self._solo_fn(
             self.arrs, self._put_reads(arr), lens_dev,

@@ -77,7 +77,7 @@ def test_compact_select_chain_match_jax(seeded, chain_cfg):
                                rtol=1e-12, atol=0)
 
 
-def test_chain_clasp_not_ported(seeded):
+def test_chain_clasp_matches_jax(seeded):
     """clasp is ported (tests/test_torch_clasp.py holds it against JAX):
     chain_seeds dispatches -a clasp to chain_clasp_sop, and on the seeded
     windows its chains and scores equal the JAX package's."""

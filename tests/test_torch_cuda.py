@@ -2,7 +2,12 @@
 its last column), ``myers_moves`` and ``extend_batch_cuda`` against
 their plain PyTorch versions (exact: every output is an integer), one
 test per kind of bucket, the warp kernels' lane edges, and ``-a clasp``
-through the engine on the card against the CPU.  Needs an
+through the engine on the card against the CPU; ``chain_dp`` against
+the plain chaining DP (the float bits of dp, prev and every chain field;
+both costs, both DP dtypes, both position dtypes) and ``seed_ext``
+against ``_staged_ext`` (every lane's k, l, m, rpos, rflag; full and
+sampled SA, fused and split rank rows), and the dispatch of
+``chain_seeds`` and of the seeder to them.  Needs an
 NVIDIA GPU (marker ``cuda``) and skips
 without one.  This file imports neither jax nor lordfast_tpu, so it also
 runs where JAX is not installed:
@@ -15,7 +20,10 @@ import pytest
 import torch
 
 import chip_smoke
-from lordfast_tpu_torch.ops import affine, affine_cuda, gap_dp, gap_dp_cuda
+from lordfast_tpu_torch.config import LordfastConfig
+from lordfast_tpu_torch.ops import (affine, affine_cuda, chain, chain_cuda,
+                                    fm_index, fm_index_cuda, gap_dp,
+                                    gap_dp_cuda)
 from lordfast_tpu_torch.ops.gap_dp import myers_dist_plain
 
 
@@ -289,3 +297,151 @@ def test_cuda_clasp_engine_matches_cpu(cuda_device):
     assert len(sams["cpu"]) == 78
     assert sams["cuda"] == sams["cpu"]
     assert launches["myers_dist"] > 0 and launches["affine_extend"] > 0
+
+
+def _ws(arrays, device):
+    q, t, ln, va = arrays
+    n = va.sum(-1).astype(np.int32)
+    return chain.WindowSeeds(*(torch.from_numpy(np.ascontiguousarray(a)).to(
+        device) for a in (q, t, ln, va, n)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg,N,pos,dtype", [
+    ("dpn2", 512, "int64", "auto"), ("clasp", 512, "int64", "auto"),
+    ("dpn2", 64, "int32", "auto"), ("dpn2", 64, "int64", "f32"),
+    ("clasp", 64, "int32", "f32")])
+def test_cuda_chain_dp_matches_plain(cuda_device, alg, N, pos, dtype):
+    # random windows with empty and full ones, repeated seeds (exact
+    # ties) and, with int64 positions, t differences that wrap int32
+    rng = np.random.default_rng(N + len(alg) + len(dtype))
+    W = 64
+    counts = [0, 1, N, 2] + [int(c) for c in rng.integers(0, N + 1, W - 4)]
+    q, t, ln, va = chip_smoke.make_windows(rng, W, N, counts,
+                                           wrap=pos == "int64")
+    ws = _ws((q, t.astype(pos), ln, va), cuda_device)
+    cfg = LordfastConfig(chain_alg=alg, max_chain_seeds=N,
+                         chain_dp_dtype=dtype)
+    before = chain_cuda.chain_dp.launches
+    chip_smoke.check_chain_dp(ws, cfg)
+    torch.cuda.synchronize()
+    assert chain_cuda.chain_dp.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_chain_seeds_uses_the_kernel(cuda_device):
+    rng = np.random.default_rng(8)
+    arrays = chip_smoke.make_windows(rng, 40, 512, [int(c) for c in
+                                                    rng.integers(0, 200, 40)])
+    ws = _ws(arrays, cuda_device)
+    cfg = LordfastConfig()
+    chip_smoke.reset_launches()
+    got = chain.chain_seeds(ws, cfg)
+    counts = chip_smoke.read_launches()
+    assert counts["chain_dp"] == 1 and counts["_chain_bucketed"] == 0
+    want = chain.chain_seeds(ws, cfg, plain=True)
+    counts = chip_smoke.read_launches()
+    assert counts["chain_dp"] == 1 and counts["_chain_bucketed"] == 1
+    for name in chain.ChainBatch._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.fixture(scope="module")
+def genome(tmp_path_factory):
+    """A 30 kb random genome (two contigs) and 8 noisy reads of it."""
+    rng = np.random.default_rng(29)
+    codes = rng.integers(0, 4, 30000)
+    path = tmp_path_factory.mktemp("genome") / "g.fa"
+    seq = "".join("ACGT"[c] for c in codes)
+    path.write_text(f">a\n{seq[:17000]}\n>b\n{seq[17000:]}\n")
+    reads = np.full((8, 2000), 4, np.uint8)
+    lens = np.zeros(8, np.int32)
+    for b in range(8):
+        n = int(rng.integers(1000, 2000))
+        st = int(rng.integers(0, 30000 - n))
+        frag = codes[st : st + n].astype(np.uint8)
+        if b % 2:
+            frag = (3 - frag[::-1]).astype(np.uint8)
+        sites = rng.integers(0, n, n // 12)
+        frag[sites] = rng.integers(0, 4, len(sites))
+        if b % 3 == 0:
+            frag[rng.integers(0, n)] = 4
+        reads[b, :n], lens[b] = frag, n
+    return path, reads, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sa_interval,layout", [
+    (1, "fused"), (1, "split"), (32, "fused"), (32, "split")])
+def test_cuda_seed_ext_matches_plain(cuda_device, genome, sa_interval,
+                                     layout):
+    from lordfast_tpu_torch.index.builder import build_index
+
+    path, reads, lens = genome
+    idx = build_index(path, LordfastConfig(kmer_cache_k=6,
+                                           sa_interval=sa_interval),
+                      verbose=False)
+    assert idx.sa_intv == sa_interval
+    arrs = idx.device_arrays(cuda_device)
+    if layout == "split":
+        arrs = chip_smoke.split_layout(idx, arrs)
+    cfg = LordfastConfig(kmer_cache_k=6, sampling_count=200,
+                         seed_phase1_steps=3)
+    r = torch.from_numpy(reads).to(cuda_device)
+    n = torch.from_numpy(lens).to(cuda_device)
+    rec = chip_smoke.seed_lanes(arrs, idx.meta, r, n, cfg)
+    stats = chip_smoke.check_seed_ext(rec)
+    assert stats[:, 2].sum() > 0 and (sa_interval == 1
+                                      or stats[:, 1].sum() > 0)
+    # the seeds, through the kernel and through the plain loops
+    pos = torch.from_numpy(fm_index.sample_positions_host(
+        lens, cfg.sampling_count)).to(cuda_device)
+    args = (arrs, r, n, pos, idx.meta, cfg.sampling_count,
+            cfg.min_anchor_len, cfg.max_ref_hits, cfg.max_seeds_per_read,
+            cfg.seed_phase1_steps)
+    chip_smoke.reset_launches()
+    got = fm_index._seed_anchors_impl(*args)
+    want = fm_index._seed_anchors_impl(*args, plain=True)
+    counts = chip_smoke.read_launches()
+    assert counts["seed_ext"] == 1 and counts["_staged_ext"] == 1
+    for name in fm_index.SeedBatch._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.cuda
+def test_cuda_loop_wrappers_reject_bad_inputs(cuda_device, genome):
+    from lordfast_tpu_torch.index.builder import build_index
+
+    arrays = chip_smoke.make_windows(np.random.default_rng(1), 4, 64,
+                                     [3, 0, 64, 9])
+    ws = _ws(arrays, cuda_device)
+    cfg = LordfastConfig(max_chain_seeds=64)
+    with pytest.raises(TypeError):
+        chain_cuda.chain_dp(ws._replace(q_pos=ws.q_pos.long()), cfg)
+    with pytest.raises(ValueError):
+        chain_cuda.chain_dp(ws._replace(valid=ws.valid.cpu()), cfg)
+    wide = _ws(chip_smoke.make_windows(np.random.default_rng(2), 1,
+                                       chain_cuda.MAX_N + 1, [3]),
+               cuda_device)
+    with pytest.raises(ValueError):
+        chain_cuda.chain_dp(wide, cfg)
+    path, reads, lens = genome
+    idx = build_index(path, LordfastConfig(kmer_cache_k=6), verbose=False)
+    arrs = idx.device_arrays(cuda_device)
+    r = torch.from_numpy(reads).to(cuda_device)
+    n = torch.from_numpy(lens).to(cuda_device)
+    rec = chip_smoke.seed_lanes(arrs, idx.meta, r, n,
+                                LordfastConfig(kmer_cache_k=6))
+    lanes = rec["lanes"]
+    before = fm_index_cuda.seed_ext.launches
+    with pytest.raises(TypeError):
+        fm_index_cuda.seed_ext(arrs, idx.meta, r, n, lanes[0],
+                               lanes[1].int(), *lanes[2:], 6)
+    with pytest.raises(ValueError):
+        fm_index_cuda.seed_ext(arrs, idx.meta, r, n, *lanes, 0)
+    with pytest.raises(ValueError):
+        fm_index_cuda.seed_ext(arrs, dict(idx.meta, sa_intv=3), r, n,
+                               *lanes, 6)
+    with pytest.raises(TypeError):
+        fm_index_cuda.seed_ext(arrs, idx.meta, r, n.long(), *lanes, 6)
+    assert fm_index_cuda.seed_ext.launches == before
