@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (lordfast_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--mesh]
+    python3 chip_smoke.py [--mesh | --against DIR]
 
-(``--mesh``: phases 1, 3, 5 and 10 only, for a host of several cards.)
+(``--mesh``: phases 1, 3, 5 and 10 only, for a host of several cards;
+``--against DIR``: the loop kernels of this checkout against those of
+the checkout at DIR, timed in turns, see ``compare_loops``.)
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. environment: torch/CUDA versions, the card's name, power limit and
@@ -48,9 +50,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      and over the split rank layout (occ_cp + bwt_blocks), with the full
      SA and the sampled one; each kernel timed at v2's call against its
      plain version (``_chain_bucketed``, ``_staged_ext``), with its
-     bound (chain_dp: the pairs' FP64 operations over 34 TFLOP/s or its
-     bytes; seed_ext: the rank rows its lane-steps read over the HBM
-     rate) and seed_ext's warp efficiency;
+     bound from the run's inputs (chain_dp: its pairs' integer and float
+     operations or its bytes, chain_work; seed_ext: the input pieces its
+     lanes need, each once, from the kernel's bitmap, over the HBM rate,
+     seed_work), seed_ext's warp efficiency, the issued extension steps,
+     walk steps and compare round trips of its warp with the most steps,
+     and from the kernel's timers the warp that ends last (when, when it
+     left the extension, its steps); and chain_dp on 1024 full windows of
+     512 seeds (both costs, bit-equal, timed, with its bound);
 3. golden: MappingEngine(device="cuda") on tests/data (the golden test's
    config, the escalation offload on by default); the SAM must equal
    tests/data/golden.sam byte for byte, the offload must have fired, and
@@ -177,19 +184,25 @@ INT32_LANES = 132 * 64
 MYERS_OPS_PER_WORD = 20
 TB_OPS_PER_COL = 12
 AFFINE_OPS_PER_CELL = 16
-# chain_dp's bound: FP64 operations per (i, j) pair over the card's FP64
-# rate outside the tensor cores (NVIDIA's H100 SXM data sheet, 34
-# TFLOP/s).  dp-n2: the log (~20 operations in the CUDA math library's
-# double log), 0.1 d, penalty log d, their sum, + reward, - pen and the
-# compare; clasp: max, min, two products, their sum, - gsop and the
-# compare.
+# chain_dp's bound, counted from the run's windows (chain_work): on
+# every pair j < i of a window's seeds, the integer differences of q and
+# t and their two tests (4 operations; a linked dp-n2 pair adds d's
+# difference and its absolute value, 2); on a linked pair only (an
+# unlinked one needs no float), the float operations: dp-n2 with d > 1,
+# 0.1 d, penalty log d, their sum, + reward, - pen and the compare (6),
+# with d <= 1 + reward, - 0 and the compare (3), and for d >= LOG_TABLE
+# the log itself (~20 operations in the CUDA math library's double log;
+# the log of a smaller d is a table entry, each distinct one read once,
+# counted as bytes); clasp, max, min, two products, their sum, - gsop and
+# the compare (7).  Float operations go over the card's FP64 rate
+# outside the tensor cores (NVIDIA's H100 SXM data sheet, 34 TFLOP/s;
+# 67 for FP32, chain_dp_dtype "f32"), integer ones over the INT32 rate,
+# and the bound takes the slower of the two and the bytes.
 FP64_FLOPS = 34e12
-CHAIN_OPS_PER_PAIR = {"dpn2": 26, "clasp": 7}
-# seed_ext's bound: the rank rows its lane-steps read, in the device
-# layout (fm_blocks: 12 int64 words a row; occ_cp + bwt_blocks: 4 + 8),
-# two a step, one and a BWT word a walk step, and a pac word a 16 chars
-# compared
-RANK_ROW_BYTES = 96
+FP32_FLOPS = 67e12
+CHAIN_INT_OPS = 4
+DPN2_D_OPS = 2
+DPN2_FAR_OPS, DPN2_NEAR_OPS, LOG_OPS, CLASP_OPS = 6, 3, 20, 7
 KERNELS = ("myers_dist", "myers_moves", "affine_extend", "chain_dp",
            "seed_ext")
 # the loops these two kernels replace, counted on entry
@@ -281,11 +294,10 @@ class record_loops:
         if len(self.chain) < self.limit:
             self.chain.append((type(ws)(*(x.clone() for x in ws)), cfg))
 
-    def _seed(self, arrs, meta, reads, read_lens, *lanes, **kw):
+    def _seed(self, arrs, meta, rd, *lanes, **kw):
         if len(self.seed) < self.limit:
             self.seed.append(dict(
-                arrs=arrs, meta=meta, reads=reads.clone(),
-                read_lens=read_lens.clone(),
+                arrs=arrs, meta=meta, rd=rd,
                 lanes=[x.clone() for x in lanes[:6]],
                 phase1_steps=lanes[6]))
 
@@ -322,11 +334,24 @@ def seed_lanes(arrs, meta, reads, lens, cfg):
     return rec.seed[0]
 
 
-def bound(nbytes: float, ops: float, int_rate: float):
-    """(bound_ms, bound_by): the least time for nbytes of HBM traffic and
-    ops integer operations."""
+def reads_of(rd):
+    """(reads (B, L) uint8, lens (B,) int32) of an fm_index._Reads: its
+    3-bit words decoded."""
+    import torch
+
+    sh = 3 * (15 - torch.arange(16, device=rd.rw.device))
+    codes = ((rd.rw[:, :, None] >> sh) & 7).reshape(rd.rw.shape[0], -1)
+    return (codes[:, :rd.L].to(torch.uint8).contiguous(),
+            rd.lens.to(torch.int32))
+
+
+def bound(nbytes: float, ops: float, int_rate: float, fp_ops: float = 0,
+          fp_rate: float = FP64_FLOPS):
+    """(bound_ms, bound_by): the least time for nbytes of HBM traffic, ops
+    integer operations and fp_ops float ones (each kind on its own
+    units, so the slower of the two)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / int_rate * 1e3
+    t_ops = max(ops / int_rate, fp_ops / fp_rate) * 1e3
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -432,23 +457,30 @@ def check_affine_frames(ptxas_log: str):
 
 def check_loop_frames(chain_log: str, seed_log: str):
     """Every chain_dp_kernel (8: two position dtypes x two float types x
-    two costs) and seed_ext_kernel (4: two rank layouts x two position
-    dtypes) instantiation in ptxas's report, none with a stack frame or
+    two costs) and seed_ext_kernel (12: two rank layouts x two position
+    dtypes x no diagnostics, the step counts and timers, the need
+    bitmap) instantiation in ptxas's report, none with a stack frame or
     a spill (a lane's state stays in registers, a window's in shared
     memory)."""
     for name, text, n in (("chain_dp_kernel", chain_log, 8),
-                          ("seed_ext_kernel", seed_log, 4)):
-        frames = ptxas_frames(text, f"({name})")
+                          ("seed_ext_kernel", seed_log, 12)):
+        # seed_ext's kDiag from its mangled name: <bool, Pos, int>
+        frames = ptxas_frames(text, f"({name})" + (
+            r"ILb[01]E[il]Li(\d)E" if name == "seed_ext_kernel" else "()"))
         if len(frames) != n:
             raise AssertionError(f"ptxas reported {len(frames)} {name} "
                                  f"instantiations, not {n}")
-        bad = [f for f in frames if any(f[2:])]
+        bad = [f for f in frames if any(f[3:])]
         if bad:
             raise AssertionError(f"{name} instantiations with a stack frame "
                                  f"or spills: {bad}")
+        regs = {}
+        for f in frames:
+            regs.setdefault(f[1], []).append(f[2])
         log(f"[env] ptxas {name}: {n} instantiations, "
-            f"{min(f[1] for f in frames)}-{max(f[1] for f in frames)} "
-            "registers, no stack frame, no spill")
+            + ", ".join(f"{min(r)}-{max(r)}" + (f" (kDiag {d})" if d else "")
+                        for d, r in sorted(regs.items()))
+            + " registers, no stack frame, no spill")
 
 
 def make_gaps(rng, Q, T, G):
@@ -522,6 +554,103 @@ def make_windows(rng, W, N, counts, wrap=False):
         for i, (qp, tp, m) in enumerate(s):
             q[w, i], t[w, i], ln[w, i], va[w, i] = qp, tp, m, True
     return q, t, ln, va
+
+
+# seed counts at chain_dp's tile edges (32 seeds a tile) and v2's deepest
+EDGE_COUNTS = (0, 1, 31, 32, 33, 64, 65, 105, 512)
+EDGE_DUPS = (5, 31, 63)  # a chain window's seed p repeats at p + 1
+EDGE_TOPS = (3, 7, 35)   # an unlinked window's longest seeds
+
+
+def edge_windows(rng, N):
+    """Windows of N slots at each of EDGE_COUNTS up to N, three a count:
+    a chain along one diagonal (t off it by 0-2) whose seed p repeats at
+    slot p + 1 for p in EDGE_DUPS, so seed p + 2 takes p + 1 from an
+    exact tie with p (inside a tile at 5, across a tile's edge at 31 and
+    63); seeds that do not link, the longest at EDGE_TOPS, so the best
+    end is slot 3 by an exact tie across lanes (7) and within a lane
+    (35); and make_windows' random window of the count, t differences
+    that wrap int32 in every fourth."""
+    import numpy as np
+
+    counts = [c for c in EDGE_COUNTS if c <= N]
+    W = 3 * len(counts)
+    q = np.zeros((W, N), np.int32)
+    t = np.zeros((W, N), np.int64)
+    ln = np.zeros((W, N), np.int32)
+    va = np.zeros((W, N), bool)
+    for k, c in enumerate(counts):
+        chain, free = [], []
+        for i in range(c):
+            if i - 1 in EDGE_DUPS:
+                chain.append(chain[-1])
+            else:
+                chain.append((40 * i, 40 * i + 5000 + i % 3, 20))
+            free.append((40 * i, 10**6 - 40 * i, 50 if i in EDGE_TOPS
+                         else 20))
+        for w, seeds in ((3 * k, chain), (3 * k + 1, free)):
+            for i, (a, b, m) in enumerate(seeds):
+                q[w, i], t[w, i], ln[w, i], va[w, i] = a, b, m, True
+    rq, rt, rl, rv = make_windows(rng, len(counts), N, counts, wrap=True)
+    for k in range(len(counts)):
+        w = 3 * k + 2
+        q[w], t[w], ln[w], va[w] = rq[k], rt[k], rl[k], rv[k]
+    return q, t, ln, va
+
+
+def text_of(arrs, meta):
+    """The mirror-space text (fwd + revcomp, 2 * l_pac codes) of an
+    index's device arrays, from its pac words, as numpy int64."""
+    import numpy as np
+
+    pw = arrs["pac_words"].cpu().numpy().astype(np.int64)
+    codes = (pw[:, None] >> (2 * (15 - np.arange(16)))) & 3
+    return codes.reshape(-1)[: 2 * meta["l_pac"]]
+
+
+def edge_reads(rng, text, seq_len):
+    """Reads for seed_ext's 16-char compare, copied from the mirror-space
+    text (int codes): read position j holds 3 - text[P - 1 - j], so a
+    lane from pos_f extends along text[.., P - pos_f) and its finish
+    compares exact matches until the case's end at read position e: a
+    wrong code ("mismatch", e = 40..87: every offset of a trip and runs
+    across word boundaries), an N ("N", e = 40..55), the read's end
+    ("end", length e = 40..55), the text's start ("start", P = e =
+    40..55, so the last trip has p < 16) or MAX_ANCHOR_LEN ("max": 4200
+    exact chars, pos_f 0..15).  Returns (reads (B, L) uint8, lens (B,)
+    int32, kinds, e, lanes): one lane a read, alive over the whole
+    interval [0, seq_len] with m = 0, as numpy (alive0, k0, l0, m0,
+    pos_f, b_lane)."""
+    import numpy as np
+
+    n = len(text)
+    cases = ([("mismatch", 40 + o) for o in range(48)]
+             + [(kind, 40 + o) for kind in ("N", "end", "start")
+                for o in range(16)]
+             + [("max", o) for o in range(16)])
+    B = len(cases)
+    L = 4200
+    reads = np.full((B, L), 4, np.uint8)
+    lens = np.zeros(B, np.int32)
+    pos_f = np.zeros(B, np.int64)
+    for b, (kind, e) in enumerate(cases):
+        ln = {"end": e, "max": L}.get(kind, 300)
+        P = e if kind == "start" else int(rng.integers(ln + 1, n))
+        j = np.arange(ln)
+        src = P - 1 - j
+        read = np.where(src >= 0, 3 - text[np.maximum(src, 0)],
+                        rng.integers(0, 4, ln))
+        if kind == "mismatch":
+            read[e] = (read[e] + rng.integers(1, 4)) % 4
+        elif kind == "N":
+            read[e] = 4
+        reads[b, :ln], lens[b] = read, ln
+        pos_f[b] = e if kind == "max" else 0
+    lanes = (np.ones(B, bool), np.zeros(B, np.int64),
+             np.full(B, seq_len, np.int64), np.zeros(B, np.int64), pos_f,
+             np.arange(B, dtype=np.int64))
+    kinds = np.array([k for k, _ in cases])
+    return reads, lens, kinds, np.array([e for _, e in cases]), lanes
 
 
 def _time_cuda(fn, reps):
@@ -917,67 +1046,171 @@ def check_chain_dp(ws, cfg):
 
 def check_seed_ext(rec):
     """seed_ext's kernel against _staged_ext on the card, on one recorded
-    call (record_loops): every lane's k, l, m, rpos and rflag equal.
-    Returns the kernel's (BS, 3) step counts as numpy."""
+    call (record_loops): every lane's k, l, m, rpos and rflag equal, in
+    two launches, one with the step counts and timers and one with the
+    bitmap of needed input pieces.  Returns the kernel's (BS, 7) step
+    counts and timers as numpy and its dict of the input bytes the lanes
+    need (fm_index_cuda.seed_ext)."""
     from lordfast_tpu_torch.ops import fm_index
 
-    got = _wrappers()["seed_ext"](
-        rec["arrs"], rec["meta"], rec["reads"], rec["read_lens"],
-        *rec["lanes"], rec["phase1_steps"], want_stats=True)
-    want = fm_index._staged_ext(
-        rec["arrs"], rec["meta"],
-        fm_index._Reads(rec["reads"], rec["read_lens"]), *rec["lanes"],
-        rec["phase1_steps"])
-    for name, a, b in zip(("k", "l", "m", "rpos", "rflag"), got, want):
-        if not bool((a == b).all()):
-            raise AssertionError(f"seed_ext: kernel != _staged_ext in {name}"
-                                 f" ({int((a != b).sum())} lanes)")
-    return got[5].cpu().numpy()
+    args = (rec["arrs"], rec["meta"], rec["rd"], *rec["lanes"],
+            rec["phase1_steps"])
+    want = fm_index._staged_ext(*args)
+    out = []
+    for kw in ("want_stats", "want_need"):
+        got = _wrappers()["seed_ext"](*args, **{kw: True})
+        for name, a, b in zip(("k", "l", "m", "rpos", "rflag"), got, want):
+            if not bool((a == b).all()):
+                raise AssertionError(
+                    f"seed_ext ({kw}): kernel != _staged_ext in {name} "
+                    f"({int((a != b).sum())} lanes)")
+        out.append(got[5])
+    return out[0].cpu().numpy(), out[1]
 
 
-def chain_work(ws):
-    """(pairs, bytes) of chain_dp on ws: the (i, j) pairs of every window
-    to its count; the valid flag of every slot read once, q, t and len
-    of the live slots only (a window's seeds fill its first slots), and
-    the (W, N) chain fields and the W chain lengths and scores written
-    once."""
-    import numpy as np
+def _wrap32(x):
+    """int64 values cut to int32, as the kernel's differences wrap."""
+    return ((x + 2**31) & 0xFFFFFFFF) - 2**31
+
+
+def chain_work(ws, cfg) -> dict:
+    """What chain_dp's function needs on the windows ws under cfg's cost
+    and float type, counted from the windows (see CHAIN_INT_OPS): the
+    pairs j < i of every window to its count, the linked ones, their
+    integer and float operations and the float rate, and the bytes: the
+    valid flag of every slot read once, q, t and len of the live slots
+    only (a window's seeds fill its first slots), each distinct table
+    entry log(d) of a linked dp-n2 pair read once, and the (W, N) chain
+    fields and the W chain lengths and scores written once."""
+    import torch
+
+    from lordfast_tpu_torch.config import ChainAlg
+    from lordfast_tpu_torch.ops import chain, chain_cuda
 
     N = ws.q_pos.shape[-1]
-    n = ws.valid.reshape(-1, N).sum(-1).cpu().numpy().astype(np.int64)
+    q, t, ln = (x.reshape(-1, N).long()
+                for x in (ws.q_pos, ws.t_pos, ws.length))
+    ok = ws.valid.reshape(-1, N)
+    W, dev = q.shape[0], q.device
+    n = ok.sum(-1)
+    dpn2 = cfg.chain_alg != ChainAlg.CLASP
+    fsize = torch.empty((), dtype=chain._dp_dtype(cfg)).element_size()
+    below = torch.arange(N, device=dev)[None, :] < torch.arange(
+        N, device=dev)[:, None]  # [i, j]: j < i
+    seen = torch.zeros(chain_cuda.LOG_TABLE, dtype=torch.bool, device=dev)
+    linked = fp_ops = d_ops = 0
+    step = max(1, 2**24 // (N * N))
+    for w0 in range(0, W, step):
+        sl = slice(w0, w0 + step)
+        qe = q[sl] + ln[sl] - 1  # the ends of j
+        te = t[sl] + ln[sl] - 1
+        live = below & ok[sl][:, None, :] & ok[sl][:, :, None]
+        if dpn2:
+            dr = _wrap32(q[sl][:, :, None] - qe[:, None, :])
+            dt = _wrap32(t[sl][:, :, None] - te[:, None, :])
+            link = live & (dr > 0) & (dt > 0)
+            dd = _wrap32(dr - dt)
+            d = torch.where(dd == -2**31, dd, dd.abs())[link]
+            near = d <= 1
+            far = d >= chain_cuda.LOG_TABLE
+            fp_ops += (DPN2_FAR_OPS * int((~near).sum())
+                       + DPN2_NEAR_OPS * int(near.sum())
+                       + LOG_OPS * int(far.sum()))
+            seen[d[~near & ~far]] = True
+            d_ops += DPN2_D_OPS * int(link.sum())
+        else:
+            dy = _wrap32(q[sl][:, :, None] - qe[:, None, :] - 1)
+            dx = _wrap32(t[sl][:, :, None] - te[:, None, :] - 1)
+            link = live & (dy >= 0) & (dx >= 0)
+            fp_ops += CLASP_OPS * int(link.sum())
+        linked += int(link.sum())
+    pairs = int((n * (n - 1) // 2).sum())
     tb = ws.t_pos.element_size()
-    W = len(n)
-    return (int((n * (n - 1) // 2).sum()),
-            W * N + int(n.sum()) * (4 + tb + 4) + W * N * (4 + tb + 4)
-            + W * 8)
+    nbytes = (W * N + int(n.sum()) * (4 + tb + 4) + W * N * (4 + tb + 4)
+              + W * 8 + fsize * int(seen.sum()))
+    return {"pairs": pairs, "linked": linked,
+            "int_ops": CHAIN_INT_OPS * pairs + d_ops, "fp_ops": fp_ops,
+            "fp_rate": FP64_FLOPS if fsize == 8 else FP32_FLOPS,
+            "bytes": nbytes}
 
 
-def seed_work(rec, stats):
-    """Bytes seed_ext's lane-steps read (RANK_ROW_BYTES a rank row) and
-    its per-lane inputs and outputs, from the kernel's step counts."""
-    import numpy as np
-
-    n_ext, n_walk, n_cmp = (stats[:, i].astype(np.int64).sum()
-                            for i in range(3))
-    BS = stats.shape[0]
-    return float(2 * RANK_ROW_BYTES * n_ext + (RANK_ROW_BYTES + 8) * n_walk
-                 + 8 * -(-n_cmp // 16) + BS * (1 + 5 * 8 + 4 * 8 + 1))
+def chain_bound(work, int_rate):
+    """bound() of a chain_work count."""
+    return bound(work["bytes"], work["int_ops"], int_rate, work["fp_ops"],
+                 work["fp_rate"])
 
 
-def warp_efficiency(stats):
-    """Active lane-steps over issued ones, per kind of step and in all:
-    a warp (32 consecutive lanes) issues each kind as often as its
-    busiest lane takes it."""
+def seed_work(rec, need) -> float:
+    """Bytes seed_ext's function needs on one recorded call: the pieces
+    of the index and the reads its lanes' steps need, each once (need,
+    from the kernel's bitmap: fm_index_cuda.seed_ext), every lane's
+    inputs read and outputs written once, the length of each read with a
+    live lane, and L2."""
+    alive0, b_lane = rec["lanes"][0], rec["lanes"][5]
+    BS = alive0.shape[0]
+    reads = int(b_lane[alive0].unique().numel())
+    l2 = rec["arrs"]["L2"]
+    return float(sum(need.values()) + BS * (1 + 5 * 8 + 4 * 8 + 1)
+                 + 8 * reads + l2.numel() * l2.element_size())
+
+
+# seed_ext's steps: extension, walk, compare round trip (stats columns 0,
+# 1 and 3; column 2 is the chars the compare matched, 4-6 timers)
+STEP_KINDS = ("ext", "walk", "cmp")
+
+
+def _warp_steps(stats):
+    """(lanes, warps) of each lane's and each warp's issued steps of
+    every kind (extension, walk, compare round trip) and in all: a warp
+    (32 consecutive lanes) issues each kind as often as its busiest lane
+    takes it."""
     import numpy as np
 
     BS = stats.shape[0]
     pad = np.zeros((-(-BS // 32) * 32, 4), np.int64)
-    pad[:BS, :3] = stats
-    pad[:BS, 3] = stats.sum(1)
-    warps = pad.reshape(-1, 32, 4)
-    issued = 32 * warps.max(1).sum(0)
+    pad[:BS, :3] = stats[:, [0, 1, 3]]
+    pad[:BS, 3] = pad[:BS, :3].sum(1)
+    per_warp = pad.reshape(-1, 32, 4).max(1)
+    per_warp[:, 3] = per_warp[:, :3].sum(1)
+    return pad, per_warp
+
+
+def warp_efficiency(stats):
+    """Active lane-steps over issued ones, per kind of step and in all."""
+    pad, per_warp = _warp_steps(stats)
+    issued = 32 * per_warp.sum(0)
     return {k: float(pad[:, i].sum() / issued[i]) if issued[i] else 1.0
-            for i, k in enumerate(("ext", "walk", "cmp", "all"))}
+            for i, k in enumerate((*STEP_KINDS, "all"))}
+
+
+def longest_warp(stats) -> dict:
+    """The issued steps of each kind of the warp that issues the most."""
+    _, per_warp = _warp_steps(stats)
+    w = int(per_warp[:, 3].argmax())
+    return dict(zip((*STEP_KINDS, "all"), (int(x) for x in per_warp[w])))
+
+
+def last_warp(stats) -> dict:
+    """From the kernel's timers (stats columns 4-6: the low 32 bits of
+    the card's nanosecond timer at each lane's start, when it left the
+    extension and at its end), in microseconds after the first lane
+    started: when the warp that ends last ends and when its last lane
+    left the extension, its issued steps, and when half and 99% of the
+    warps had ended."""
+    import numpy as np
+
+    t = stats[:, 4:7].astype(np.int64)
+    rel = (t - t[0, 0] + 2**31) % 2**32 - 2**31  # spans under 2 s
+    rel -= rel[:, 0].min()
+    pad = np.full((-(-len(t) // 32) * 32, 2), -1, np.int64)
+    pad[: len(t)] = rel[:, 1:]
+    per = pad.reshape(-1, 32, 2).max(1)  # (ext, end) of each warp
+    w = int(per[:, 1].argmax())
+    _, steps = _warp_steps(stats)
+    return {"end_us": per[w, 1] / 1e3, "ext_us": per[w, 0] / 1e3,
+            **dict(zip((*STEP_KINDS, "all"), (int(x) for x in steps[w]))),
+            "p50_us": float(np.percentile(per[:, 1], 50)) / 1e3,
+            "p99_us": float(np.percentile(per[:, 1], 99)) / 1e3}
 
 
 def split_layout(idx, arrs):
@@ -992,7 +1225,63 @@ def split_layout(idx, arrs):
     return out
 
 
-def phase_loops(caps, golden_idx):
+FULL_WINDOWS = (1024, 512)  # the default batch's windows x max_chain_seeds
+
+
+def _full_windows():
+    """FULL_WINDOWS windows, every slot a seed: 128 windows of
+    make_windows, 8 times over (a second each to make)."""
+    import numpy as np
+    import torch
+
+    from lordfast_tpu_torch.ops import chain
+
+    W, N = FULL_WINDOWS
+    arrays = [np.tile(x, (W // 128, 1)) for x in make_windows(
+        np.random.default_rng(20261017), 128, N, [N] * 128)]
+    return chain.WindowSeeds(*(torch.from_numpy(x).to("cuda") for x in (
+        *arrays, arrays[3].sum(-1).astype(np.int32))))
+
+
+def phase_full_windows(int_rate) -> dict:
+    """chain_dp on FULL_WINDOWS windows with every slot a seed (the most
+    pairs a default batch can give; _full_windows), both costs, bit-equal
+    to the plain full-width DP on the card and timed against
+    _chain_bucketed, with the bound; returns the dp-n2 figures for the
+    kernel table."""
+    from lordfast_tpu_torch.config import LordfastConfig
+    from lordfast_tpu_torch.ops import chain
+
+    W, N = FULL_WINDOWS
+    ws = _full_windows()
+    out = {}
+    for alg in ("dpn2", "clasp"):
+        c = LordfastConfig(chain_alg=alg, max_chain_seeds=N)
+        check_chain_dp(ws, c)
+        ms = _time_launches(lambda: _wrappers()["chain_dp"](ws, c), 5)
+        plain_ms = _time_cuda(
+            lambda: chain._chain_bucketed(ws, c, chain.dp_function(c)), 1)
+        work = chain_work(ws, c)
+        b = chain_bound(work, int_rate)
+        log(f"[loops] chain_dp full windows {alg}: {W} windows x {N} slots,"
+            f" every one full ({_chain_counts(work)}): dp, prev and chains "
+            f"bit-equal to the plain version | kernel {ms:.3f} ms | plain "
+            f"(_chain_bucketed) {plain_ms:.1f} ms | bound {b[0]:.5f} ms "
+            f"({b[1]})")
+        if alg == "dpn2":
+            out = {"full_windows_ms": ms, "full_windows_plain_ms": plain_ms,
+                   "full_windows_bound_ms": b[0],
+                   "full_windows_bound_by": b[1]}
+    return out
+
+
+def _chain_counts(work) -> str:
+    return (f"{work['pairs']} pairs, {work['linked']} linked, "
+            f"{work['int_ops']} integer and {work['fp_ops']} float "
+            f"operations, {work['bytes']} bytes")
+
+
+def phase_loops(caps, golden_idx, int_rate):
     """chain_dp and seed_ext against their plain versions on the card, on
     the first call each that the golden, v1 and v2 passes made (caps:
     record_loops by tag): chain_dp on the windows with both costs,
@@ -1012,12 +1301,12 @@ def phase_loops(caps, golden_idx):
         for alg in ("dpn2", "clasp"):
             c = cfg.replace(chain_alg=alg)
             check_chain_dp(ws, c)
-            pairs, nbytes = chain_work(ws)
-            b = bound(nbytes, CHAIN_OPS_PER_PAIR[alg] * pairs, FP64_FLOPS)
+            work = chain_work(ws, c)
+            b = chain_bound(work, int_rate)
             line = (f"[loops] chain_dp {tag} {alg}: {counts.numel()} windows"
                     f" x {N} slots ({int((counts > 0).sum())} with seeds, "
-                    f"{int(counts.max())} at most, {pairs} pairs): dp, prev "
-                    "and chains bit-equal to the plain version")
+                    f"{int(counts.max())} at most, {_chain_counts(work)}): "
+                    "dp, prev and chains bit-equal to the plain version")
             if tag == "v2":
                 ms = _time_launches(
                     lambda: _wrappers()["chain_dp"](ws, c), 5)
@@ -1030,21 +1319,19 @@ def phase_loops(caps, golden_idx):
                          f"{plain_ms:.1f} ms | bound {b[0]:.5f} ms ({b[1]})")
             log(line)
         rec = caps[tag].seed[0]
-        stats = check_seed_ext(rec)
-        line = _seed_line(f"{tag}", rec, stats)
+        stats, need = check_seed_ext(rec)
+        line = _seed_line(f"{tag}", rec, stats, need)
         if tag == "v2":
-            args = (rec["arrs"], rec["meta"], rec["reads"], rec["read_lens"],
-                    *rec["lanes"], rec["phase1_steps"])
+            args = (rec["arrs"], rec["meta"], rec["rd"], *rec["lanes"],
+                    rec["phase1_steps"])
             ms = _time_launches(lambda: _wrappers()["seed_ext"](*args), 5)
-            rd = fm_index._Reads(rec["reads"], rec["read_lens"])
-            plain_ms = _time_cuda(lambda: fm_index._staged_ext(
-                rec["arrs"], rec["meta"], rd, *rec["lanes"],
-                rec["phase1_steps"]), 1)
-            b = bound(seed_work(rec, stats), 0, FP64_FLOPS)
+            plain_ms = _time_cuda(lambda: fm_index._staged_ext(*args), 1)
+            b = bound(seed_work(rec, need), 0, int_rate)
             seed_t.add(ms, plain_ms, b, 0)
             line += (f" | kernel {ms:.3f} ms | plain (_staged_ext) "
                      f"{plain_ms:.1f} ms | bound {b[0]:.5f} ms ({b[1]})")
         log(line)
+    full = phase_full_windows(int_rate)
     g = caps["golden"].seed[0]
     cfg = LordfastConfig(**GOLDEN_CFG)
     sampled = build_index(DATA / "ref.fa", LordfastConfig(
@@ -1054,30 +1341,157 @@ def phase_loops(caps, golden_idx):
     for sa, (idx, arrs) in fused.items():
         for layout in ("fused", "split"):
             a = arrs if layout == "fused" else split_layout(idx, arrs)
-            rec = seed_lanes(a, idx.meta, g["reads"], g["read_lens"], cfg)
-            stats = check_seed_ext(rec)
+            rec = seed_lanes(a, idx.meta, *reads_of(g["rd"]), cfg)
+            stats, need = check_seed_ext(rec)
             log(_seed_line(f"golden, {sa} SA (sa_intv {idx.sa_intv}), "
-                           f"{layout} rank rows", rec, stats))
+                           f"{layout} rank rows", rec, stats, need))
     log("[loops] chain_dp and seed_ext bit-equal to their plain versions "
         "in every case")
     return [
         chain_t.row("chain_dp", "lordfast_tpu_torch/csrc/chain_dp.cu",
                     "lordfast_tpu/ops/chain.py:350",
-                    also_replaces="lordfast_tpu/ops/chain.py:409, :213"),
+                    also_replaces="lordfast_tpu/ops/chain.py:409, :213",
+                    **full),
         seed_t.row("seed_ext", "lordfast_tpu_torch/csrc/seed_ext.cu",
                    "lordfast_tpu/ops/fm_index.py:492",
                    also_replaces="lordfast_tpu/ops/fm_index.py:568, :602"),
     ]
 
 
-def _seed_line(tag, rec, stats):
+OTHER = "lft_other"  # another checkout's package, for compare_loops
+
+
+def _load_other(root: Path):
+    """The package of the checkout at root, imported as OTHER beside this
+    one: its ops modules chain_cuda, fm_index_cuda and cuda_build."""
+    import importlib
+    import importlib.util
+
+    pkg = root / "lordfast_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        OTHER, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[OTHER] = mod
+    spec.loader.exec_module(mod)
+    return tuple(importlib.import_module(f"{OTHER}.ops.{m}")
+                 for m in ("chain_cuda", "fm_index_cuda", "cuda_build"))
+
+
+def compare_loops(other: Path, reps: int = 5) -> int:
+    """``--against DIR``: this checkout's chain_dp and seed_ext kernels
+    against those of the checkout at DIR (e.g. the parent commit,
+    unpacked with git archive into a directory .gitignore lists), on one
+    card.  Both checkouts' chain_dp.cu and seed_ext.cu are built at once
+    (one nvcc each, each into its own checkout's _build); the inputs are
+    v2's first device call, recorded from one pass of this checkout's
+    engine over .smoke_cache's v2 dataset (made by a smoke run, or here),
+    and the full windows; each checkout's kernel is held bit-equal to
+    the plain version, then timed with _time_launches in turns A B B A
+    (A this checkout).  Each wrapper is called as its checkout's
+    signature asks (seed_ext took (B, L) uint8 reads and int32 lengths
+    before it took an fm_index._Reads).  One JSON line per case, then
+    the card's name and power limit; no contract line."""
+    import inspect
+    import threading
+
+    import torch
+
+    from lordfast_tpu_torch.config import LordfastConfig
+    from lordfast_tpu_torch.index.builder import load_index
+    from lordfast_tpu_torch.ops import (chain, chain_cuda, cuda_build,
+                                        fm_index, fm_index_cuda)
+    from lordfast_tpu_torch.pipeline.engine import MappingEngine
+
+    if not torch.cuda.is_available():
+        print("[compare] needs a CUDA device", file=sys.stderr)
+        return 2
+    o_chain, o_fm, o_cb = _load_other(other.resolve())
+    t = time.time()
+    errs = []
+
+    def build(cb):
+        try:
+            cb.build_all(("chain_dp", "seed_ext"), force=True)
+        except Exception as e:  # noqa: BLE001 - raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=build, args=(cb,))
+               for cb in (cuda_build, o_cb)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errs:
+        raise errs[0]
+    log(f"[compare] both checkouts' chain_dp and seed_ext built in "
+        f"{time.time() - t:.1f} s")
+    _, reads_path = _dataset(easy=False)
+    if not (CACHE / "v2.lft.npz").exists():
+        build_bench("v2")
+    eng = MappingEngine(load_index(CACHE / "v2.lft.npz"), LordfastConfig(),
+                        device="cuda")
+    with record_loops() as rec:
+        eng.map_file(reads_path, io.StringIO(), "chip_smoke")
+    ws, cfg = rec.chain[0]
+    seed = rec.seed[0]
+    reads, lens = reads_of(seed["rd"])
+    lanes = (*seed["lanes"], seed["phase1_steps"])
+
+    def seed_call(fn):
+        if "rd" in inspect.signature(fn).parameters:
+            return lambda: fn(seed["arrs"], seed["meta"], seed["rd"], *lanes)
+        return lambda: fn(seed["arrs"], seed["meta"], reads, lens, *lanes)
+
+    cases = []
+    for name, w in (("v2 call", ws), ("full windows", _full_windows())):
+        for alg in ("dpn2", "clasp"):
+            c = (cfg if name == "v2 call" else LordfastConfig(
+                max_chain_seeds=FULL_WINDOWS[1])).replace(chain_alg=alg)
+            cases.append((f"chain_dp {name} {alg}",
+                          chain.dp_function(c)(w, c), {
+                              "this": lambda w=w, c=c: chain_cuda.chain_dp(
+                                  w, c),
+                              "other": lambda w=w, c=c: o_chain.chain_dp(
+                                  w, c)}))
+    cases.append(("seed_ext v2 call", fm_index._staged_ext(
+        seed["arrs"], seed["meta"], seed["rd"], *lanes), {
+            "this": seed_call(fm_index_cuda.seed_ext),
+            "other": seed_call(o_fm.seed_ext)}))
+    for label, want, fns in cases:
+        for side, fn in fns.items():
+            got = fn()
+            if not all(bool((_bits(a) == _bits(b)).all())
+                       for a, b in zip(got, want)):
+                raise AssertionError(f"[compare] {label}: {side} != plain")
+        ms = {"this": [], "other": []}
+        for side in ("this", "other", "other", "this"):
+            ms[side].append(_time_launches(fns[side], reps))
+        log(json.dumps({"case": label, "ms_this": ms["this"],
+                        "ms_other": ms["other"], "other": str(other)}))
+    log(f"[compare] {nvidia_smi_line()}")
+    return 0
+
+
+def _seed_line(tag, rec, stats, need):
     eff = warp_efficiency(stats)
-    n = stats.sum(0)
+    n = stats[:, :4].astype("int64").sum(0)
+    top, last = longest_warp(stats), last_warp(stats)
     return (f"[loops] seed_ext {tag}: {stats.shape[0]} lanes "
             f"({int(rec['lanes'][0].sum())} alive), {int(n[0])} extension "
-            f"steps, {int(n[1])} walk steps, {int(n[2])} chars compared: k, "
-            f"l, m, rpos, rflag equal to _staged_ext | warp efficiency "
-            + " ".join(f"{k} {v:.3f}" for k, v in eff.items()))
+            f"steps, {int(n[1])} walk steps, {int(n[2])} chars matched in "
+            f"{int(n[3])} compare round trips: k, l, m, rpos, rflag equal "
+            "to _staged_ext | input bytes needed "
+            + " ".join(f"{k} {v}" for k, v in need.items())
+            + f" (all {seed_work(rec, need):.0f}) | warp efficiency "
+            + " ".join(f"{k} {v:.3f}" for k, v in eff.items())
+            + " | the warp with the most steps issues "
+            + " ".join(f"{k} {v}" for k, v in top.items())
+            + f" | the warp that ends last ends {last['end_us']:.1f} us after"
+            f" the first lane starts, out of the extension by "
+            f"{last['ext_us']:.1f} us, and issues "
+            + " ".join(f"{k} {last[k]}" for k in (*STEP_KINDS, "all"))
+            + f"; half the warps end by {last['p50_us']:.1f} us, 99% by "
+            f"{last['p99_us']:.1f} us (a launch with the timers on)")
 
 
 def sam_records(text: str):
@@ -2014,7 +2428,7 @@ def _phases(mesh_only, int_rate, builds, t0) -> int:
     by_path["v2"], v2_parts, v2 = phase_v2(builds)
     time_at_parts(v2_parts)
     rows += phase_loops({"golden": golden["caps"], "v1": v1_caps,
-                         "v2": v2["caps"]}, golden["idx"])
+                         "v2": v2["caps"]}, golden["idx"], int_rate)
     t5 = time.time()
     log(f"[smoke] phases 1-5 done in {t5 - t0:.1f} s")
     by_path["v2_clasp"] = phase_clasp(v2)
@@ -2045,4 +2459,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--build-bench"]:
         sys.path.insert(0, str(ROOT))
         sys.exit(build_bench(sys.argv[2]))
+    if sys.argv[1:2] == ["--against"]:
+        sys.path.insert(0, str(ROOT))
+        sys.exit(compare_loops(Path(sys.argv[2])))
     sys.exit(main(mesh_only=sys.argv[1:2] == ["--mesh"]))

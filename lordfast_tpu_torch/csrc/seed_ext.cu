@@ -23,32 +23,58 @@
 // block does an alive lane whose interval is one row (k == l) leave the
 // rank queries: its SA position p (sa_samp[k] with the full SA, else the
 // inverse-Psi walk of bwt_sa, lib/bwa/bwt.c:86-96, to a sampled row) and
-// then a char by char comparison of the text left of p (pac_words, 2 bits
-// a base) with the complemented read, stopping at the first mismatch, at
-// the text's start, past the read or at MAX_ANCHOR_LEN: m grows by the
-// run, rpos = p - run, rflag = 1, and k, l keep their one-row values.
-// That is the plain version's schedule: a lane that reaches one row in
-// mid-block keeps extending by rank queries until the block ends, and
-// rflag depends on it.  The plain version compares 128-char chunks; the
-// run it finds is the same.
+// then the comparison of the text left of p (pac_words, 2 bits a base)
+// with the complemented read, stopping at the first mismatch, at the
+// text's start, past the read, at a non-ACGT char or at MAX_ANCHOR_LEN:
+// m grows by the run, rpos = p - run, rflag = 1, and k, l keep their
+// one-row values.  That is the plain version's schedule: a lane that
+// reaches one row in mid-block keeps extending by rank queries until the
+// block ends, and rflag depends on it.
 //
-// Design, simple and right first: one thread per lane (B x sampling_count
-// lanes, 128,000 at the defaults), the whole loop in registers, no
-// compaction and no host sync; the index rows are read through the
-// read-only path (__ldg), and only the BWT words a query needs (those up
-// to its row's word).  Lanes of a warp end at different steps and take
-// different phases, and the warp issues until its last lane ends: that
-// divergence is accepted here.  With `stats`, each lane also counts its
-// extension steps, walk steps and compared chars, from which the smoke
-// reports the warp efficiency (active lane-steps over issued ones).
+// Design: one thread per lane (B x sampling_count lanes, 128,000 at the
+// defaults), the whole loop in registers, no compaction and no host sync.
+// Each step asks for everything it needs before it uses any of it, so a
+// step is one round trip to memory:
+//   - an extension step loads the read word holding its char and both
+//     queries' rank rows (k - 1 and l) as 16-byte read-only loads: the
+//     four counts (two loads) and the BWT words up to the row's word (up
+//     to four loads; a fused row is 96 bytes, six loads in all), then
+//     counts from registers;
+//   - a walk step loads the BWT word of its char with its row's;
+//   - the comparison takes 16 chars a round trip: the text [p - 16, p)
+//     from the two pac words that hold it (a funnel shift), spread to
+//     3-bit groups in the order p - 1, p - 2, ..., beside the read's next
+//     16 codes from two of its 3-bit words (_Reads.rw: 16 codes an
+//     int64, the first in the highest bits); read ^ text ^ 3 in every
+//     group is zero exactly where the read char is ACGT and its
+//     complement is the text's char, so count-leading-zeros gives the
+//     run, which is then cut at the read's end, the text's start and
+//     MAX_ANCHOR_LEN - m.  The plain version compares 128-char chunks;
+//     the run is the same.
+// Lanes of a warp end at different steps and take different phases, and
+// the warp issues until its last lane ends: that divergence is accepted.
+// The diagnostics below are instantiations of their own (kDiag), so the
+// kernel the pipeline launches carries none of their code.  With
+// `stats` (kDiag 1), each lane also counts its extension steps, walk steps,
+// matched chars and compare round trips, and reads the card's nanosecond
+// timer when it starts, when it leaves the extension and when it ends,
+// from which the smoke reports the warp efficiency (active lane-steps
+// over issued ones) and which warp ends last, and why.  With `need` (kDiag
+// 2), each lane instead marks, in one bitmap over the inputs, the pieces of
+// them that its steps need (atomicOr): a rank row's 16-byte piece with the
+// count of the step's char and its BWT word pairs up to the pair of the row's
+// word, the SA entry it locates, and the pac and read words its compares and
+// steps read; a piece many lanes or steps need is marked once, so the
+// bitmap's count is the bytes of the inputs the run needs, each read once
+// (the smoke's bound).
 //
-// What bounds it on the card: the latency of the dependent row loads of
-// the warp's longest lane (each extension step's two rank rows depend on
-// the previous step's interval), not bytes: the rows the run's lane-steps
-// read are a few MB.  Template instances: the two rank layouts, and the
-// index's position dtype (int32 or int64) of sa_samp and L2.
-// tests/test_torch_seed_ext.py holds a numpy model of this kernel (names
-// as here) against the plain version and the JAX package.
+// What bounds it on the card: the latency of the dependent round trips
+// of the warp's longest lane (each extension step's rank rows depend on
+// the previous step's interval), not bytes: the rows the run's
+// lane-steps read are a few MB.  Template instances: the two rank layouts,
+// the index's position dtype (int32 or int64) of sa_samp and L2, and kDiag
+// (none, stats, need).  tests/test_torch_seed_ext.py holds a numpy model of
+// this kernel (names as here) against the plain version and the JAX package.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -57,6 +83,8 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int64_t kMaxAnchor = 4095;  // ops/fm_index.py MAX_ANCHOR_LEN
+constexpr uint64_t kThrees = 0x6DB6DB6DB6DBull;  // 3 in each 3-bit group
+constexpr uint64_t kMask48 = 0xFFFFFFFFFFFFull;
 
 struct Args {
   const uint8_t* alive0;   // (BS,) bool
@@ -65,8 +93,8 @@ struct Args {
   const int64_t* m0;
   const int64_t* pos_f;
   const int64_t* b_lane;
-  const uint8_t* reads;    // (B, L) codes, 4 = N / pad
-  const int32_t* lens;     // (B,)
+  const int64_t* rw;       // (B, W16) 3-bit read words
+  const int64_t* lens;     // (B,)
   const int64_t* rank_a;   // fm_blocks (nb, 12), or occ_cp (nc, 4)
   const int64_t* rank_b;   // bwt_blocks (nb, 8) with occ_cp
   const int64_t* bwt_words;
@@ -78,9 +106,11 @@ struct Args {
   int64_t* m_out;
   int64_t* rpos_out;
   uint8_t* rflag_out;
-  int32_t* stats;          // (BS, 3) or null
-  int64_t n_lanes, seq_len, primary, n_sa;
-  int L, phase1_steps, sa_intv, log2_intv;
+  int32_t* stats;          // (BS, 7) or null
+  uint32_t* need;          // the bitmap of needed input pieces, or null
+  int64_t need_sa, need_pac, need_rw;  // its segments' first bits
+  int64_t n_lanes, seq_len, primary, n_sa, n_pac;
+  int L, W16, phase1_steps, sa_intv, log2_intv;
 };
 
 __device__ __forceinline__ int64_t ld(const int64_t* p) {
@@ -89,6 +119,13 @@ __device__ __forceinline__ int64_t ld(const int64_t* p) {
 
 __device__ __forceinline__ uint32_t word32(const int64_t* p) {
   return static_cast<uint32_t>(ld(p));
+}
+
+// the low 32 bits of the card's nanosecond timer (the same on every SM)
+__device__ __forceinline__ uint32_t now_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return static_cast<uint32_t>(t);
 }
 
 // per-char match bits of a BWT word (low bit of each 2-bit char)
@@ -107,33 +144,80 @@ struct L2 {
   }
 };
 
+// One occ query's rank row in registers: the four counts and the BWT
+// words up to the query's word (the rest are not loaded), with the
+// query's row within them and its special cases.
+struct Row {
+  longlong2 cnt01, cnt23;
+  longlong2 w01, w23, w45, w67;
+  int64_t k;  // the queried row: < 0 and == seq_len are special
+  int f, r;   // the word holding the row, and its char in it
+};
+
 template <bool kFused>
-__device__ __forceinline__ int64_t occ(const Args& a, const L2& l2,
-                                       int64_t k, int c) {
-  if (k < 0) return 0;
-  if (k == a.seq_len) return l2[c + 1] - l2[c];
-  const int64_t kk = k < a.seq_len - 1 ? k : a.seq_len - 1;
+__device__ __forceinline__ void load_row(const Args& a, int64_t k, Row& row) {
+  const int64_t kk = k < 0 ? 0 : (k < a.seq_len - 1 ? k : a.seq_len - 1);
   const int64_t kp = kk - (kk >= a.primary ? 1 : 0);
   const int64_t blk = kp >> 7;
   const int off = static_cast<int>(kp & 127);
-  const int f = off >> 4;  // word holding the row
-  const int r = off & 15;  // char offset within it
-  int64_t base;
-  const int64_t* words;
+  row.k = k;
+  row.f = off >> 4;
+  row.r = off & 15;
+  const longlong2* cp;
+  const longlong2* wp;
   if (kFused) {
-    const int64_t* row = a.rank_a + blk * 12;
-    base = ld(row + c);
-    words = row + 4;
+    cp = reinterpret_cast<const longlong2*>(a.rank_a + blk * 12);
+    wp = cp + 2;
   } else {
-    base = ld(a.rank_a + blk * 4 + c);
-    words = a.rank_b + blk * 8;
+    cp = reinterpret_cast<const longlong2*>(a.rank_a + blk * 4);
+    wp = reinterpret_cast<const longlong2*>(a.rank_b + blk * 8);
   }
-  // the row's own word (its chars up to r) first, then the full words
-  // before it: in this order ptxas keeps every instance off the stack
-  // (the other order spilled 4 bytes in the fused int32 one, nvcc 12.9)
-  uint32_t cnt = __popc(match(word32(words + f), c) &
-                        ~((1u << ((15 - r) << 1)) - 1u));
-  for (int w = 0; w < f; ++w) cnt += __popc(match(word32(words + w), c));
+  const longlong2 z = make_longlong2(0, 0);
+  row.cnt01 = __ldg(cp);
+  row.cnt23 = __ldg(cp + 1);
+  row.w01 = __ldg(wp);
+  row.w23 = row.f >= 2 ? __ldg(wp + 1) : z;
+  row.w45 = row.f >= 4 ? __ldg(wp + 2) : z;
+  row.w67 = row.f >= 6 ? __ldg(wp + 3) : z;
+}
+
+// Marks bit i of the need bitmap.
+__device__ __forceinline__ void mark(uint32_t* need, int64_t i) {
+  atomicOr(need + (i >> 5), 1u << (i & 31));
+}
+
+// Marks the pieces of rank row x that occ(x, c) needs: its 16-byte piece
+// with the count of c (two counts a piece) and its BWT word pairs up to
+// the pair of x's word; bits 6 blk + 0..1 (counts) and 6 blk + 2..5 (word
+// pairs) of the row's block blk.  x < 0 and x == seq_len need no row.
+__device__ __forceinline__ void mark_row(const Args& a, int64_t x, int c) {
+  if (x < 0 || x >= a.seq_len) return;
+  const int64_t kp = x - (x >= a.primary ? 1 : 0);
+  const int64_t bit = 6 * (kp >> 7);
+  mark(a.need, bit + (c >> 1));
+  const int f = static_cast<int>(kp & 127) >> 4;
+  for (int pc = 0; pc <= (f >> 1); ++pc) mark(a.need, bit + 2 + pc);
+}
+
+// occ(k, c) from a loaded row (bwt_occ with the primary-row adjustment)
+__device__ __forceinline__ int64_t occ(const Args& a, const L2& l2,
+                                       const Row& row, int c) {
+  if (row.k < 0) return 0;
+  if (row.k == a.seq_len) return l2[c + 1] - l2[c];
+  const int64_t base = c == 0 ? row.cnt01.x : c == 1 ? row.cnt01.y
+                     : c == 2 ? row.cnt23.x : row.cnt23.y;
+  const uint32_t words[8] = {
+      static_cast<uint32_t>(row.w01.x), static_cast<uint32_t>(row.w01.y),
+      static_cast<uint32_t>(row.w23.x), static_cast<uint32_t>(row.w23.y),
+      static_cast<uint32_t>(row.w45.x), static_cast<uint32_t>(row.w45.y),
+      static_cast<uint32_t>(row.w67.x), static_cast<uint32_t>(row.w67.y)};
+  const uint32_t upto = ~((1u << ((15 - row.r) << 1)) - 1u);
+  uint32_t cnt = 0;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    const uint32_t m = match(words[w], c);
+    cnt += w < row.f ? __popc(m) : (w == row.f ? __popc(m & upto) : 0);
+  }
   return base + static_cast<int64_t>(cnt);
 }
 
@@ -147,35 +231,67 @@ __device__ __forceinline__ int64_t pos_at(const void* p, int64_t i) {
   }
 }
 
-template <bool kFused, typename Pos>
+// the 16 text chars p - 1, p - 2, ..., p - 16 as 3-bit groups, p - 1 in
+// bits 47..45: the chars [p - 16, p) of the pac words hi (the word of p -
+// 16) and lo (the next), joined by a funnel shift with p - 1 in the low
+// bits, then spread
+__device__ __forceinline__ uint64_t text16(uint32_t hi, uint32_t lo,
+                                           int64_t a0) {
+  const uint32_t tw =
+      __funnelshift_l(lo, hi, static_cast<unsigned>((a0 & 15) << 1));
+  uint64_t t3 = 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    t3 |= static_cast<uint64_t>((tw >> (2 * j)) & 3u) << (45 - 3 * j);
+  }
+  return t3;
+}
+
+template <bool kFused, typename Pos, int kDiag>
 __global__ void __launch_bounds__(kThreads) seed_ext_kernel(const Args a) {
   const int64_t lane =
       static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (lane >= a.n_lanes) return;
+  constexpr bool timed = kDiag == 1;  // step counts and timers
+  constexpr bool needs = kDiag == 2;  // the need bitmap
+  const uint32_t t_start = timed ? now_ns() : 0u;
+  uint32_t t_ext = t_start;
   bool alive = a.alive0[lane] != 0;
   int64_t k = a.k0[lane];
   int64_t l = a.l0[lane];
   int64_t m = a.m0[lane];
   int64_t rpos = 0;
   bool rflag = false;
-  int32_t n_ext = 0, n_walk = 0, n_cmp = 0;
+  int32_t n_ext = 0, n_walk = 0, n_cmp = 0, n_trip = 0;
   if (alive) {
     const L2 l2{pos_at<Pos>(a.l2, 0), pos_at<Pos>(a.l2, 1),
                 pos_at<Pos>(a.l2, 2), pos_at<Pos>(a.l2, 3),
                 pos_at<Pos>(a.l2, 4)};
     const int64_t posf = a.pos_f[lane];
     const int64_t b = a.b_lane[lane];
-    const uint8_t* read = a.reads + b * a.L;
+    const int64_t* rwb = a.rw + b * a.W16;
     const int64_t len = a.lens[b];
     for (;;) {
       // phase1_steps greedy steps (_ext_steps)
       for (int s = 0; s < a.phase1_steps && alive; ++s) {
         const int64_t q = posf + m;  // next read position to consume
-        const int c = read[q < a.L ? q : a.L - 1];
+        const int64_t qc = q < a.L ? q : a.L - 1;
+        const int64_t word = ld(rwb + (qc >> 4));
+        Row rk, rl;
+        load_row<kFused>(a, k - 1, rk);
+        load_row<kFused>(a, l, rl);
+        const int c = static_cast<int>((word >> (3 * (15 - (qc & 15)))) & 7);
         const bool ok_char = q < len && c < 4;
         const int cc = ok_char ? 3 - c : 0;  // complemented
-        const int64_t nk = l2[cc] + occ<kFused>(a, l2, k - 1, cc) + 1;
-        const int64_t nl = l2[cc] + occ<kFused>(a, l2, l, cc);
+        if (needs) {  // the char when in the read; the rows
+          if (q < len) mark(a.need, a.need_rw + b * a.W16 + (q >> 4));
+          if (ok_char && m < kMaxAnchor) {
+            mark_row(a, k - 1, cc);
+            mark_row(a, l, cc);
+          }
+        }
+        const int64_t nk = l2[cc] + occ(a, l2, rk, cc) + 1;
+        const int64_t nl = l2[cc] + occ(a, l2, rl, cc);
         alive = ok_char && nk <= nl && m < kMaxAnchor;
         if (alive) {
           k = nk;
@@ -184,6 +300,7 @@ __global__ void __launch_bounds__(kThreads) seed_ext_kernel(const Args a) {
         }
         ++n_ext;
       }
+      if (timed) t_ext = now_ns();
       if (!alive) break;
       if (k != l) continue;
       // one row at the block's end: locate it (_resolve_rounds' sa_lookup)
@@ -191,6 +308,7 @@ __global__ void __launch_bounds__(kThreads) seed_ext_kernel(const Args a) {
       if (a.sa_intv == 1) {
         const int64_t r = k < 0 ? 0 : (k < a.n_sa - 1 ? k : a.n_sa - 1);
         p = pos_at<Pos>(a.sa_samp, r);
+        if (needs) mark(a.need, a.need_sa + r);
       } else {
         const int64_t mask = a.sa_intv - 1;
         int64_t rows = k;
@@ -200,30 +318,57 @@ __global__ void __launch_bounds__(kThreads) seed_ext_kernel(const Args a) {
             rows = 0;
           } else {
             const int64_t x = rows - (rows > a.primary ? 1 : 0);
-            const int ch = static_cast<int>(
-                (word32(a.bwt_words + (x >> 4)) >> ((15 - (x & 15)) << 1)) &
-                3u);
-            rows = l2[ch] + occ<kFused>(a, l2, rows, ch);
+            const uint32_t bw = word32(a.bwt_words + (x >> 4));
+            Row rr;
+            load_row<kFused>(a, rows, rr);
+            const int ch = static_cast<int>((bw >> ((15 - (x & 15)) << 1)) &
+                                            3u);
+            if (needs) mark_row(a, rows, ch);  // its word too
+            rows = l2[ch] + occ(a, l2, rr, ch);
           }
           ++steps;
           ++n_walk;
         }
         p = steps + pos_at<Pos>(a.sa_samp, rows >> a.log2_intv);
+        if (needs) {
+          mark(a.need, a.need_sa + (rows >> a.log2_intv));
+        }
       }
-      // the text left of p against the complemented read, char by char
-      while (m < kMaxAnchor && p > 0) {
+      // the text left of p against the complemented read, 16 chars a
+      // round trip
+      for (;;) {
         const int64_t q = posf + m;
-        if (q >= len) break;
-        const int c = read[q];
-        if (c >= 4) break;
-        const int64_t tp = p - 1;
-        const int tc = static_cast<int>(
-            (word32(a.pac_words + (tp >> 4)) >> ((15 - (tp & 15)) << 1)) &
-            3u);
-        if (tc != 3 - c) break;
-        ++m;
-        --p;
-        ++n_cmp;
+        int64_t lim = len - q;
+        lim = lim < p ? lim : p;
+        lim = lim < kMaxAnchor - m ? lim : kMaxAnchor - m;
+        if (lim <= 0) break;
+        const int64_t a0 = p - 16;
+        const int64_t wa = a0 >> 4;  // arithmetic: -1 for p < 16
+        const int64_t q0 = q >> 4;
+        const uint32_t thi = word32(a.pac_words + (wa < 0 ? 0 : wa));
+        const uint32_t tlo =
+            word32(a.pac_words + (wa + 1 < a.n_pac ? wa + 1 : a.n_pac - 1));
+        const uint64_t r0 = static_cast<uint64_t>(ld(rwb + q0));
+        const uint64_t r1 =
+            static_cast<uint64_t>(ld(rwb + (q0 + 1 < a.W16 ? q0 + 1
+                                                           : a.W16 - 1)));
+        const int sh = static_cast<int>(3 * (q & 15));
+        const uint64_t rd = ((r0 << sh) | (r1 >> (48 - sh))) & kMask48;
+        const uint64_t d = rd ^ text16(thi, tlo, a0) ^ kThrees;
+        const int64_t n = (__clzll(static_cast<long long>(d)) - 16) / 3;
+        const int64_t run = n < lim ? n : lim;
+        if (needs) {  // the chars compared, the mismatch too
+          const int64_t cnt = run < lim && run < 16 ? run + 1 : run;
+          mark(a.need, a.need_pac + ((p - cnt) >> 4));
+          mark(a.need, a.need_pac + ((p - 1) >> 4));
+          mark(a.need, a.need_rw + b * a.W16 + (q >> 4));
+          mark(a.need, a.need_rw + b * a.W16 + ((q + cnt - 1) >> 4));
+        }
+        m += run;
+        p -= run;
+        n_cmp += static_cast<int32_t>(run);
+        ++n_trip;
+        if (run < 16) break;
       }
       rpos = p;
       rflag = true;
@@ -235,47 +380,78 @@ __global__ void __launch_bounds__(kThreads) seed_ext_kernel(const Args a) {
   a.m_out[lane] = m;
   a.rpos_out[lane] = rpos;
   a.rflag_out[lane] = rflag;
-  if (a.stats != nullptr) {
-    a.stats[3 * lane] = n_ext;
-    a.stats[3 * lane + 1] = n_walk;
-    a.stats[3 * lane + 2] = n_cmp;
+  if (timed) {
+    int32_t* row = a.stats + 7 * lane;
+    row[0] = n_ext;
+    row[1] = n_walk;
+    row[2] = n_cmp;
+    row[3] = n_trip;
+    row[4] = static_cast<int32_t>(t_start);
+    row[5] = static_cast<int32_t>(t_ext);
+    row[6] = static_cast<int32_t>(now_ns());
   }
 }
 
-template <bool kFused>
+template <bool kFused, int kDiag>
 int launch_pos(const Args& a, int pos_bytes, cudaStream_t stream) {
   const unsigned grid =
       static_cast<unsigned>((a.n_lanes + kThreads - 1) / kThreads);
   if (pos_bytes == 4) {
-    seed_ext_kernel<kFused, int32_t><<<grid, kThreads, 0, stream>>>(a);
+    seed_ext_kernel<kFused, int32_t, kDiag><<<grid, kThreads, 0, stream>>>(
+        a);
   } else {
-    seed_ext_kernel<kFused, int64_t><<<grid, kThreads, 0, stream>>>(a);
+    seed_ext_kernel<kFused, int64_t, kDiag><<<grid, kThreads, 0, stream>>>(
+        a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kFused>
+int launch_diag(const Args& a, int pos_bytes, cudaStream_t stream) {
+  return a.stats != nullptr  ? launch_pos<kFused, 1>(a, pos_bytes, stream)
+         : a.need != nullptr ? launch_pos<kFused, 2>(a, pos_bytes, stream)
+                             : launch_pos<kFused, 0>(a, pos_bytes, stream);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
 }  // namespace
 
-// Per lane (BS lanes): alive0 bool, k0, l0, m0, pos_f, b_lane int64;
-// reads (B, L) uint8 and lens (B,) int32; the index: fused = 1 with
-// rank_a = fm_blocks (nb, 12) int64, or fused = 0 with rank_a = occ_cp
-// (nc, 4) and rank_b = bwt_blocks (nb, 8) int64; bwt_words and pac_words
-// int64 (uint32 words); sa_samp (n_sa,) and l2 (5,) int32 (pos_bytes 4) or
-// int64 (8); sa_intv a power of two.  Outputs k, l, m, rpos int64 and
-// rflag bool per lane; stats (BS, 3) int32 or null.  Returns a
-// cudaError_t (0 on a clean launch).
+// Per lane (BS lanes): alive0 bool, k0, l0, m0, pos_f, b_lane int64; the
+// reads as 3-bit words rw (B, W16) int64 (16 codes a word, 4 = N / pad,
+// the first in the highest bits; _Reads.rw) of L chars and their lens
+// (B,) int64; the index: fused = 1 with rank_a = fm_blocks (nb, 12)
+// int64, or fused = 0 with rank_a = occ_cp (nc, 4) and rank_b =
+// bwt_blocks (nb, 8) int64, each 16-byte aligned; bwt_words and
+// pac_words (n_pac,) int64 (uint32 words); sa_samp (n_sa,) and l2 (5,)
+// int32 (pos_bytes 4) or int64 (8); sa_intv a power of two.  Outputs k,
+// l, m, rpos int64 and rflag bool per lane; stats (BS, 7) int32 or null:
+// extension steps, walk steps, matched chars, compare round trips, and
+// the low 32 bits of the nanosecond timer at the lane's start, when it
+// left the extension, and at its end; need (bits) int32 zeros or null
+// (not with stats):
+// the bitmap of the input pieces the lanes' steps need, segments at bits
+// 0 (rank rows: 6 a block of 128 rows), need_sa (sa_samp entries),
+// need_pac (pac words) and need_rw (the read words, W16 a read).
+// Returns a cudaError_t (0 on a clean launch).
 extern "C" int lf_seed_ext(
     const void* alive0, const void* k0, const void* l0, const void* m0,
-    const void* pos_f, const void* b_lane, const void* reads,
-    const void* lens, const void* rank_a, const void* rank_b,
-    const void* bwt_words, const void* sa_samp, const void* l2,
-    const void* pac_words, void* k_out, void* l_out, void* m_out,
-    void* rpos_out, void* rflag_out, void* stats, long long n_lanes, int L,
-    int phase1_steps, long long seq_len, long long primary, long long n_sa,
-    int sa_intv, int pos_bytes, int fused, void* stream) {
-  if (L <= 0 || phase1_steps <= 0 || sa_intv <= 0 ||
-      (sa_intv & (sa_intv - 1)) != 0 || (pos_bytes != 4 && pos_bytes != 8) ||
-      (!fused && rank_b == nullptr)) {
+    const void* pos_f, const void* b_lane, const void* rw, const void* lens,
+    const void* rank_a, const void* rank_b, const void* bwt_words,
+    const void* sa_samp, const void* l2, const void* pac_words, void* k_out,
+    void* l_out, void* m_out, void* rpos_out, void* rflag_out, void* stats,
+    void* need, long long need_sa, long long need_pac, long long need_rw,
+    long long n_lanes, int L, int W16, int phase1_steps, long long seq_len,
+    long long primary, long long n_sa, long long n_pac, int sa_intv,
+    int pos_bytes, int fused, void* stream) {
+  if (L <= 0 || W16 * 16 < L || phase1_steps <= 0 || sa_intv <= 0 ||
+      n_pac <= 0 || (sa_intv & (sa_intv - 1)) != 0 ||
+      (pos_bytes != 4 && pos_bytes != 8) ||
+      (!fused && rank_b == nullptr) || !aligned16(rank_a) ||
+      (stats != nullptr && need != nullptr) ||
+      (!fused && !aligned16(rank_b))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_lanes <= 0) return 0;
@@ -284,15 +460,14 @@ extern "C" int lf_seed_ext(
   auto i64 = [](const void* p) { return static_cast<const int64_t*>(p); };
   auto o64 = [](void* p) { return static_cast<int64_t*>(p); };
   const Args a{static_cast<const uint8_t*>(alive0), i64(k0), i64(l0),
-               i64(m0), i64(pos_f), i64(b_lane),
-               static_cast<const uint8_t*>(reads),
-               static_cast<const int32_t*>(lens), i64(rank_a), i64(rank_b),
-               i64(bwt_words), sa_samp, l2, i64(pac_words), o64(k_out),
-               o64(l_out), o64(m_out), o64(rpos_out),
-               static_cast<uint8_t*>(rflag_out),
-               static_cast<int32_t*>(stats), n_lanes, seq_len, primary, n_sa,
-               L, phase1_steps, sa_intv, log2_intv};
+               i64(m0), i64(pos_f), i64(b_lane), i64(rw), i64(lens),
+               i64(rank_a), i64(rank_b), i64(bwt_words), sa_samp, l2,
+               i64(pac_words), o64(k_out), o64(l_out), o64(m_out),
+               o64(rpos_out), static_cast<uint8_t*>(rflag_out),
+               static_cast<int32_t*>(stats), static_cast<uint32_t*>(need),
+               need_sa, need_pac, need_rw, n_lanes, seq_len, primary, n_sa,
+               n_pac, L, W16, phase1_steps, sa_intv, log2_intv};
   auto st = static_cast<cudaStream_t>(stream);
-  return fused ? launch_pos<true>(a, pos_bytes, st)
-               : launch_pos<false>(a, pos_bytes, st);
+  return fused ? launch_diag<true>(a, pos_bytes, st)
+               : launch_diag<false>(a, pos_bytes, st);
 }

@@ -426,7 +426,6 @@ def _seed_anchors_impl(arrs, reads, read_lens, pos, meta, sampling_count,
     BS = B * S
     b_lane = torch.arange(BS, device=dev) // S  # flat lane -> read row
     rd = _Reads(reads, read_lens)
-    lens32 = read_lens.to(torch.int32)
     pos = pos.long()
     read_lens = read_lens.long()
 
@@ -456,8 +455,7 @@ def _seed_anchors_impl(arrs, reads, read_lens, pos, meta, sampling_count,
         from .fm_index_cuda import seed_ext
 
         kf, lf, mf, rposf, rflagf = seed_ext(
-            arrs, meta, reads.contiguous(), lens32, alive0, k0, l0, m0,
-            pos_f, b_lane, phase1_steps)
+            arrs, meta, rd, alive0, k0, l0, m0, pos_f, b_lane, phase1_steps)
     elif group is None:
         kf, lf, mf, rposf, rflagf = _staged_ext(
             arrs, meta, rd, alive0, k0, l0, m0, pos_f, b_lane, phase1_steps

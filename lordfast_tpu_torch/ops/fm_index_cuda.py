@@ -3,12 +3,14 @@
 ``seed_ext`` runs the seeder's staged greedy extension of every lane (a
 read times a sample position) with its occ == 1 finish in one launch of
 ``csrc/seed_ext.cu``, built for sm_90a: one thread per lane, the loop in
-registers.  On a CUDA tensor it launches the kernel and raises if the
-launch fails; on a CPU tensor it runs the plain version
-(``fm_index._staged_ext``).  There is no fallback from the first to the
-second.  A replicated index only: the sharded index's lockstep extension
-(``fm_index._ext_steps`` under a group) makes collective calls between
-steps and stays eager.
+registers, each step one round trip (the rank rows of both queries as
+16-byte loads, issued together), the finish comparing 16 text chars a
+round trip against the reads' 3-bit words (``fm_index._Reads.rw``).  On
+a CUDA tensor it launches the kernel and raises if the launch fails; on
+a CPU tensor it runs the plain version (``fm_index._staged_ext``).
+There is no fallback from the first to the second.  A replicated index
+only: the sharded index's lockstep extension (``fm_index._ext_steps``
+under a group) makes collective calls between steps and stays eager.
 
 The kernel replaces the JAX package's device loops of
 ``lordfast_tpu/ops/fm_index.py`` ``_seed_anchors_impl`` (:387):
@@ -25,7 +27,7 @@ import torch
 
 from . import cuda_build
 from .cuda_build import check_tensor
-from .fm_index import _Reads, _staged_ext
+from .fm_index import _staged_ext
 
 
 def _fn():
@@ -33,9 +35,15 @@ def _fn():
     if f.argtypes is None:
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         f.restype = ci
-        f.argtypes = ([vp] * 20 + [cl, ci, ci, cl, cl, cl, ci, ci, ci]
-                      + [vp])
+        f.argtypes = ([vp] * 21 + [cl] * 3 + [cl, ci, ci, ci, cl, cl, cl,
+                                               cl, ci, ci, ci] + [vp])
     return f
+
+
+def _check_aligned(name, x):
+    """The kernel reads rank rows as 16-byte loads."""
+    if x.data_ptr() % 16:
+        raise ValueError(f"seed_ext: {name} is not 16-byte aligned")
 
 
 def _rank_arrays(arrs, dev):
@@ -43,33 +51,73 @@ def _rank_arrays(arrs, dev):
     if "fm_blocks" in arrs:
         fb = arrs["fm_blocks"]
         check_tensor("fm_blocks", fb, torch.int64, (fb.shape[0], 12), dev)
+        _check_aligned("fm_blocks", fb)
         return True, fb, None
     cp, bb = arrs["occ_cp"], arrs["bwt_blocks"]
     check_tensor("occ_cp", cp, torch.int64, (cp.shape[0], 4), dev)
     check_tensor("bwt_blocks", bb, torch.int64, (bb.shape[0], 8), dev)
+    _check_aligned("occ_cp", cp)
+    _check_aligned("bwt_blocks", bb)
     return False, cp, bb
 
 
-def seed_ext(arrs, meta, reads, read_lens, alive0, k0, l0, m0, pos_f,
-             b_lane, phase1_steps: int, want_stats: bool = False):
-    """Per-lane final (k, l, m, rpos, rflag) of the staged extension, as
-    ``fm_index._staged_ext`` returns them: k, l, m, rpos (BS,) int64 and
-    rflag (BS,) bool.
+def _need_segments(arrs, fused, rank_a, rank_b, sa, B, W16):
+    """The need bitmap's segments as (name, first bit, bits, bytes a
+    bit), each starting on a 32-bit word: the rank rows' 16-byte pieces (6
+    a block of 128 rows: two of counts, four of BWT word pairs), the
+    sa_samp entries, the pac words and the read words."""
+    nb = rank_a.shape[0] if fused else max(rank_a.shape[0], rank_b.shape[0])
+    segs, bit = [], 0
+    for name, n, size in (("rank", 6 * nb, 16),
+                          ("sa", sa.shape[0], sa.element_size()),
+                          ("pac", arrs["pac_words"].shape[0], 8),
+                          ("rw", B * W16, 8)):
+        segs.append((name, bit, n, size))
+        bit += -(-n // 32) * 32
+    return segs, bit
 
-    arrs/meta: a replicated index's device arrays and meta; reads (B, L)
-    uint8 codes (4 = N / pad) and read_lens (B,) int32; per lane alive0
-    (BS,) bool and k0, l0, m0, pos_f, b_lane (BS,) int64.  CUDA tensors
-    launch the kernel on the current stream (counted in
-    ``seed_ext.launches``), and with ``want_stats`` also return (BS, 3)
-    int32 of each lane's extension steps, walk steps and compared chars;
-    CPU tensors run the plain version (no stats)."""
-    if reads.device.type == "cpu":
-        if want_stats:
-            raise ValueError("seed_ext: the step counts come from the "
-                             "kernel; the plain version has none")
-        return _staged_ext(arrs, meta, _Reads(reads, read_lens), alive0, k0,
-                           l0, m0, pos_f, b_lane, phase1_steps)
-    dev = reads.device
+
+def _need_bytes(need, segs):
+    """Bytes of each segment of the need bitmap: its set bits times the
+    bytes of the piece a bit stands for."""
+    pop = torch.tensor([bin(i).count("1") for i in range(256)],
+                       dtype=torch.int64, device=need.device)
+    per_byte = pop[need.view(torch.uint8).long()]
+    return {name: size * int(per_byte[bit // 8: (bit + n + 7) // 8].sum())
+            for name, bit, n, size in segs}
+
+
+def seed_ext(arrs, meta, rd, alive0, k0, l0, m0, pos_f, b_lane,
+             phase1_steps: int, want_stats: bool = False,
+             want_need: bool = False):
+    """Per-lane final (k, l, m, rpos, rflag) of the staged extension, as
+    ``fm_index._staged_ext`` returns them, from the same arguments: k, l,
+    m, rpos (BS,) int64 and rflag (BS,) bool.
+
+    arrs/meta: a replicated index's device arrays and meta; rd: the read
+    batch as an ``fm_index._Reads`` (3-bit words rw (B, W16) int64 of L
+    chars, lens (B,) int64); per lane alive0 (BS,) bool and k0, l0, m0,
+    pos_f, b_lane (BS,) int64.  CUDA tensors launch the kernel on the
+    current stream (counted in ``seed_ext.launches``), and with
+    ``want_stats`` also return (BS, 7) int32 of each lane's extension
+    steps, walk steps, matched chars and compare round trips, and the
+    low 32 bits of the card's nanosecond timer at the lane's start, when
+    it left the extension and at its end, or with ``want_need`` (not
+    both: each is a kernel instantiation of its own) a dict of the bytes
+    of the index's and the reads' arrays that the lanes' steps need,
+    each piece counted once (rank, sa, pac, rw: ``_need_segments``); CPU
+    tensors run the plain version (neither)."""
+    rw, lens = rd.rw, rd.lens
+    if want_stats and want_need:
+        raise ValueError("seed_ext: want_stats or want_need, not both")
+    if rw.device.type == "cpu":
+        if want_stats or want_need:
+            raise ValueError("seed_ext: the step counts and the needed "
+                             "bytes come from the kernel; the plain "
+                             "version has none")
+        return _staged_ext(arrs, meta, rd, alive0, k0, l0, m0, pos_f,
+                           b_lane, phase1_steps)
+    dev = rw.device
     if dev.type != "cuda":
         raise ValueError(f"seed_ext: unsupported device {dev}")
     if phase1_steps < 1:
@@ -77,10 +125,11 @@ def seed_ext(arrs, meta, reads, read_lens, alive0, k0, l0, m0, pos_f,
     intv = int(meta["sa_intv"])
     if intv < 1 or intv & (intv - 1):
         raise ValueError(f"seed_ext: sa_intv {intv} is not a power of two")
-    B, L = reads.shape
+    B, W16 = rw.shape
+    L = rd.L
     BS = alive0.shape[0]
-    check_tensor("reads", reads, torch.uint8, (B, L), dev)
-    check_tensor("read_lens", read_lens, torch.int32, (B,), dev)
+    check_tensor("rw", rw, torch.int64, (B, W16), dev)
+    check_tensor("lens", lens, torch.int64, (B,), dev)
     check_tensor("alive0", alive0, torch.bool, (BS,), dev)
     for name, x in (("k0", k0), ("l0", l0), ("m0", m0), ("pos_f", pos_f),
                     ("b_lane", b_lane)):
@@ -95,32 +144,45 @@ def seed_ext(arrs, meta, reads, read_lens, alive0, k0, l0, m0, pos_f,
     for name in ("bwt_words", "pac_words"):
         x = arrs[name]
         check_tensor(name, x, torch.int64, (x.shape[0],), dev)
-    if L < 1:
-        raise ValueError("seed_ext: reads of width 0")
+    if not 1 <= L <= 16 * W16:
+        raise ValueError(f"seed_ext: reads of width {L} in {W16} words")
     outs = [torch.empty(BS, dtype=torch.int64, device=dev) for _ in range(4)]
     rflag = torch.empty(BS, dtype=torch.bool, device=dev)
-    stats = (torch.empty((BS, 3), dtype=torch.int32, device=dev)
+    stats = (torch.empty((BS, 7), dtype=torch.int32, device=dev)
              if want_stats else None)
+    need, first = None, {"sa": 0, "pac": 0, "rw": 0}
+    if want_need:
+        segs, n_bits = _need_segments(arrs, fused, rank_a, rank_b, sa, B,
+                                      W16)
+        need = torch.zeros(n_bits // 32, dtype=torch.int32, device=dev)
+        first = {name: bit for name, bit, _, _ in segs}
     if BS:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = _fn()(
                 alive0.data_ptr(), k0.data_ptr(), l0.data_ptr(),
                 m0.data_ptr(), pos_f.data_ptr(), b_lane.data_ptr(),
-                reads.data_ptr(), read_lens.data_ptr(), rank_a.data_ptr(),
+                rw.data_ptr(), lens.data_ptr(), rank_a.data_ptr(),
                 rank_b.data_ptr() if rank_b is not None else None,
                 arrs["bwt_words"].data_ptr(), sa.data_ptr(), l2.data_ptr(),
                 arrs["pac_words"].data_ptr(),
                 *(o.data_ptr() for o in outs), rflag.data_ptr(),
                 stats.data_ptr() if want_stats else None,
-                BS, L, phase1_steps, meta["seq_len"], meta["primary"],
-                sa.shape[0], intv, sa.element_size(), int(fused), stream)
+                need.data_ptr() if want_need else None,
+                first["sa"], first["pac"], first["rw"],
+                BS, L, W16, phase1_steps, meta["seq_len"], meta["primary"],
+                sa.shape[0], arrs["pac_words"].shape[0], intv,
+                sa.element_size(), int(fused), stream)
         if rc != 0:
             raise RuntimeError(f"seed_ext: kernel launch failed (cudaError "
                                f"{rc})")
         seed_ext.launches += 1
     res = (*outs, rflag)
-    return (*res, stats) if want_stats else res
+    if want_stats:
+        return (*res, stats)
+    if want_need:
+        return (*res, _need_bytes(need, segs))
+    return res
 
 
 seed_ext.launches = 0

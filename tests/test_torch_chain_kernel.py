@@ -3,12 +3,16 @@
 (ops/chain.py ``chain_dpn2`` / ``chain_clasp_sop`` at full width) and the
 JAX package, on the golden batch's windows and on random ones: both
 costs, exact score ties, t differences that wrap int32, empty windows, N
-= 64, 128 and 512.  The model runs one window at a time to its own seed
-count, takes each seed's (val, j) maximum as the kernel's threads, warps
-and blocks do, rounds every product and sum on its own (the kernel's
-``__dmul_rn`` / ``__dadd_rn`` order; numpy does not contract), takes the
-log of the plain version's device (torch's, as the kernel takes CUDA's,
-which torch's cuda log calls), and walks prev as thread 0 does.
+= 64, 128 and 512, and seed counts on the kernel's 32-seed tile edges
+with planted ties (``chip_smoke.edge_windows``).  The model runs one
+window (a warp) at a time to its own seed count, in tiles of 32 seeds:
+each lane's running best over the settled tiles' pairs, the tile's own
+penalties, then one broadcast a seed that every lane settles and folds,
+as the kernel does; it rounds every product and sum on its own (the
+kernel's ``__dmul_rn`` / ``__dadd_rn`` order; numpy does not contract),
+takes the log of the plain version's device (torch's, as the kernel's
+table and CUDA's log are), and finds the best end by the kernel's
+butterfly and walks prev as its lane 0 does.
 
 Tolerances: dp and prev bit-equal to the plain version, and every chain
 field too; chains equal to the JAX package's exactly, and its float32
@@ -38,14 +42,13 @@ from test_torch_fm_index import port_index
 
 torch.set_num_threads(2)
 
-K_THREADS = 128
-K_WARPS = K_THREADS // 32
+K_LANES = 32  # a warp: one window, seeds in tiles of 32
 K_DPN2, K_CLASP = 0, 1
 
 
 def _log_plain(x):
     """The plain version's log on its device: torch's."""
-    return torch.log(torch.from_numpy(x)).numpy()
+    return torch.log(torch.from_numpy(np.ascontiguousarray(x))).numpy()
 
 
 def _wrap32(x):
@@ -53,90 +56,105 @@ def _wrap32(x):
     return x.astype(np.uint32).view(np.int32)
 
 
-def _pair_vals(i, sq, st, slen, sok, sdp, cost, F, reward, penalty, lam,
-               eml):
-    """val of every j < i for seed i (the loop body over j), -inf where
-    the kernel's `continue` skips j."""
-    j = np.arange(i)
-    qi = sq[i : i + 1].view(np.uint32)[0]
-    ti = st[i : i + 1].view(np.uint64)[0]
-    qe = sq[j].view(np.uint32) + slen[j].view(np.uint32) - np.uint32(1)
-    te = (st[j].view(np.uint64) + slen[j].astype(np.int64).view(np.uint64)
-          - np.uint64(1))
-    neg_inf = F(-np.inf)
+def pen_of(qi, ti, qj, tj, lj, cost, F, penalty, lam, eml):
+    """(pen, link) of the pairs (j, i), elementwise over broadcast
+    arrays: seed i at (qi, ti), seed j at (qj, tj) of length lj (int32,
+    int64, int32), rounding each product and sum on its own."""
+    qi, qj, lj = (np.asarray(x, np.int32) for x in (qi, qj, lj))
+    ti, tj = np.asarray(ti, np.int64), np.asarray(tj, np.int64)
+    qe = qj.view(np.uint32) + lj.view(np.uint32) - np.uint32(1)
+    te = tj.view(np.uint64) + lj.astype(np.int64).view(np.uint64) - np.uint64(1)
     if cost == K_DPN2:
-        dr = (qi - qe).view(np.int32)
-        dt = _wrap32(ti - te)
-        link = sok[j] & (dr > 0) & (dt > 0)
+        dr = (qi.view(np.uint32) - qe).view(np.int32)
+        dt = _wrap32(ti.view(np.uint64) - te)
         dd = (dr.view(np.uint32) - dt.view(np.uint32)).view(np.int32)
         d = np.where(dd < 0, (np.uint32(0) - dd.view(np.uint32)).view(
             np.int32), dd)
-        big = d > 1
-        logd = _log_plain(np.maximum(d, 2).astype(F))
-        pen = np.where(big, (F(0.1) * d.astype(F)) + (F(penalty) * logd),
-                       F(0))
-        val = (sdp[j] + F(reward)) - pen
-    else:
-        dy = (qi - qe - np.uint32(1)).view(np.int32)
-        dx = _wrap32(ti - te - np.uint64(1))
-        link = sok[j] & (dy >= 0) & (dx >= 0)
-        fx, fy = dx.astype(F), dy.astype(F)
-        hi = np.where(fx > fy, fx, fy)
-        lo = np.where(fx < fy, fx, fy)
-        gsop = (F(lam) * hi) + (eml * lo)
-        val = sdp[j] - gsop
-    return np.where(link, val, neg_inf).astype(F)
+        fd = np.where(d > 2, d, 2).astype(F)
+        p = (F(0.1) * d.astype(F)) + (F(penalty) * _log_plain(fd))
+        return np.where(d > 1, p, F(0)).astype(F), (dr > 0) & (dt > 0)
+    dy = (qi.view(np.uint32) - qe - np.uint32(1)).view(np.int32)
+    dx = _wrap32(ti.view(np.uint64) - te - np.uint64(1))
+    fx, fy = dx.astype(F), dy.astype(F)
+    hi = np.where(fx > fy, fx, fy)
+    lo = np.where(fx < fy, fx, fy)
+    return ((F(lam) * hi) + (eml * lo)).astype(F), (dy >= 0) & (dx >= 0)
 
 
-def _beats_pred(v, j, bv, bj):
-    return (v > bv) | ((v == bv) & (j > bj))
+def val_of(dpj, pen, cost, F, reward):
+    """val of linked pairs from their predecessors' dp and penalties."""
+    if cost == K_DPN2:
+        return ((dpj + F(reward)) - pen).astype(F)
+    return (dpj - pen).astype(F)
+
+
+def _pair_vals(i, sq, st, slen, sok, sdp, cost, F, reward, penalty, lam,
+               eml):
+    """val of every j < i for seed i, -inf where j does not link."""
+    j = np.arange(i)
+    pen, link = pen_of(sq[i], st[i], sq[j], st[j], slen[j], cost, F,
+                       penalty, lam, eml)
+    val = val_of(sdp[j], pen, cost, F, reward)
+    return np.where(link & (sok[j] != 0), val, F(-np.inf)).astype(F)
 
 
 def _beats_end(v, i, bv, bi):
     return (v > bv) | ((v == bv) & (i < bi))
 
 
-def _thread_partials(vals, F, pick_last, none):
-    """Each thread x's pair over its slots x, x + K_THREADS, ... of
-    ``vals`` (-inf where skipped): the largest value and, among its ties,
-    the last slot (the predecessor loop's >=) or the first (the best
-    end's strict >); (-inf, none) for a thread with no slot."""
-    n = len(vals)
-    rows = max(1, -(-n // K_THREADS))
-    pad = np.full(rows * K_THREADS, -np.inf, F)
-    pad[:n] = vals
-    pad = pad.reshape(rows, K_THREADS)
-    bv = pad.max(axis=0)
-    hit = pad == bv
-    row = (rows - 1 - np.argmax(hit[::-1], axis=0) if pick_last
-           else np.argmax(hit, axis=0))
-    x = np.arange(K_THREADS)
-    return bv, np.where(bv > -np.inf, row * K_THREADS + x, none)
+def _settled_pairs(base, qi, ti, sq, st, slen, sok, sdp, cost, F, reward,
+                   penalty, lam, eml):
+    """Step 1: each lane's running best (bv, bj) over the pairs (j, i)
+    of the settled tiles, j < base in ascending order with >= (the
+    largest j among the top linked val); (-inf, -1) with no link."""
+    bv = np.full(K_LANES, -np.inf, F)
+    bj = np.full(K_LANES, -1, np.int64)
+    if base == 0:
+        return bv, bj
+    j = np.arange(base)
+    pen, link = pen_of(qi[:, None], ti[:, None], sq[j][None], st[j][None],
+                       slen[j][None], cost, F, penalty, lam, eml)
+    link &= (sok[j] != 0)[None]
+    val = np.where(link, val_of(sdp[j][None], pen, cost, F, reward),
+                   F(-np.inf))
+    for x in range(K_LANES):
+        if link[x].any():
+            top = val[x][link[x]].max()
+            bv[x] = top
+            bj[x] = np.nonzero(link[x] & (val[x] == top))[0].max()
+    return bv, bj
 
 
-def _block_reduce(bv, bj, beats):
-    """The kernel's reduction of K_THREADS (value, index) pairs: five
-    __shfl_down_sync steps per warp (a lane past the warp's end keeps its
-    own pair), then warp 0's pair against warps 1..3 in order."""
-    bv = bv.reshape(K_WARPS, 32).copy()
-    bj = bj.reshape(K_WARPS, 32).copy()
-    lane = np.arange(32)
+def _best_end(sdp, count, N, F):
+    """Each lane's (ev, ei) over its slots s = lane mod 32 < count,
+    ascending with strict > (the smaller s among ties), then the
+    butterfly of __shfl_xor_sync (larger dp, then smaller i)."""
+    ev = np.full(K_LANES, -np.inf, F)
+    ei = np.full(K_LANES, N, np.int64)
+    for s in range(count):
+        x = s % K_LANES
+        if sdp[s] > ev[x]:
+            ev[x], ei[x] = sdp[s], s
+    lane = np.arange(K_LANES)
     for off in (16, 8, 4, 2, 1):
-        src = np.where(lane + off < 32, lane + off, lane)
-        ov, oj = bv[:, src], bj[:, src]
-        win = beats(ov, oj, bv, bj)
-        bv, bj = np.where(win, ov, bv), np.where(win, oj, bj)
-    best, pj = bv[0, 0], bj[0, 0]
-    for w in range(1, K_WARPS):
-        if beats(bv[w, 0], bj[w, 0], best, pj):
-            best, pj = bv[w, 0], bj[w, 0]
-    return best, pj
+        ov, oi = ev[lane ^ off], ei[lane ^ off]
+        win = _beats_end(ov, oi, ev, ei)
+        ev, ei = np.where(win, ov, ev), np.where(win, oi, ei)
+    assert (ev == ev[0]).all() and (ei == ei[0]).all()
+    return ev[0], int(ei[0])
 
 
 def chain_dp_model(q, t, ln, ok, cost, reward, penalty, lam, eps,
                    F=np.float64):
     """(out_q, out_t, out_len, chain_len, score, dp, prev) of the kernel
-    on (W, N) windows: q, len int32, t int64, ok bool."""
+    on (W, N) windows: q, len int32, t int64, ok bool.  One warp a
+    window: its count, then tiles of K_LANES seeds, lane x owning seed
+    base + x (step 1, the settled tiles' pairs; step 2, the tile's own
+    penalties pen[s] and link bits; step 3, one broadcast a seed), the
+    best end and one walk of prev.  The kernel reads dp-n2's log(max(d,
+    2)) from the wrapper's table (chain_cuda._log_table: torch.log) for
+    d < 65536 and calls CUDA's log past it; both are torch's log here
+    (_log_plain), as test_log_table_is_the_plain_log holds."""
     W, N = q.shape
     out_q = np.zeros((W, N), np.int32)
     out_t = np.zeros((W, N), np.int64)
@@ -146,39 +164,55 @@ def chain_dp_model(q, t, ln, ok, cost, reward, penalty, lam, eps,
     dp = np.full((W, N), -np.inf, F)
     prev = np.full((W, N), -1, np.int64)
     eml = F(eps) - F(lam)
+    lanes = np.arange(K_LANES)
     for w in range(W):
         sq, st, slen, sok = q[w], t[w], ln[w], ok[w]
         sdp, sprev = dp[w], prev[w]
-        count = int(sok.sum())  # __syncthreads_count over the slots
-        for i in range(count):
-            val = _pair_vals(i, sq, st, slen, sok, sdp, cost, F, reward,
-                             penalty, lam, eml)
-            # thread x: its slots j = x mod K_THREADS, ascending, >=
-            bv, bj = _thread_partials(val, F, True, -1)
-            best, pj = _block_reduce(bv, bj, _beats_pred)
-            li = F(slen[i])
-            if cost == K_DPN2:
-                take = best > li
-                dpi = best if take else li
-            else:
-                take = best >= F(0)
-                dpi = li + (best if best > F(0) else F(0))
-            if sok[i]:
-                sdp[i] = dpi
-                sprev[i] = pj if take else -1
-        # best end: thread x over s = x mod K_THREADS < count, strict >
-        bv, bi = _thread_partials(sdp[:count], F, False, N)
-        best, best_i = _block_reduce(bv, bi, _beats_end)
-        clen, chain = 0, []
-        if count > 0:
-            cur = best_i
+        count = int((sok != 0).sum())  # nz_bytes, __reduce_add_sync
+        for base in range(0, count, K_LANES):
+            i = base + lanes
+            own = i < count
+            ic = np.where(own, i, count - 1)
+            qi, ti, li = sq[ic], st[ic], slen[ic].astype(F)
+            oki = own & (sok[ic] != 0)
+            bv, bj = _settled_pairs(base, qi, ti, sq, st, slen, sok, sdp,
+                                    cost, F, reward, penalty, lam, eml)
+            s = np.arange(K_LANES - 1)
+            jt = np.minimum(base + s, count - 1)
+            pen, lk = pen_of(qi[:, None], ti[:, None], sq[jt][None],
+                             st[jt][None], slen[jt][None], cost, F, penalty,
+                             lam, eml)
+            link = ((s[None] < lanes[:, None]) & own[:, None] & lk
+                    & (sok[jt] != 0)[None])
+            for s in range(min(K_LANES, count - base)):
+                # the owner's (lane s) bvs, bjs, lis to every lane, which
+                # settles seed base + s; the owner keeps dp and prev
+                bvs, bjs, lis = bv[s], bj[s], li[s]
+                if cost == K_DPN2:
+                    take = bvs > lis
+                    dps = bvs if take else lis
+                else:
+                    take = bvs >= F(0)
+                    dps = F(lis + (bvs if bvs > F(0) else F(0)))
+                if oki[s]:
+                    sdp[base + s] = dps
+                    sprev[base + s] = bjs if take else -1
+                if s < K_LANES - 1:  # every lane folds the broadcast dps
+                    val = val_of(dps, pen[:, s], cost, F, reward)
+                    upd = link[:, s] & (val >= bv)
+                    bv = np.where(upd, val, bv)
+                    bj = np.where(upd, base + s, bj)
+        ev, ei = _best_end(sdp, count, N, F)
+        chain = []
+        if ei < count:  # lane 0 walks prev, the chain from the back
+            cur = ei
             while cur >= 0:
                 chain.append(cur)
                 cur = sprev[cur]
-            clen = len(chain)
         chain = chain[::-1]
+        clen = len(chain)
         chain_len[w] = clen
-        score[w] = np.float32(best) if count > 0 else np.float32(-1)
+        score[w] = np.float32(ev) if count > 0 else np.float32(-1)
         out_q[w, :clen] = sq[chain]
         out_t[w, :clen] = st[chain]
         out_len[w, :clen] = slen[chain]
@@ -329,6 +363,53 @@ def test_model_on_random_windows(alg, N, F):
     assert got[3].max() > 5
 
 
+@pytest.mark.parametrize("alg,N,F", [
+    ("dpn2", 64, np.float64), ("dpn2", 128, np.float64),
+    ("dpn2", 512, np.float64), ("clasp", 128, np.float64),
+    ("clasp", 512, np.float64), ("dpn2", 128, np.float32),
+    ("clasp", 64, np.float32)], ids=["dpn2-64", "dpn2-128", "dpn2-512",
+                                     "clasp-128", "clasp-512",
+                                     "dpn2-128-f32", "clasp-64-f32"])
+def test_model_at_tile_edges(alg, N, F):
+    """chip_smoke.edge_windows: seed counts 0, 1, 31, 32, 33, 64, 65,
+    105 and 512 (up to N), the planted exact ties of the predecessor
+    inside a tile and across a tile's edge and of the best end across
+    lanes and within a lane, and random windows of those counts with
+    int32-wrapping t differences."""
+    rng = np.random.default_rng(N + len(alg) + (F == np.float32))
+    arrays = chip_smoke.edge_windows(rng, N)
+    kw = dict(chain_alg=alg, max_chain_seeds=N,
+              chain_dp_dtype="f32" if F == np.float32 else "auto")
+    tcfg, jcfg = TCfg(**kw).validate(), JCfg(**kw).validate()
+    got = _assert_model_is_plain(arrays, tcfg, F)
+    if F == np.float64:
+        _assert_model_is_jax(got, arrays, jcfg)
+    q, t, ln, va = arrays
+    cost = COST[alg]
+    eml = F(tcfg.clasp_epsilon) - F(tcfg.clasp_lambda)
+    counts = [c for c in chip_smoke.EDGE_COUNTS if c <= N]
+    assert counts[-1] == N or N == 128
+    ties = 0
+    for k, c in enumerate(counts):
+        w = 3 * k  # the chain: seed p + 2 takes p + 1 over the tie with p
+        for p in chip_smoke.EDGE_DUPS:
+            if p + 2 < c:
+                val = _pair_vals(p + 2, q[w], t[w], ln[w], va[w], got[5][w],
+                                 cost, F, tcfg.chain_reward
+                                 * tcfg.min_anchor_len, tcfg.chain_penalty,
+                                 tcfg.clasp_lambda, eml)
+                assert val[p] == val[p + 1] == val.max()
+                assert got[6][w, p + 2] == p + 1
+                ties += 1
+        w = 3 * k + 1  # unlinked: the best end is slot 3 of the tops
+        if c > 3:
+            assert got[3][w] == 1 and got[0][w, 0] == q[w, 3]
+            assert (got[5][w][:c] == got[5][w][:c].max()).sum() == sum(
+                p < c for p in chip_smoke.EDGE_TOPS)
+    assert ties == sum(p + 2 < c for c in counts
+                       for p in chip_smoke.EDGE_DUPS)
+
+
 @pytest.mark.parametrize("alg", ["dpn2", "clasp"])
 @pytest.mark.parametrize("route", ["merged", "full"])
 def test_bucketed_equals_full_width_dp(alg, route):
@@ -356,6 +437,86 @@ def test_bucketed_equals_full_width_dp(alg, route):
                                       getattr(want, name).numpy(),
                                       err_msg=name)
     assert int(want.chain_len.max()) > 16
+
+
+def test_log_table_is_the_plain_log():
+    """chain_cuda._log_table, dp-n2's table of log(max(d, 2)) for d <
+    LOG_TABLE, bit-equal to the plain penalty's log of the same d, in
+    both DP dtypes (on the CPU here; the card's table comes from the same
+    torch.log on the card, the plain version's log there)."""
+    d = torch.arange(chain_cuda.LOG_TABLE, dtype=torch.int32)
+    for fdt in (torch.float64, torch.float32):
+        table = chain_cuda._log_table(torch.device("cpu"), fdt)
+        assert table.dtype == fdt and table.shape == d.shape
+        assert torch.equal(table, torch.log(d.clamp(min=2).to(fdt)))
+    assert chain_cuda._log_table(torch.device("cpu"), torch.float64) is \
+        chain_cuda._log_table(torch.device("cpu"), torch.float64)
+
+
+def _count_pairs(arrays, alg, fsize):
+    """chip_smoke.chain_work's counts, pair by pair in Python ints: every
+    pair j < i of a window's seeds, its int32 differences and whether it
+    links; for a linked pair the float operations, and dp-n2's d and
+    whether its log is a table entry (d < LOG_TABLE) or computed."""
+    q, t, ln, va = arrays
+    cut = lambda x: (x + 2**31) % 2**32 - 2**31
+    pairs = linked = ints = fp = far = 0
+    table = set()
+    for w in range(q.shape[0]):
+        n = int(va[w].sum())
+        for i in range(n):
+            qi, ti = int(q[w, i]), int(t[w, i])
+            for j in range(i):
+                pairs += 1
+                ints += 4
+                qe = int(q[w, j]) + int(ln[w, j]) - 1
+                te = int(t[w, j]) + int(ln[w, j]) - 1
+                if alg == "clasp":
+                    if cut(qi - qe - 1) >= 0 and cut(ti - te - 1) >= 0:
+                        linked += 1
+                        fp += 7
+                    continue
+                dr, dt = cut(qi - qe), cut(ti - te)
+                if not (dr > 0 and dt > 0):
+                    continue
+                linked += 1
+                ints += 2
+                dd = cut(dr - dt)
+                d = dd if dd == -2**31 else abs(dd)
+                if d <= 1:
+                    fp += 3
+                elif d >= chain_cuda.LOG_TABLE:
+                    fp += 6 + 20
+                    far += 1
+                else:
+                    fp += 6
+                    table.add(d)
+    W, N = q.shape
+    nbytes = (W * N + int(va.sum()) * (4 + 8 + 4) + W * N * (4 + 8 + 4)
+              + W * 8 + fsize * len(table))
+    return {"pairs": pairs, "linked": linked, "int_ops": ints,
+            "fp_ops": fp, "bytes": nbytes}, far
+
+
+@pytest.mark.parametrize("alg,dtype", [
+    ("dpn2", "f64"), ("clasp", "f64"), ("dpn2", "f32")])
+def test_smoke_chain_work_counts_the_inputs(alg, dtype):
+    """chip_smoke.chain_work, which gives chain_dp's bound, equal to a
+    count pair by pair: windows at several counts with int32 wraps, and
+    one whose second half sits 100,000 further along t, so that dp-n2
+    has linked pairs whose log is past the table."""
+    rng = np.random.default_rng(31)
+    arrays = chip_smoke.make_windows(rng, 8, 64,
+                                     [64, 40, 0, 1, 33, 64, 17, 64],
+                                     wrap=True)
+    arrays[1][7, 32:] += 100_000
+    cfg = TCfg(chain_alg=alg, chain_dp_dtype=dtype)
+    fsize = 8 if dtype == "f64" else 4
+    want, far = _count_pairs(arrays, alg, fsize)
+    got = chip_smoke.chain_work(_tws(arrays), cfg)
+    rate = chip_smoke.FP64_FLOPS if fsize == 8 else chip_smoke.FP32_FLOPS
+    assert got == {**want, "fp_rate": rate}
+    assert want["linked"] > 0 and (alg == "clasp" or far > 0)
 
 
 def test_chain_dp_wrapper_on_cpu_is_plain():

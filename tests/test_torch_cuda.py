@@ -4,10 +4,13 @@ their plain PyTorch versions (exact: every output is an integer), one
 test per kind of bucket, the warp kernels' lane edges, and ``-a clasp``
 through the engine on the card against the CPU; ``chain_dp`` against
 the plain chaining DP (the float bits of dp, prev and every chain field;
-both costs, both DP dtypes, both position dtypes) and ``seed_ext``
-against ``_staged_ext`` (every lane's k, l, m, rpos, rflag; full and
-sampled SA, fused and split rank rows), and the dispatch of
-``chain_seeds`` and of the seeder to them.  Needs an
+both costs, both DP dtypes, both position dtypes; seed counts at the
+kernel's 32-seed tile edges with planted exact ties, and 1024 full
+windows of 512 seeds) and ``seed_ext`` against ``_staged_ext`` (every
+lane's k, l, m, rpos, rflag; full and sampled SA, fused and split rank
+rows; runs of its 16-char compare ending at every offset of a trip, at
+an N, the read's end, the text's start and MAX_ANCHOR_LEN), and the
+dispatch of ``chain_seeds`` and of the seeder to them.  Needs an
 NVIDIA GPU (marker ``cuda``) and skips
 without one.  This file imports neither jax nor lordfast_tpu, so it also
 runs where JAX is not installed:
@@ -329,6 +332,31 @@ def test_cuda_chain_dp_matches_plain(cuda_device, alg, N, pos, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("alg,N,dtype", [
+    ("dpn2", 64, "auto"), ("dpn2", 66, "auto"), ("clasp", 100, "auto"),
+    ("dpn2", 128, "f32"), ("clasp", 128, "f32"), ("dpn2", 512, "auto"),
+    ("clasp", 512, "auto")])
+def test_cuda_chain_dp_tile_edges(cuda_device, alg, N, dtype):
+    # counts at the tile edges with planted exact ties and int32 wraps
+    # (chip_smoke.edge_windows); N = 66 and 100 take the kernel's
+    # flag loads one at a time, 66 its output stores one at a time too
+    rng = np.random.default_rng(N + len(alg) + len(dtype))
+    q, t, ln, va = chip_smoke.edge_windows(rng, N)
+    ws = _ws((q, t, ln, va), cuda_device)
+    cfg = LordfastConfig(chain_alg=alg, max_chain_seeds=N,
+                         chain_dp_dtype=dtype)
+    chip_smoke.check_chain_dp(ws, cfg)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_chain_dp_full_windows(cuda_device):
+    # 1024 windows x 512 slots, every slot a seed, both costs
+    out = chip_smoke.phase_full_windows(chip_smoke.INT32_LANES * 1.98e9)
+    assert out["full_windows_ms"] > 0
+
+
+@pytest.mark.cuda
 def test_cuda_chain_seeds_uses_the_kernel(cuda_device):
     rng = np.random.default_rng(8)
     arrays = chip_smoke.make_windows(rng, 40, 512, [int(c) for c in
@@ -390,7 +418,7 @@ def test_cuda_seed_ext_matches_plain(cuda_device, genome, sa_interval,
     r = torch.from_numpy(reads).to(cuda_device)
     n = torch.from_numpy(lens).to(cuda_device)
     rec = chip_smoke.seed_lanes(arrs, idx.meta, r, n, cfg)
-    stats = chip_smoke.check_seed_ext(rec)
+    stats, _ = chip_smoke.check_seed_ext(rec)
     assert stats[:, 2].sum() > 0 and (sa_interval == 1
                                       or stats[:, 1].sum() > 0)
     # the seeds, through the kernel and through the plain loops
@@ -406,6 +434,74 @@ def test_cuda_seed_ext_matches_plain(cuda_device, genome, sa_interval,
     assert counts["seed_ext"] == 1 and counts["_staged_ext"] == 1
     for name in fm_index.SeedBatch._fields:
         assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sa_interval,layout", [
+    (1, "fused"), (1, "split"), (32, "fused"), (32, "split")])
+def test_cuda_seed_ext_word_compare_edges(cuda_device, genome, sa_interval,
+                                          layout):
+    # runs of the finish ending at every offset of a 16-char trip, at an
+    # N, the read's end, the text's start and MAX_ANCHOR_LEN
+    # (chip_smoke.edge_reads)
+    from lordfast_tpu_torch.index.builder import build_index
+
+    path, _, _ = genome
+    idx = build_index(path, LordfastConfig(kmer_cache_k=6,
+                                           sa_interval=sa_interval),
+                      verbose=False)
+    arrs = idx.device_arrays(cuda_device)
+    if layout == "split":
+        arrs = chip_smoke.split_layout(idx, arrs)
+    reads, lens, kinds, e, lanes = chip_smoke.edge_reads(
+        np.random.default_rng(13), chip_smoke.text_of(arrs, idx.meta),
+        idx.meta["seq_len"])
+    rd = fm_index._Reads(torch.from_numpy(reads).to(cuda_device),
+                         torch.from_numpy(lens).to(cuda_device))
+    rec = dict(arrs=arrs, meta=idx.meta, rd=rd, phase1_steps=3,
+               lanes=[torch.from_numpy(x).to(cuda_device) for x in lanes])
+    stats, _ = chip_smoke.check_seed_ext(rec)
+    assert stats[:, 3].sum() > 0 and (stats[:, 2] >= 4095 - 16).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["fused", "split"])
+def test_cuda_seed_ext_need_counts_each_piece_once(cuda_device, genome,
+                                                   layout):
+    # the kernel's need bitmap (seed_ext's bound): every lane twice needs
+    # the same pieces; the whole needs no more than its halves apart and
+    # no less than either; each kind within what the steps read
+    from lordfast_tpu_torch.index.builder import build_index
+
+    path, reads, lens = genome
+    idx = build_index(path, LordfastConfig(kmer_cache_k=6, sa_interval=32),
+                      verbose=False)
+    arrs = idx.device_arrays(cuda_device)
+    if layout == "split":
+        arrs = chip_smoke.split_layout(idx, arrs)
+    cfg = LordfastConfig(kmer_cache_k=6, sampling_count=200,
+                         seed_phase1_steps=3)
+    rec = chip_smoke.seed_lanes(arrs, idx.meta,
+                                torch.from_numpy(reads).to(cuda_device),
+                                torch.from_numpy(lens).to(cuda_device), cfg)
+    stats, need = chip_smoke.check_seed_ext(rec)
+    n = stats[:, :4].astype(np.int64).sum(0)
+    assert 0 < need["rank"] <= 80 * (2 * n[0] + n[1])
+    assert 0 < need["sa"] <= arrs["sa_samp"].element_size() * len(stats)
+    assert 0 < need["pac"] <= 16 * n[3]
+    assert 0 < need["rw"] <= 8 * (n[0] + 2 * n[3])
+    twice, need2 = chip_smoke.check_seed_ext(
+        dict(rec, lanes=[torch.cat([x, x]) for x in rec["lanes"]]))
+    assert need2 == need
+    np.testing.assert_array_equal(twice[:, :4],
+                                  np.concatenate([stats, stats])[:, :4])
+    h = len(stats) // 2
+    halves = [chip_smoke.check_seed_ext(
+        dict(rec, lanes=[x[s] for x in rec["lanes"]]))[1]
+        for s in (slice(0, h), slice(h, None))]
+    for k in need:
+        assert max(halves[0][k], halves[1][k]) <= need[k] \
+            <= halves[0][k] + halves[1][k]
 
 
 @pytest.mark.cuda
@@ -425,6 +521,19 @@ def test_cuda_loop_wrappers_reject_bad_inputs(cuda_device, genome):
                cuda_device)
     with pytest.raises(ValueError):
         chain_cuda.chain_dp(wide, cfg)
+    # a log table of another length than the kernel's own: refused
+    q, t, ln, ok = ws[:4]
+    outs = [torch.empty_like(x) for x in (q, t, ln)] + [
+        torch.empty(4, dtype=d, device=cuda_device)
+        for d in (torch.int32, torch.float32)]
+    table = chain_cuda._log_table(cuda_device, torch.float64)
+    for n_table, rc in ((chain_cuda.LOG_TABLE - 1, 1),
+                        (chain_cuda.LOG_TABLE, 0)):
+        assert chain_cuda._fn()(
+            *(x.data_ptr() for x in (q, t, ln, ok, *outs)), None, None,
+            table.data_ptr(), n_table, 4, 64, t.element_size(), 1, 0, 1.0,
+            1.0, 1.0, 1.0, None) == rc  # 1: cudaErrorInvalidValue
+    torch.cuda.synchronize()
     path, reads, lens = genome
     idx = build_index(path, LordfastConfig(kmer_cache_k=6), verbose=False)
     arrs = idx.device_arrays(cuda_device)
@@ -432,16 +541,25 @@ def test_cuda_loop_wrappers_reject_bad_inputs(cuda_device, genome):
     n = torch.from_numpy(lens).to(cuda_device)
     rec = chip_smoke.seed_lanes(arrs, idx.meta, r, n,
                                 LordfastConfig(kmer_cache_k=6))
-    lanes = rec["lanes"]
+    lanes, rd = rec["lanes"], rec["rd"]
     before = fm_index_cuda.seed_ext.launches
     with pytest.raises(TypeError):
-        fm_index_cuda.seed_ext(arrs, idx.meta, r, n, lanes[0],
+        fm_index_cuda.seed_ext(arrs, idx.meta, rd, lanes[0],
                                lanes[1].int(), *lanes[2:], 6)
     with pytest.raises(ValueError):
-        fm_index_cuda.seed_ext(arrs, idx.meta, r, n, *lanes, 0)
+        fm_index_cuda.seed_ext(arrs, idx.meta, rd, *lanes, 0)
+    with pytest.raises(ValueError):  # one diagnostic a launch
+        fm_index_cuda.seed_ext(arrs, idx.meta, rd, *lanes, 6,
+                               want_stats=True, want_need=True)
     with pytest.raises(ValueError):
-        fm_index_cuda.seed_ext(arrs, dict(idx.meta, sa_intv=3), r, n,
+        fm_index_cuda.seed_ext(arrs, dict(idx.meta, sa_intv=3), rd,
                                *lanes, 6)
+    bad = fm_index._Reads(r, n)
+    bad.lens = bad.lens.int()
     with pytest.raises(TypeError):
-        fm_index_cuda.seed_ext(arrs, idx.meta, r, n.long(), *lanes, 6)
+        fm_index_cuda.seed_ext(arrs, idx.meta, bad, *lanes, 6)
+    with pytest.raises(ValueError):  # rank rows off a 16-byte boundary
+        fm_index_cuda.seed_ext(
+            dict(arrs, fm_blocks=arrs["fm_blocks"].reshape(-1)[1:-11]
+                 .reshape(-1, 12)), idx.meta, rd, *lanes, 6)
     assert fm_index_cuda.seed_ext.launches == before
