@@ -15,7 +15,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    registers, stack and spills: a warp-per-gap Myers instantiation, an
    affine one (K = 1..8), or a ``chain_dp_kernel`` or
    ``seed_ext_kernel`` one with a stack frame or a spill fails; the
-   native host library) with their seconds;
+   native host library) with their seconds (a ``sa_locate_kernel``
+   instantiation with a stack frame or a spill fails too);
 2. kernels against plain, each with its time (CUDA events: the kernel's
    mean over 5 launches queued behind a spin kernel, so that the
    wrapper's host time is hidden; one plain PyTorch pass on the card)
@@ -58,6 +59,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      and from the kernel's timers the warp that ends last (when, when it
      left the extension, its steps); and chain_dp on 1024 full windows of
      512 seeds (both costs, bit-equal, timed, with its bound);
+   - ``sa_locate`` (the locate walk of a sampled SA) against the plain
+     ``sa_lookup`` on the card, on the locate of golden's reads over the
+     sampled-SA golden index and on the first locate call of phase 11's
+     v2 passes at sa_intv 32 and 16, each with edge lanes (the primary
+     row, sampled rows, row seq_len, invalid lanes), in both rank
+     layouts and with int32 and int64 sa_samp: every position equal;
+     the walks' steps, warp efficiency and longest walk (a diagnostic
+     instantiation), timed at sa_intv 32 against one plain pass, with
+     its bound (the rank-row pieces and SA entries its walks need, each
+     once, from the kernel's bitmap, and the lanes' own bytes, over the
+     HBM rate);
 3. golden: MappingEngine(device="cuda") on tests/data (the golden test's
    config, the escalation offload on by default); the SAM must equal
    tests/data/golden.sam byte for byte, the offload must have fired, and
@@ -72,16 +84,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    Mbp genome, 512 PacBio-CLR-like reads of 2-20 kb at ~12% error),
    indexed at the default config and mapped on the card twice with the
    offload on and once with it off, in one call; the three SAMs equal;
-   at least 95% of the reads mapped; two passes of a plain_loops engine
-   give the same SAM (the second timed beside the kernels' warm pass);
-   the first 32 reads mapped again on the CPU give the same SAM;
+   at least 95% of the reads mapped; every read's records equal the JAX
+   package's (tests/data/jax_sam_digests.json, a sha256 a read, made on
+   the CPU by tools/torch_jax_sams.py); two passes of a plain_loops
+   engine give the same SAM (the second timed beside the kernels' warm
+   pass); the first 32 reads mapped again on the CPU give the same SAM;
 5. v2: bench.gen_dataset(easy=False) — the same genome with 120 implanted
    2 kb repeat families, plus 40 SV/clip reads and 8 junk reads — at the
    default config: two passes with the offload on (the SAM repeats) and
    one with it off (the same SAM); the Hirschberg split fired; the stage
-   counters equal the JAX package's on the same data; two passes of a
-   plain_loops engine give the same SAM; the 48 SV/junk reads mapped on
-   the CPU (plain versions, offload on) give the same records;
+   counters equal the JAX package's on the same data, and every read's
+   records its digest; two passes of a plain_loops engine give the same
+   SAM; the 48 SV/junk reads mapped on the CPU (plain versions, offload
+   on) give the same records;
 6. clasp: v2 with ``chain_alg="clasp"`` at the default config, two
    passes with the offload on and one with it off (the same SAM, not
    dp-n2's); the SV/junk reads on the CPU give the same records;
@@ -119,7 +134,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    stage timers beside the replicated pass's (rank 0 of the NCCL job
    also maps golden and v2 with no mesh, and phases 3 and 5's warm
    passes), and rank 0's kernel launches, which must equal the
-   sub-batches its engine counted.
+   sub-batches its engine counted;
+11. v2 sampled (run right after phase 5): phase 5's config over v2's
+   index with the SA sliced to 32, then 16 (``slice_sa``: no second
+   build), two passes each and a plain_loops pass, every SAM byte-equal
+   to phase 5's full-SA SAM, with the warm pass's seconds and device
+   timer beside phase 5's;
+12. 300 Mbp (run last): a seeded random genome of 300,000,000 bases,
+   indexed with the port's builder at LordfastConfig(), which samples
+   its SA at 32 (a third ``--build-bench`` process, started with the
+   other two; its seconds and peak RSS), 512 reads of
+   ``bench.gen_gbp_reads``: two passes (the SAM repeats, >= 95% mapped),
+   a plain_loops pass and the first 16 reads on the CPU (the same
+   records), and sa_locate on its first locate call (bit-equal, timed,
+   with its bound).
 
 Phases 4 and 5 run the engine at verbosity 2, which adds the
 ``gpart_*`` counters (launches per bucket and part size) and prints them
@@ -130,15 +158,21 @@ just before each pass of phases 3-8 and 10 and read just after; a
 kernel a path needs that did not launch there is a failure, and so is a
 gap or affine kernel's count that differs from the sub-batches the
 engine counted, and an entry into either loop on cuda (a plain_loops
-pass must enter both and launch neither kernel).  The host seeders of
-phase 7 and the sharded index of phase 10 seed without seed_ext.  Then a line with the
+pass must enter both and launch neither kernel).  With a sampled SA
+(phases 11 and 12) sa_locate must launch once a device call (as often
+as seed_ext) and the plain walk (``fm_index.sa_lookup``, counted on
+entry) must not run; a plain_loops pass does the reverse; a full-SA
+pass does neither.  The host seeders of phase 7 and the sharded index
+of phase 10 seed without seed_ext.  Then a line with the
 kernel table (JSON), the nvidia-smi line, and last the contract line
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is available.  The datasets are cached in .smoke_cache/
-(gitignored).  The v1 and v2 datasets and their indexes are made there
-by two processes of their own (``chip_smoke.py --build-bench v1|v2``),
-started after phase 1; they run on the host while phases 2 and 3 use
-the card, and phases 4 and 5 load the saved indexes.
+(gitignored).  The v1, v2 and 300 Mbp datasets and their indexes are
+made there by three processes of their own (``chip_smoke.py
+--build-bench v1|v2|g300``), started after phase 1; they run on the host
+while the card runs the phases before the one that loads each saved
+index.  The kernel table's ``launches`` is each kernel's count on v2's
+first pass, and sa_locate's on the 300 Mbp genome's.
 """
 
 from __future__ import annotations
@@ -204,10 +238,26 @@ CHAIN_INT_OPS = 4
 DPN2_D_OPS = 2
 DPN2_FAR_OPS, DPN2_NEAR_OPS, LOG_OPS, CLASP_OPS = 6, 3, 20, 7
 KERNELS = ("myers_dist", "myers_moves", "affine_extend", "chain_dp",
-           "seed_ext")
-# the loops these two kernels replace, counted on entry
-LOOP_KERNELS = ("chain_dp", "seed_ext")
-LOOPS = ("_chain_bucketed", "_staged_ext")
+           "seed_ext", "sa_locate")
+# the loops these three kernels replace, counted on entry (sa_lookup
+# counts its walks only: with a full SA it is one gather, and the
+# pipeline launches no sa_locate)
+LOOP_KERNELS = ("chain_dp", "seed_ext", "sa_locate")
+LOOPS = ("_chain_bucketed", "_staged_ext", "sa_lookup")
+# The JAX package's SAMs of v1 and v2 on the CPU, a sha256 a read
+# (tools/torch_jax_sams.py); phases 4 and 5 hold the card's SAMs to them.
+JAX_DIGESTS = DATA / "jax_sam_digests.json"
+# Reads whose records may differ from the JAX package's, by (dataset,
+# read name), each with its cause in ROADMAP Queue 3: none so far.
+KNOWN_DIVERGENT: dict = {}
+# The 300 Mbp phase: a seeded random genome of G300_BP bases, the
+# smallest round size at which LordfastConfig() samples the SA (its
+# 2 x 300 M-char text's full SA passes sa_mem_budget), and 512 reads of
+# bench.gen_gbp_reads.
+G300_BP = 300_000_000
+G300_SEED = 300
+# the pass whose launches the kernel table reports (v2's otherwise)
+MAIN_PATH = {"sa_locate": "g300"}
 
 
 def log(msg):
@@ -238,8 +288,10 @@ def _wrappers():
            "affine_extend": affine_cuda.extend_batch_cuda,
            "chain_dp": chain_cuda.chain_dp,
            "seed_ext": fm_index_cuda.seed_ext,
+           "sa_locate": fm_index_cuda.sa_locate,
            "_chain_bucketed": chain._chain_bucketed,
-           "_staged_ext": fm_index._staged_ext}
+           "_staged_ext": fm_index._staged_ext,
+           "sa_lookup": fm_index.sa_lookup}
     return {k: getattr(f, "__wrapped__", f) for k, f in fns.items()}
 
 
@@ -280,15 +332,16 @@ class _Recorder:
 
 
 class record_loops:
-    """Context manager: the first ``limit`` calls of chain_cuda.chain_dp
-    and of fm_index_cuda.seed_ext made inside it are recorded with their
-    inputs (cloned) in ``self.chain`` and ``self.seed``, and run as
-    usual: the module attributes the call sites read are _Recorder
-    stand-ins for the two wrappers."""
+    """Context manager: the first ``limit`` calls of chain_cuda.chain_dp,
+    fm_index_cuda.seed_ext and fm_index_cuda.sa_locate made inside it
+    are recorded with their inputs (cloned) in ``self.chain``,
+    ``self.seed`` and ``self.locate``, and run as usual: the module
+    attributes the call sites read are _Recorder stand-ins for the three
+    wrappers."""
 
     def __init__(self, limit: int = 1):
         self.limit = limit
-        self.chain, self.seed = [], []
+        self.chain, self.seed, self.locate = [], [], []
 
     def _chain(self, ws, cfg, want_dp=False):
         if len(self.chain) < self.limit:
@@ -301,25 +354,34 @@ class record_loops:
                 lanes=[x.clone() for x in lanes[:6]],
                 phase1_steps=lanes[6]))
 
+    def _locate(self, arrs, meta, rows, valid, **kw):
+        if len(self.locate) < self.limit:
+            self.locate.append(dict(arrs=arrs, meta=meta, rows=rows.clone(),
+                                    valid=valid.clone()))
+
     def __enter__(self):
         from lordfast_tpu_torch.ops import chain_cuda, fm_index_cuda
 
-        self._saved = (chain_cuda.chain_dp, fm_index_cuda.seed_ext)
+        self._saved = (chain_cuda.chain_dp, fm_index_cuda.seed_ext,
+                       fm_index_cuda.sa_locate)
         chain_cuda.chain_dp = _Recorder(self._saved[0], self._chain)
         fm_index_cuda.seed_ext = _Recorder(self._saved[1], self._seed)
+        fm_index_cuda.sa_locate = _Recorder(self._saved[2], self._locate)
         return self
 
     def __exit__(self, *exc):
         from lordfast_tpu_torch.ops import chain_cuda, fm_index_cuda
 
-        chain_cuda.chain_dp, fm_index_cuda.seed_ext = self._saved
+        (chain_cuda.chain_dp, fm_index_cuda.seed_ext,
+         fm_index_cuda.sa_locate) = self._saved
         return False
 
 
-def seed_lanes(arrs, meta, reads, lens, cfg):
-    """The staged extension's call (record_loops' record) in the seeding
-    of reads (B, L) uint8 / lens (B,) int32 tensors on the card under
-    cfg, by fm_index._seed_anchors_impl on the index arrays arrs."""
+def record_seeding(arrs, meta, reads, lens, cfg):
+    """record_loops over the seeding of reads (B, L) uint8 / lens (B,)
+    int32 tensors on the card under cfg, by fm_index._seed_anchors_impl
+    on the index arrays arrs: its staged extension's call and, with a
+    sampled SA, its locate's."""
     import torch
 
     from lordfast_tpu_torch.ops import fm_index
@@ -331,7 +393,13 @@ def seed_lanes(arrs, meta, reads, lens, cfg):
             arrs, reads, lens, pos, meta, cfg.sampling_count,
             cfg.min_anchor_len, cfg.max_ref_hits, cfg.max_seeds_per_read,
             cfg.seed_phase1_steps)
-    return rec.seed[0]
+    return rec
+
+
+def seed_lanes(arrs, meta, reads, lens, cfg):
+    """The staged extension's call (record_loops' record) in the seeding
+    of record_seeding."""
+    return record_seeding(arrs, meta, reads, lens, cfg).seed[0]
 
 
 def reads_of(rd):
@@ -457,16 +525,17 @@ def check_affine_frames(ptxas_log: str):
 
 def check_loop_frames(chain_log: str, seed_log: str):
     """Every chain_dp_kernel (8: two position dtypes x two float types x
-    two costs) and seed_ext_kernel (12: two rank layouts x two position
-    dtypes x no diagnostics, the step counts and timers, the need
-    bitmap) instantiation in ptxas's report, none with a stack frame or
-    a spill (a lane's state stays in registers, a window's in shared
-    memory)."""
+    two costs), seed_ext_kernel and sa_locate_kernel (12 each: two rank
+    layouts x two position dtypes x no diagnostics, the step counts, the
+    need bitmap) instantiation in ptxas's report, none with a stack
+    frame or a spill (a lane's state stays in registers, a window's in
+    shared memory)."""
     for name, text, n in (("chain_dp_kernel", chain_log, 8),
-                          ("seed_ext_kernel", seed_log, 12)):
-        # seed_ext's kDiag from its mangled name: <bool, Pos, int>
+                          ("seed_ext_kernel", seed_log, 12),
+                          ("sa_locate_kernel", seed_log, 12)):
+        # the seeding kernels' kDiag from the mangled name: <bool, Pos, int>
         frames = ptxas_frames(text, f"({name})" + (
-            r"ILb[01]E[il]Li(\d)E" if name == "seed_ext_kernel" else "()"))
+            "()" if name == "chain_dp_kernel" else r"ILb[01]E[il]Li(\d)E"))
         if len(frames) != n:
             raise AssertionError(f"ptxas reported {len(frames)} {name} "
                                  f"instantiations, not {n}")
@@ -1281,14 +1350,131 @@ def _chain_counts(work) -> str:
             f"operations, {work['bytes']} bytes")
 
 
-def phase_loops(caps, golden_idx, int_rate):
+def slice_sa(idx, intv: int):
+    """idx, which holds the full SA, with its SA sampled at interval intv
+    as the builder samples it (sa_full[::intv], entry 0 set to -1): a
+    sampled-SA index of the same genome without a second build."""
+    import dataclasses
+
+    import numpy as np
+
+    if idx.sa_intv != 1:
+        raise ValueError(f"slice_sa: the index has sa_intv {idx.sa_intv}")
+    sa = np.ascontiguousarray(idx.sa_samp[::intv])
+    sa[0] = -1
+    return dataclasses.replace(idx, sa_samp=sa, sa_intv=intv, _device=None,
+                               _host_cache=None)
+
+
+def locate_rows(meta, rows, valid, seed: int = 20261019):
+    """A recorded locate call's lanes, then 64 edge lanes: the primary
+    row and its neighbours, sampled rows (0, intv, the last), row
+    seq_len, and 48 invalid lanes of random rows (which must give 0)."""
+    import numpy as np
+    import torch
+
+    seq_len, primary, intv = meta["seq_len"], meta["primary"], \
+        meta["sa_intv"]
+    rng = np.random.default_rng(seed)
+    edge = [primary, max(primary - 1, 0), min(primary + 1, seq_len), 0,
+            intv, (seq_len // intv) * intv, seq_len - 1, seq_len]
+    edge += [int(x) for x in rng.integers(0, seq_len + 1, 8)]
+    junk = rng.integers(0, seq_len + 1, 48)
+    dev = rows.device
+    extra = torch.tensor(edge + [int(x) for x in junk], dtype=torch.int64,
+                         device=dev)
+    ok = torch.tensor([True] * len(edge) + [False] * len(junk), device=dev)
+    return torch.cat([rows, extra]), torch.cat([valid, ok])
+
+
+def locate_work(rec, need) -> float:
+    """Bytes sa_locate's function needs on one recorded call: the rank
+    row pieces and SA entries its walks need, each once (need, from the
+    kernel's bitmap: fm_index_cuda.sa_locate), every lane's row and
+    valid flag read and its position written once, and L2."""
+    n = rec["rows"].shape[0]
+    l2 = rec["arrs"]["L2"]
+    return float(sum(need.values()) + n * (8 + 1 + 8)
+                 + l2.numel() * l2.element_size())
+
+
+def check_sa_locate(tag, idx, rec, int_rate, timed=False):
+    """sa_locate's kernel against the plain sa_lookup on the card, on one
+    recorded call (record_loops) and its edge lanes (locate_rows), in
+    both rank layouts and with int32 and int64 sa_samp (L2 with it):
+    every position equal, in the pipeline's instantiation and in the
+    two diagnostic ones.  Logs the walks (steps a lane, the warp
+    efficiency, the longest walk) and the bytes needed; with ``timed``
+    also the kernel's time on the call's own lanes (fused, the index's
+    dtype) against one plain pass, and its bound, returned as a dict."""
+    import numpy as np
+    import torch
+
+    from lordfast_tpu_torch.ops import fm_index
+
+    meta = rec["meta"]
+    rows, valid = locate_rows(meta, rec["rows"], rec["valid"])
+    loc = _wrappers()["sa_locate"]
+    for layout in ("fused", "split"):
+        a0 = (rec["arrs"] if layout == "fused"
+              else split_layout(idx, rec["arrs"]))
+        for dt in (torch.int32, torch.int64):
+            a = {**a0, "sa_samp": a0["sa_samp"].to(dt),
+                 "L2": a0["L2"].to(dt)}
+            want = fm_index.sa_lookup(a, meta, rows, valid)
+            for kw in ("plain", "want_stats", "want_need"):
+                got = loc(a, meta, rows, valid,
+                          **({} if kw == "plain" else {kw: True}))
+                got = got if kw == "plain" else got[0]
+                if not bool((got == want).all()):
+                    raise AssertionError(
+                        f"sa_locate {tag} ({layout}, {dt}, {kw}): kernel "
+                        f"!= sa_lookup in {int((got != want).sum())} of "
+                        f"{len(rows)} lanes")
+    r, v = rec["rows"], rec["valid"]
+    _, steps = loc(rec["arrs"], meta, r, v, want_stats=True)
+    _, need = loc(rec["arrs"], meta, r, v, want_need=True)
+    st = steps.cpu().numpy().astype(np.int64)
+    pad = np.zeros(-(-len(st) // 32) * 32, np.int64)
+    pad[: len(st)] = st
+    issued = 32 * pad.reshape(-1, 32).max(1).sum()
+    line = (f"[loops] sa_locate {tag} (sa_intv {meta['sa_intv']}): "
+            f"{len(r)} lanes ({int(v.sum())} valid), {int(st.sum())} walk "
+            f"steps, {st.mean():.1f} a lane, p99 "
+            f"{np.percentile(st, 99):.0f}, the longest {int(st.max())}; "
+            f"warp efficiency {st.sum() / max(issued, 1):.3f}: equal to "
+            f"sa_lookup on them and {len(rows) - len(r)} edge lanes in "
+            "both rank layouts, int32 and int64 sa_samp | input bytes "
+            "needed " + " ".join(f"{k} {x}" for k, x in need.items())
+            + f" (all {locate_work(rec, need):.0f})")
+    out = None
+    if timed:
+        ms = _time_launches(lambda: loc(rec["arrs"], meta, r, v), 5)
+        plain_ms = _time_cuda(
+            lambda: fm_index.sa_lookup(rec["arrs"], meta, r, v), 1)
+        b = bound(locate_work(rec, need), 0, int_rate)
+        line += (f" | kernel {ms:.4f} ms | plain (sa_lookup) "
+                 f"{plain_ms:.1f} ms | bound {b[0]:.5f} ms ({b[1]})")
+        out = {"ms": ms, "plain_ms": plain_ms, "bound": b,
+               "lanes": len(r), "walk_steps": int(st.sum()),
+               "longest_walk": int(st.max()),
+               "warp_efficiency": float(st.sum() / max(issued, 1))}
+    log(line)
+    return out
+
+
+def phase_loops(caps, golden_idx, v2_idx, int_rate):
     """chain_dp and seed_ext against their plain versions on the card, on
     the first call each that the golden, v1 and v2 passes made (caps:
     record_loops by tag): chain_dp on the windows with both costs,
     seed_ext on the lanes; then seed_ext on golden's reads over a
     sampled-SA index (sa_intv 32) and over the split rank layout, each
-    in both.  Times each kernel at v2's call (_time_launches) against
-    its plain version; returns their two kernel-table rows."""
+    in both; then sa_locate (check_sa_locate) on the locate of golden's
+    reads over that sampled index and on the first locate call of the
+    v2 sampled passes (caps "v2_32" and "v2_16", over v2_idx sliced).
+    Times each kernel at v2's call (_time_launches; sa_locate at
+    sa_intv 32) against its plain version; returns their three
+    kernel-table rows."""
     from lordfast_tpu_torch.config import LordfastConfig
     from lordfast_tpu_torch.index.builder import build_index
     from lordfast_tpu_torch.ops import chain, fm_index
@@ -1341,12 +1527,19 @@ def phase_loops(caps, golden_idx, int_rate):
     for sa, (idx, arrs) in fused.items():
         for layout in ("fused", "split"):
             a = arrs if layout == "fused" else split_layout(idx, arrs)
-            rec = seed_lanes(a, idx.meta, *reads_of(g["rd"]), cfg)
-            stats, need = check_seed_ext(rec)
+            rec = record_seeding(a, idx.meta, *reads_of(g["rd"]), cfg)
+            stats, need = check_seed_ext(rec.seed[0])
             log(_seed_line(f"golden, {sa} SA (sa_intv {idx.sa_intv}), "
-                           f"{layout} rank rows", rec, stats, need))
-    log("[loops] chain_dp and seed_ext bit-equal to their plain versions "
-        "in every case")
+                           f"{layout} rank rows", rec.seed[0], stats, need))
+            if sa == "sampled" and layout == "fused":
+                check_sa_locate("golden", idx, rec.locate[0], int_rate)
+    v2_32 = check_sa_locate("v2", v2_idx, caps["v2_32"].locate[0],
+                            int_rate, timed=True)
+    check_sa_locate("v2", v2_idx, caps["v2_16"].locate[0], int_rate)
+    log("[loops] chain_dp, seed_ext and sa_locate bit-equal to their plain "
+        "versions in every case")
+    loc_t = Tally()
+    loc_t.add(v2_32["ms"], v2_32["plain_ms"], v2_32["bound"], 0)
     return [
         chain_t.row("chain_dp", "lordfast_tpu_torch/csrc/chain_dp.cu",
                     "lordfast_tpu/ops/chain.py:350",
@@ -1355,6 +1548,13 @@ def phase_loops(caps, golden_idx, int_rate):
         seed_t.row("seed_ext", "lordfast_tpu_torch/csrc/seed_ext.cu",
                    "lordfast_tpu/ops/fm_index.py:492",
                    also_replaces="lordfast_tpu/ops/fm_index.py:568, :602"),
+        loc_t.row("sa_locate", "lordfast_tpu_torch/csrc/seed_ext.cu",
+                  "lordfast_tpu/ops/fm_index.py:303",
+                  also_replaces="lordfast_tpu/ops/fm_index.py:267",
+                  timed_at="v2 sliced to sa_intv 32, its first locate call",
+                  **{k: v2_32[k] for k in ("lanes", "walk_steps",
+                                           "longest_walk",
+                                           "warp_efficiency")}),
     ]
 
 
@@ -1498,6 +1698,18 @@ def sam_records(text: str):
     return [line for line in text.splitlines() if not line.startswith("@")]
 
 
+def read_digests(text: str) -> dict:
+    """{read name: sha256 of its record lines}, each line with its
+    newline, in the SAM's order; the header lines aside."""
+    import hashlib
+
+    recs = {}
+    for line in sam_records(text):
+        recs.setdefault(line.split("\t", 1)[0], []).append(line + "\n")
+    return {name: hashlib.sha256("".join(lines).encode()).hexdigest()
+            for name, lines in recs.items()}
+
+
 def map_pass(eng, reads_path, record=None):
     """One synchronised map_file pass with the launch counts set to 0
     just before it and read just after: (sam, seconds, reads, mapped,
@@ -1518,14 +1730,28 @@ def map_pass(eng, reads_path, record=None):
             eng.stats["mapped"] - m0, read_launches())
 
 
-def check_launches(path, launches, counters, needed, plain=False):
+def check_launches(path, launches, counters, needed, plain=False,
+                   sampled=False):
     """Each gap and affine kernel's launches equal the sub-batches its
     stages counted, every kernel in ``needed`` launched, and the loops
-    chain_dp and seed_ext replace were not entered (with ``plain``, the
-    engine's plain_loops pass: neither kernel launched)."""
+    chain_dp, seed_ext and sa_locate replace were not entered (with
+    ``plain``, the engine's plain_loops pass: none of the three kernels
+    launched).  With ``sampled`` (an index with a sampled SA) a pass
+    that launches seed_ext launches sa_locate as often, once a device
+    call; without, a pass neither launches sa_locate nor walks (the
+    full SA's locate is one gather)."""
     stages = {"myers_dist": ("gap_parts", "esc_split_parts"),
               "myers_moves": ("esc_nw_parts",),
               "affine_extend": ("esc_affine_parts",)}
+    if not sampled:
+        needed = [k for k in needed if k != "sa_locate"]
+        if launches["sa_locate"] or launches["sa_lookup"]:
+            raise AssertionError(f"{path}: a full SA, yet a locate walk: "
+                                 f"{launches}")
+    elif not plain and launches["sa_locate"] != launches["seed_ext"]:
+        raise AssertionError(f"{path}: sa_locate launched "
+                             f"{launches['sa_locate']} times for "
+                             f"{launches['seed_ext']} seed_ext launches")
     for name, n in launches.items():
         if name in stages:
             parts = sum(counters.get(k, 0) for k in stages[name])
@@ -1592,18 +1818,21 @@ def phase_golden():
 
 def plain_pass(tag, eng, reads, sam, warm_s, passes=1):
     """``passes`` passes of an engine with plain_loops=True (the device
-    stage's seed-extension and chaining loops through their plain
-    PyTorch versions): each SAM equals the kernels' ``sam``, neither
-    loop kernel launched and both loops ran.  Logs the last pass beside
-    the kernels' warm pass (warm_s); returns its map_pass result."""
+    stage's seed-extension, locate and chaining loops through their
+    plain PyTorch versions): each SAM equals the kernels' ``sam``, no
+    loop kernel launched and the loops ran (the locate walk with a
+    sampled SA).  Logs the last pass beside the kernels' warm pass
+    (warm_s); returns its map_pass result."""
+    sampled = eng.meta["sa_intv"] > 1
+    loops = [k for k in LOOPS if sampled or k != "sa_lookup"]
     for i in range(passes):
         res = map_pass(eng, reads)
         if res[0] != sam:
             raise AssertionError(f"{tag}: the plain loops' SAM differs from "
                                  "the kernels'")
         check_launches(f"{tag} plain loops", res[4], eng.metrics.counters,
-                       ("myers_dist",), plain=True)
-        if not all(res[4][k] for k in LOOPS):
+                       ("myers_dist",), plain=True, sampled=sampled)
+        if not all(res[4][k] for k in loops):
             raise AssertionError(f"{tag}: plain loops not entered: "
                                  f"{res[4]}")
     log(f"[{tag}] plain loops (MappingEngine(plain_loops=True)), pass "
@@ -1665,14 +1894,20 @@ def check_split_paths(eng, idx, n=40):
         f"launches, {c['esc_nw_parts']} myers_moves launches)")
 
 
+def _paths(tag: str):
+    """(reference, reads) of the dataset tag (v1, v2 or g300) in
+    .smoke_cache/."""
+    pre = {"v1": "v1_bench", "v2": "bench", "g300": "g300"}[tag]
+    return CACHE / f"{pre}_ref.fa", CACHE / f"{pre}_reads.fq"
+
+
 def _dataset(easy: bool):
     """The bench's v1 (easy) or v2 dataset, generated into .smoke_cache/
     once."""
     import bench
 
     CACHE.mkdir(exist_ok=True)
-    pre = "v1_" if easy else ""
-    ref, reads = CACHE / f"{pre}bench_ref.fa", CACHE / f"{pre}bench_reads.fq"
+    ref, reads = _paths("v1" if easy else "v2")
     if not (ref.exists() and reads.exists()):
         t = time.time()
         bench.gen_dataset(CACHE, easy=easy)
@@ -1700,31 +1935,71 @@ def _index(ref, tag):
     from lordfast_tpu_torch.index.builder import build_index
 
     t = time.time()
-    idx = build_index(ref, LordfastConfig(), verbose=False)
+    idx = build_index(ref, LordfastConfig(), verbose=tag == "g300")
     log(f"[{tag}] index built in {time.time() - t:.1f} s (l_pac "
         f"{idx.l_pac}, sa_intv {idx.sa_intv}, kcache k={idx.kcache_k})")
     return idx
 
 
+def _g300_genome(ref: Path):
+    """A seeded random genome of G300_BP bases, one contig, written as
+    FASTA lines of 100 bases."""
+    import numpy as np
+
+    rng = np.random.default_rng(G300_SEED)
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    tmp = ref.with_suffix(".part")
+    step = 10_000_000
+    with open(tmp, "wb") as f:
+        f.write(b">g300\n")
+        for s0 in range(0, G300_BP, step):
+            n = min(step, G300_BP - s0)
+            lines = np.full((n // 100, 101), ord("\n"), np.uint8)
+            lines[:, :100] = lut[rng.integers(0, 4, n)].reshape(-1, 100)
+            f.write(lines.tobytes())
+    os.replace(tmp, ref)
+
+
 def build_bench(tag: str) -> int:
-    """Generate the bench dataset ``tag`` (v1 or v2) into .smoke_cache/
-    and save its index there as ``{tag}.lft.npz``: the process that
-    start_builds starts (``chip_smoke.py --build-bench TAG``)."""
+    """Generate the dataset ``tag`` into .smoke_cache/ and save its index
+    there as ``{tag}.lft.npz``: the process that start_builds starts
+    (``chip_smoke.py --build-bench TAG``).  v1 and v2: the bench's
+    datasets.  g300: the G300_BP random genome, its index at
+    LordfastConfig() (which samples the SA at 32), then 512 reads of
+    bench.gen_gbp_reads; logs the seconds and the process's peak RSS."""
+    import resource
+
+    import bench
     from lordfast_tpu_torch.index.builder import save_index
 
-    ref, _ = _dataset(easy=tag == "v1")
+    t = time.time()
+    if tag == "g300":
+        CACHE.mkdir(exist_ok=True)
+        ref, reads = _paths(tag)
+        if not ref.exists():
+            _g300_genome(ref)
+        log(f"[g300] genome of {G300_BP} bp written in "
+            f"{time.time() - t:.1f} s")
+    else:
+        ref, _ = _dataset(easy=tag == "v1")
     idx = _index(ref, tag)
     tmp = CACHE / f"{tag}.part.npz"
     save_index(idx, tmp)
     os.replace(tmp, CACHE / f"{tag}.lft.npz")
+    if tag == "g300":
+        bench.gen_gbp_reads(idx, reads)
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        log(f"[g300] genome, index, its file and 512 reads in "
+            f"{time.time() - t:.1f} s; the build process's peak RSS "
+            f"{rss:.2f} GiB")
     return 0
 
 
-def start_builds(tags=("v1", "v2")) -> dict:
-    """One process for each bench dataset of tags, started together,
-    that generates it and builds and saves its index (build_bench) on
-    the host while phases 2 and 3 run; {tag: (process, its output
-    file)}.  The processes see no card."""
+def start_builds(tags=("v1", "v2", "g300")) -> dict:
+    """One process for each dataset of tags, started together, that
+    generates it and builds and saves its index (build_bench) on the
+    host while phases 2 and 3 run (g300's through phase 10); {tag:
+    (process, its output file)}.  The processes see no card."""
     CACHE.mkdir(exist_ok=True)
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
     builds = {}
@@ -1752,14 +2027,14 @@ def _built(builds, tag):
         raise AssertionError(f"{tag}: the dataset and index build exited "
                              f"{rc}: {text[-2000:]}")
     for line in text.splitlines():
-        if line.startswith(f"[{tag}]"):
+        if line.startswith((f"[{tag}]", "[index]")):
             log(line)
     t = time.time()
     idx = load_index(CACHE / f"{tag}.lft.npz")
-    log(f"[{tag}] built in a process of its own alongside phases 2-3 "
-        f"(waited {waited:.1f} s for it); index loaded in "
+    log(f"[{tag}] built in a process of its own alongside the phases "
+        f"before (waited {waited:.1f} s for it); index loaded in "
         f"{time.time() - t:.1f} s")
-    return (*_dataset(easy=tag == "v1"), idx)
+    return (*_paths(tag), idx)
 
 
 def _cpu_subset(idx, sam, reads, dst, keep, tag, cfg=None, **kw):
@@ -1784,6 +2059,32 @@ def _cpu_subset(idx, sam, reads, dst, keep, tag, cfg=None, **kw):
     log(f"[{tag}] {len(names)} reads: {len(cpu_sub)} SAM records "
         f"byte-equal between cuda and cpu (cpu run {time.time() - t:.1f} s, "
         f"esc_sites {eng.metrics.counters.get('esc_sites', 0)})")
+
+
+def check_digests(tag, sam):
+    """Every read's records in the card's SAM of dataset tag (v1 or v2)
+    against the JAX package's (JAX_DIGESTS, one sha256 a read, made on
+    the CPU by tools/torch_jax_sams.py): a read that differs fails,
+    unless KNOWN_DIVERGENT names it with its cause, which is printed."""
+    want = json.loads(JAX_DIGESTS.read_text())
+    ds = want["datasets"][tag]
+    got = read_digests(sam)
+    if set(got) != set(ds["digests"]) or len(got) != ds["reads"]:
+        raise AssertionError(f"{tag}: {len(got)} reads with records, the "
+                             f"JAX package's SAM has {ds['reads']}")
+    bad = [n for n, d in ds["digests"].items() if got[n] != d]
+    for n in bad:
+        if (tag, n) in KNOWN_DIVERGENT:
+            log(f"[{tag}] read {n} differs from the JAX package's records: "
+                f"{KNOWN_DIVERGENT[(tag, n)]}")
+    unknown = [n for n in bad if (tag, n) not in KNOWN_DIVERGENT]
+    if unknown:
+        raise AssertionError(f"{tag}: {len(unknown)} reads' records differ "
+                             f"from the JAX package's: {unknown[:10]}")
+    log(f"[{tag}] {len(got) - len(bad)} of {len(got)} reads' records equal "
+        f"the JAX package's on the CPU (sha256 a read, "
+        f"{JAX_DIGESTS.name}, JAX package at "
+        f"{want['jax_package_commit'][:10]}); {len(bad)} known to differ")
 
 
 def _report(tag, label, eng, res):
@@ -1871,6 +2172,7 @@ def phase_v1(builds):
         raise AssertionError(f"v1: only {n_mapped} of {n_reads} mapped")
     log(f"[v1] {n_mapped} of {n_reads} reads mapped; the SAM of both "
         f"offload-on passes equals the offload-off pass's")
+    check_digests("v1", sam)
     plain_pass("v1", MappingEngine(idx, cfg, device="cuda",
                                    plain_loops=True),
                reads, sam, runs[1][1], passes=2)
@@ -1932,14 +2234,118 @@ def phase_v2(builds):
         raise AssertionError("v2: offload on and off give different SAM")
     log(f"[v2] {n_rec} SAM records for {n_reads} reads; both offload-on "
         f"passes and the offload-off pass byte-equal")
+    check_digests("v2", sam)
     eng_plain = MappingEngine(idx, cfg, device="cuda", plain_loops=True)
     plain = plain_pass("v2", eng_plain, reads, sam, runs[1][1], passes=2)
     _cpu_subset(idx, sam, reads, CACHE / "v2_sv_junk.fq",
                 lambda name, i: name.startswith(("sv", "junk")), "v2",
                 esc_device=True)
     v2 = dict(idx=idx, eng=eng, sam=sam, reads=reads, warm_s=runs[1][1],
-              caps=caps, eng_plain=eng_plain, plain_warm_s=plain[1])
+              device_s=eng.metrics.timers["device"], caps=caps,
+              eng_plain=eng_plain, plain_warm_s=plain[1],
+              plain_device_s=eng_plain.metrics.timers["device"])
     return runs[0][4], parts, v2
+
+
+def phase_v2_sampled(v2) -> tuple:
+    """v2 at phase 5's config over its index with the SA sliced to 32,
+    then to 16 (slice_sa): two passes each, each SAM byte-equal to phase
+    5's full-SA SAM (locate is exact), every pass launching sa_locate
+    once a device call and entering no walk; then a plain_loops pass,
+    the same SAM.  Logs the warm pass's seconds and device timer beside
+    phase 5's.  Returns ({path: the first pass's launches}, {"v2_32" /
+    "v2_16": the first pass's record_loops})."""
+    import torch
+
+    from lordfast_tpu_torch.config import LordfastConfig
+    from lordfast_tpu_torch.pipeline.engine import MappingEngine
+
+    cfg = LordfastConfig(verbosity=2)
+    by_path, caps = {}, {}
+    for intv in (32, 16):
+        tag = f"v2 sa_intv {intv}"
+        idx = slice_sa(v2["idx"], intv)
+        eng = MappingEngine(idx, cfg, device="cuda")
+        caps[f"v2_{intv}"] = record_loops()
+        runs = []
+        for label in ("first pass", "second pass"):
+            runs.append(map_pass(eng, v2["reads"],
+                                 caps[f"v2_{intv}"] if not runs else None))
+            _report(tag, label, eng, runs[-1])
+            check_launches(tag, runs[-1][4], eng.metrics.counters, KERNELS,
+                           sampled=True)
+            if runs[-1][0] != v2["sam"]:
+                raise AssertionError(f"{tag}: the SAM differs from the full "
+                                     "SA's (phase 5)")
+        by_path[f"v2_sa{intv}"] = runs[0][4]
+        log(f"[{tag}] both passes' SAM byte-equal to the full SA's; warm "
+            f"pass {runs[1][1]:.3f} s, device "
+            f"{eng.metrics.timers['device']:.3f} s (full SA, phase 5: "
+            f"{v2['warm_s']:.3f} s, device "
+            f"{v2['device_s']:.3f} s)")
+        plain = plain_pass(tag, MappingEngine(idx, cfg, device="cuda",
+                                              plain_loops=True),
+                           v2["reads"], v2["sam"], runs[1][1])
+        by_path[f"v2_sa{intv}_plain"] = plain[4]
+        del eng
+        torch.cuda.empty_cache()
+    return by_path, caps
+
+
+def phase_g300(builds, row, int_rate) -> dict:
+    """The G300_BP genome (its index built by a build_bench process since
+    phase 1): LordfastConfig() must have sampled its SA at 32; two
+    passes of its 512 reads on the card (the SAM repeats, at least 95%
+    mapped, sa_locate launched once a device call and no walk entered),
+    a plain_loops pass (the same SAM), the first 16 reads on the CPU
+    (the same records), and sa_locate on the first pass's first locate
+    call (check_sa_locate, timed), whose figures go into the kernel
+    table's sa_locate row.  Returns the first pass's launches."""
+    import torch
+
+    from lordfast_tpu_torch.config import LordfastConfig
+    from lordfast_tpu_torch.pipeline.engine import MappingEngine
+
+    _, reads, idx = _built(builds, "g300")
+    if idx.sa_intv != 32:
+        raise AssertionError(f"g300: LordfastConfig() chose sa_intv "
+                             f"{idx.sa_intv}, not 32")
+    cfg = LordfastConfig(verbosity=2)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    eng = MappingEngine(idx, cfg, device="cuda")
+    nbytes = sum(x.numel() * x.element_size() for x in eng.arrs.values())
+    log(f"[g300] engine set up in {time.time() - t:.2f} s: {nbytes} bytes "
+        f"of index arrays on the card (l_pac {idx.l_pac}, sa_intv "
+        f"{idx.sa_intv})")
+    caps = record_loops()
+    runs = []
+    for label in ("first pass", "second pass"):
+        runs.append(map_pass(eng, reads, caps if not runs else None))
+        _report("g300", label, eng, runs[-1])
+        check_launches("g300", runs[-1][4], eng.metrics.counters,
+                       ("myers_dist", *LOOP_KERNELS), sampled=True)
+    sam, _, n_reads, n_mapped, _ = runs[0]
+    if runs[1][0] != sam:
+        raise AssertionError("g300: the two passes differ")
+    if n_mapped < MIN_MAPPED_FRAC * n_reads:
+        raise AssertionError(f"g300: only {n_mapped} of {n_reads} mapped")
+    log(f"[g300] {n_mapped} of {n_reads} reads mapped, both passes' SAM "
+        f"byte-equal; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    plain = plain_pass("g300", MappingEngine(idx, cfg, device="cuda",
+                                             plain_loops=True),
+                       reads, sam, runs[1][1])
+    _cpu_subset(idx, sam, reads, CACHE / "g300_first16.fq",
+                lambda name, i: i < 16, "g300")
+    g = check_sa_locate("g300", idx, caps.locate[0], int_rate, timed=True)
+    row.update({"g300_ms": g["ms"], "g300_plain_ms": g["plain_ms"],
+                "g300_bound_ms": g["bound"][0],
+                "g300_bound_by": g["bound"][1], "g300_lanes": g["lanes"],
+                "g300_walk_steps": g["walk_steps"],
+                "g300_longest_walk": g["longest_walk"],
+                "g300_warp_efficiency": g["warp_efficiency"]})
+    return {"g300": runs[0][4], "g300_plain": plain[4]}
 
 
 def _sv_junk(name, i):
@@ -2400,7 +2806,7 @@ def main(mesh_only: bool = False) -> int:
     sys.path.insert(0, str(ROOT))
     t0 = time.time()
     int_rate = phase_env()
-    builds = start_builds(("v2",) if mesh_only else ("v1", "v2"))
+    builds = start_builds(("v2",) if mesh_only else ("v1", "v2", "g300"))
     try:
         return _phases(mesh_only, int_rate, builds, t0)
     finally:
@@ -2426,9 +2832,12 @@ def _phases(mesh_only, int_rate, builds, t0) -> int:
     by_path["golden"], golden = phase_golden()
     by_path["v1"], v1_idx, v1_reads, v1_caps = phase_v1(builds)
     by_path["v2"], v2_parts, v2 = phase_v2(builds)
+    sampled_paths, sampled_caps = phase_v2_sampled(v2)
+    by_path.update(sampled_paths)
     time_at_parts(v2_parts)
     rows += phase_loops({"golden": golden["caps"], "v1": v1_caps,
-                         "v2": v2["caps"]}, golden["idx"], int_rate)
+                         "v2": v2["caps"], **sampled_caps}, golden["idx"],
+                        v2["idx"], int_rate)
     t5 = time.time()
     log(f"[smoke] phases 1-5 done in {t5 - t0:.1f} s")
     by_path["v2_clasp"] = phase_clasp(v2)
@@ -2438,9 +2847,15 @@ def _phases(mesh_only, int_rate, builds, t0) -> int:
     t9 = time.time()
     log(f"[smoke] phases 6-9 done in {t9 - t5:.1f} s")
     by_path.update(phase_mesh(golden, v2))
-    log(f"[smoke] phase 10 done in {time.time() - t9:.1f} s")
+    t10 = time.time()
+    log(f"[smoke] phase 10 done in {t10 - t9:.1f} s")
+    by_path.update(phase_g300(builds, rows[-1], int_rate))
+    log(f"[smoke] phase 12 (300 Mbp) done in {time.time() - t10:.1f} s")
     for row in rows:
-        row["launches"] = by_path["v2"][row["name"]]
+        # each kernel's main path: v2's, and for sa_locate (sampled SA
+        # only) the 300 Mbp genome's, whose default config samples it
+        row["launches"] = by_path[MAIN_PATH.get(row["name"], "v2")][
+            row["name"]]
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}
     log(f"[smoke] all phases passed in {time.time() - t0:.1f} s")

@@ -1,5 +1,6 @@
 // The seeder's staged greedy backward extension with its occ == 1 finish,
-// one thread per lane, for NVIDIA Hopper (sm_90a).
+// one thread per lane, and the locate walk of a sampled SA, one thread per
+// row, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the JAX package's device loops in lordfast_tpu/ops/fm_index.py
 // _seed_anchors_impl (:387): ext_loop_flat (:485, lax.while_loop :492),
@@ -75,6 +76,21 @@
 // the index's position dtype (int32 or int64) of sa_samp and L2, and kDiag
 // (none, stats, need).  tests/test_torch_seed_ext.py holds a numpy model of
 // this kernel (names as here) against the plain version and the JAX package.
+//
+// The second kernel, sa_locate_kernel, is the locate of the seeder's
+// multi-hit slots with a sampled SA: it replaces the JAX package's
+// sa_lookup (lordfast_tpu/ops/fm_index.py:267, lax.while_loop :303); its
+// plain version is ops/fm_index.py sa_lookup (eager: intv/2 lockstep
+// steps, then one host-synced nonzero compaction a step).  One thread a
+// row, each walked to its own end by locate, the device function the
+// occ == 1 finish above calls too.  The index samples by row, so a walk
+// is geometric with mean ~sa_intv and a warp ends with the longest of its
+// 32 walks (~4x the mean): what bounds it is that lane's chain of
+// dependent rank-row round trips (1.1 us a step on v2's 28 Mbp index,
+// 1.6 on a 300 Mbp one, on an H100: chip_smoke.py), not the bytes the
+// walks need.  A lane queue or a compaction pass would shorten
+// it; this simple kernel has neither.  kDiag 1 writes each lane's steps,
+// kDiag 2 marks the need bitmap (rank pieces and SA entries).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -86,7 +102,21 @@ constexpr int64_t kMaxAnchor = 4095;  // ops/fm_index.py MAX_ANCHOR_LEN
 constexpr uint64_t kThrees = 0x6DB6DB6DB6DBull;  // 3 in each 3-bit group
 constexpr uint64_t kMask48 = 0xFFFFFFFFFFFFull;
 
-struct Args {
+// The index's arrays and scalars that a rank step and a locate read, and
+// the need bitmap's sa_samp segment: both kernels' arguments begin with it.
+struct Index {
+  const int64_t* rank_a;   // fm_blocks (nb, 12), or occ_cp (nc, 4)
+  const int64_t* rank_b;   // bwt_blocks (nb, 8) with occ_cp
+  const int64_t* bwt_words;
+  const void* sa_samp;     // Pos
+  const void* l2;          // (5,) Pos
+  uint32_t* need;          // the bitmap of needed input pieces, or null
+  int64_t need_sa;         // its sa_samp segment's first bit
+  int64_t seq_len, primary, n_sa;
+  int sa_intv, log2_intv;
+};
+
+struct Args : Index {
   const uint8_t* alive0;   // (BS,) bool
   const int64_t* k0;       // (BS,)
   const int64_t* l0;
@@ -95,11 +125,6 @@ struct Args {
   const int64_t* b_lane;
   const int64_t* rw;       // (B, W16) 3-bit read words
   const int64_t* lens;     // (B,)
-  const int64_t* rank_a;   // fm_blocks (nb, 12), or occ_cp (nc, 4)
-  const int64_t* rank_b;   // bwt_blocks (nb, 8) with occ_cp
-  const int64_t* bwt_words;
-  const void* sa_samp;     // Pos
-  const void* l2;          // (5,) Pos
   const int64_t* pac_words;
   int64_t* k_out;
   int64_t* l_out;
@@ -107,10 +132,17 @@ struct Args {
   int64_t* rpos_out;
   uint8_t* rflag_out;
   int32_t* stats;          // (BS, 7) or null
-  uint32_t* need;          // the bitmap of needed input pieces, or null
-  int64_t need_sa, need_pac, need_rw;  // its segments' first bits
-  int64_t n_lanes, seq_len, primary, n_sa, n_pac;
-  int L, W16, phase1_steps, sa_intv, log2_intv;
+  int64_t need_pac, need_rw;  // the need bitmap's other segments
+  int64_t n_lanes, n_pac;
+  int L, W16, phase1_steps;
+};
+
+struct LocArgs : Index {
+  const int64_t* rows;     // (n,)
+  const uint8_t* valid;    // (n,) bool
+  int64_t* out;            // (n,)
+  int32_t* stats;          // (n,) walk steps, or null
+  int64_t n;
 };
 
 __device__ __forceinline__ int64_t ld(const int64_t* p) {
@@ -155,7 +187,8 @@ struct Row {
 };
 
 template <bool kFused>
-__device__ __forceinline__ void load_row(const Args& a, int64_t k, Row& row) {
+__device__ __forceinline__ void load_row(const Index& a, int64_t k,
+                                         Row& row) {
   const int64_t kk = k < 0 ? 0 : (k < a.seq_len - 1 ? k : a.seq_len - 1);
   const int64_t kp = kk - (kk >= a.primary ? 1 : 0);
   const int64_t blk = kp >> 7;
@@ -190,7 +223,7 @@ __device__ __forceinline__ void mark(uint32_t* need, int64_t i) {
 // with the count of c (two counts a piece) and its BWT word pairs up to
 // the pair of x's word; bits 6 blk + 0..1 (counts) and 6 blk + 2..5 (word
 // pairs) of the row's block blk.  x < 0 and x == seq_len need no row.
-__device__ __forceinline__ void mark_row(const Args& a, int64_t x, int c) {
+__device__ __forceinline__ void mark_row(const Index& a, int64_t x, int c) {
   if (x < 0 || x >= a.seq_len) return;
   const int64_t kp = x - (x >= a.primary ? 1 : 0);
   const int64_t bit = 6 * (kp >> 7);
@@ -200,7 +233,7 @@ __device__ __forceinline__ void mark_row(const Args& a, int64_t x, int c) {
 }
 
 // occ(k, c) from a loaded row (bwt_occ with the primary-row adjustment)
-__device__ __forceinline__ int64_t occ(const Args& a, const L2& l2,
+__device__ __forceinline__ int64_t occ(const Index& a, const L2& l2,
                                        const Row& row, int c) {
   if (row.k < 0) return 0;
   if (row.k == a.seq_len) return l2[c + 1] - l2[c];
@@ -229,6 +262,44 @@ __device__ __forceinline__ int64_t pos_at(const void* p, int64_t i) {
   } else {
     return static_cast<int64_t>(__ldg(static_cast<const int32_t*>(p) + i));
   }
+}
+
+// The SA position of row k (bwt_sa, lib/bwa/bwt.c:86-96): with the full
+// SA (sa_intv 1) its entry, k clamped into the array as the plain gather
+// clamps it; else the inverse-Psi walk (bwt_invPsi, lib/bwa/bwt.c:53-59;
+// the plain _walk_step) to a sampled row, a step one round trip (the BWT
+// word of the row's char with its rank row), then the sampled entry plus
+// the steps.  Both kernels locate through it, so their walks cannot
+// drift; n_walk counts the steps.  With kNeed it marks the rank-row
+// pieces and the SA entry it needs.
+template <bool kFused, typename Pos, bool kNeed>
+__device__ __forceinline__ int64_t locate(const Index& a, const L2& l2,
+                                          int64_t k, int32_t& n_walk) {
+  if (a.sa_intv == 1) {
+    const int64_t r = k < 0 ? 0 : (k < a.n_sa - 1 ? k : a.n_sa - 1);
+    if (kNeed) mark(a.need, a.need_sa + r);
+    return pos_at<Pos>(a.sa_samp, r);
+  }
+  const int64_t mask = a.sa_intv - 1;
+  int64_t rows = k;
+  int64_t steps = 0;
+  while ((rows & mask) != 0) {
+    if (rows == a.primary) {
+      rows = 0;
+    } else {
+      const int64_t x = rows - (rows > a.primary ? 1 : 0);
+      const uint32_t bw = word32(a.bwt_words + (x >> 4));
+      Row rr;
+      load_row<kFused>(a, rows, rr);
+      const int ch = static_cast<int>((bw >> ((15 - (x & 15)) << 1)) & 3u);
+      if (kNeed) mark_row(a, rows, ch);  // its word too
+      rows = l2[ch] + occ(a, l2, rr, ch);
+    }
+    ++steps;
+    ++n_walk;
+  }
+  if (kNeed) mark(a.need, a.need_sa + (rows >> a.log2_intv));
+  return steps + pos_at<Pos>(a.sa_samp, rows >> a.log2_intv);
 }
 
 // the 16 text chars p - 1, p - 2, ..., p - 16 as 3-bit groups, p - 1 in
@@ -304,36 +375,7 @@ __global__ void __launch_bounds__(kThreads) seed_ext_kernel(const Args a) {
       if (!alive) break;
       if (k != l) continue;
       // one row at the block's end: locate it (_resolve_rounds' sa_lookup)
-      int64_t p;
-      if (a.sa_intv == 1) {
-        const int64_t r = k < 0 ? 0 : (k < a.n_sa - 1 ? k : a.n_sa - 1);
-        p = pos_at<Pos>(a.sa_samp, r);
-        if (needs) mark(a.need, a.need_sa + r);
-      } else {
-        const int64_t mask = a.sa_intv - 1;
-        int64_t rows = k;
-        int64_t steps = 0;
-        while ((rows & mask) != 0) {  // _walk_step (bwt_invPsi)
-          if (rows == a.primary) {
-            rows = 0;
-          } else {
-            const int64_t x = rows - (rows > a.primary ? 1 : 0);
-            const uint32_t bw = word32(a.bwt_words + (x >> 4));
-            Row rr;
-            load_row<kFused>(a, rows, rr);
-            const int ch = static_cast<int>((bw >> ((15 - (x & 15)) << 1)) &
-                                            3u);
-            if (needs) mark_row(a, rows, ch);  // its word too
-            rows = l2[ch] + occ(a, l2, rr, ch);
-          }
-          ++steps;
-          ++n_walk;
-        }
-        p = steps + pos_at<Pos>(a.sa_samp, rows >> a.log2_intv);
-        if (needs) {
-          mark(a.need, a.need_sa + (rows >> a.log2_intv));
-        }
-      }
+      int64_t p = locate<kFused, Pos, needs>(a, l2, k, n_walk);
       // the text left of p against the complemented read, 16 chars a
       // round trip
       for (;;) {
@@ -392,29 +434,92 @@ __global__ void __launch_bounds__(kThreads) seed_ext_kernel(const Args a) {
   }
 }
 
-template <bool kFused, int kDiag>
-int launch_pos(const Args& a, int pos_bytes, cudaStream_t stream) {
-  const unsigned grid =
-      static_cast<unsigned>((a.n_lanes + kThreads - 1) / kThreads);
-  if (pos_bytes == 4) {
-    seed_ext_kernel<kFused, int32_t, kDiag><<<grid, kThreads, 0, stream>>>(
-        a);
+// The locate of the seeder's multi-hit slots (_seed_anchors_impl's
+// sa_lookup): one thread per row, walked to its sampled row by locate;
+// an invalid lane writes 0.  kDiag 1 writes each lane's walk steps to
+// stats, kDiag 2 marks the need bitmap.
+template <bool kFused, typename Pos, int kDiag>
+__global__ void __launch_bounds__(kThreads) sa_locate_kernel(
+    const LocArgs a) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads +
+                    threadIdx.x;
+  if (i >= a.n) return;
+  int32_t n_walk = 0;
+  int64_t p = 0;
+  if (a.valid[i] != 0) {
+    const L2 l2{pos_at<Pos>(a.l2, 0), pos_at<Pos>(a.l2, 1),
+                pos_at<Pos>(a.l2, 2), pos_at<Pos>(a.l2, 3),
+                pos_at<Pos>(a.l2, 4)};
+    p = locate<kFused, Pos, kDiag == 2>(a, l2, a.rows[i], n_walk);
+  }
+  a.out[i] = p;
+  if (kDiag == 1) a.stats[i] = n_walk;
+}
+
+// One launch of seed_ext_kernel (kLocate false) or sa_locate_kernel over
+// n lanes, the instantiation picked by the layout, the position dtype's
+// bytes and the diagnostics asked for (stats: 1, need: 2, else 0).
+template <bool kLocate, bool kFused, int kDiag, typename A>
+int launch_pos(const A& a, int64_t n, int pos_bytes, cudaStream_t stream) {
+  const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  if constexpr (kLocate) {
+    if (pos_bytes == 4) {
+      sa_locate_kernel<kFused, int32_t, kDiag>
+          <<<grid, kThreads, 0, stream>>>(a);
+    } else {
+      sa_locate_kernel<kFused, int64_t, kDiag>
+          <<<grid, kThreads, 0, stream>>>(a);
+    }
   } else {
-    seed_ext_kernel<kFused, int64_t, kDiag><<<grid, kThreads, 0, stream>>>(
-        a);
+    if (pos_bytes == 4) {
+      seed_ext_kernel<kFused, int32_t, kDiag>
+          <<<grid, kThreads, 0, stream>>>(a);
+    } else {
+      seed_ext_kernel<kFused, int64_t, kDiag>
+          <<<grid, kThreads, 0, stream>>>(a);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kFused>
-int launch_diag(const Args& a, int pos_bytes, cudaStream_t stream) {
-  return a.stats != nullptr  ? launch_pos<kFused, 1>(a, pos_bytes, stream)
-         : a.need != nullptr ? launch_pos<kFused, 2>(a, pos_bytes, stream)
-                             : launch_pos<kFused, 0>(a, pos_bytes, stream);
+template <bool kLocate, typename A>
+int launch(const A& a, int64_t n, bool fused, int pos_bytes,
+           cudaStream_t stream) {
+  const int diag = a.stats != nullptr ? 1 : a.need != nullptr ? 2 : 0;
+  if (fused) {
+    return diag == 1 ? launch_pos<kLocate, true, 1>(a, n, pos_bytes, stream)
+         : diag == 2 ? launch_pos<kLocate, true, 2>(a, n, pos_bytes, stream)
+                     : launch_pos<kLocate, true, 0>(a, n, pos_bytes, stream);
+  }
+  return diag == 1 ? launch_pos<kLocate, false, 1>(a, n, pos_bytes, stream)
+       : diag == 2 ? launch_pos<kLocate, false, 2>(a, n, pos_bytes, stream)
+                   : launch_pos<kLocate, false, 0>(a, n, pos_bytes, stream);
 }
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// The index part of both entries' arguments, or false if it is not one
+// the kernels take.
+bool make_index(Index& ix, const void* rank_a, const void* rank_b,
+                const void* bwt_words, const void* sa_samp, const void* l2,
+                void* need, long long need_sa, long long seq_len,
+                long long primary, long long n_sa, int sa_intv,
+                int pos_bytes, int fused) {
+  if (sa_intv <= 0 || (sa_intv & (sa_intv - 1)) != 0 ||
+      (pos_bytes != 4 && pos_bytes != 8) || (!fused && rank_b == nullptr) ||
+      !aligned16(rank_a) || (!fused && !aligned16(rank_b))) {
+    return false;
+  }
+  int log2_intv = 0;
+  while ((1 << log2_intv) < sa_intv) ++log2_intv;
+  ix = Index{static_cast<const int64_t*>(rank_a),
+             static_cast<const int64_t*>(rank_b),
+             static_cast<const int64_t*>(bwt_words), sa_samp, l2,
+             static_cast<uint32_t*>(need), need_sa, seq_len, primary, n_sa,
+             sa_intv, log2_intv};
+  return true;
 }
 
 }  // namespace
@@ -446,28 +551,50 @@ extern "C" int lf_seed_ext(
     long long n_lanes, int L, int W16, int phase1_steps, long long seq_len,
     long long primary, long long n_sa, long long n_pac, int sa_intv,
     int pos_bytes, int fused, void* stream) {
-  if (L <= 0 || W16 * 16 < L || phase1_steps <= 0 || sa_intv <= 0 ||
-      n_pac <= 0 || (sa_intv & (sa_intv - 1)) != 0 ||
-      (pos_bytes != 4 && pos_bytes != 8) ||
-      (!fused && rank_b == nullptr) || !aligned16(rank_a) ||
-      (stats != nullptr && need != nullptr) ||
-      (!fused && !aligned16(rank_b))) {
+  Index ix;
+  if (!make_index(ix, rank_a, rank_b, bwt_words, sa_samp, l2, need, need_sa,
+                  seq_len, primary, n_sa, sa_intv, pos_bytes, fused) ||
+      L <= 0 || W16 * 16 < L || phase1_steps <= 0 || n_pac <= 0 ||
+      (stats != nullptr && need != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_lanes <= 0) return 0;
-  int log2_intv = 0;
-  while ((1 << log2_intv) < sa_intv) ++log2_intv;
   auto i64 = [](const void* p) { return static_cast<const int64_t*>(p); };
   auto o64 = [](void* p) { return static_cast<int64_t*>(p); };
-  const Args a{static_cast<const uint8_t*>(alive0), i64(k0), i64(l0),
+  const Args a{ix, static_cast<const uint8_t*>(alive0), i64(k0), i64(l0),
                i64(m0), i64(pos_f), i64(b_lane), i64(rw), i64(lens),
-               i64(rank_a), i64(rank_b), i64(bwt_words), sa_samp, l2,
                i64(pac_words), o64(k_out), o64(l_out), o64(m_out),
                o64(rpos_out), static_cast<uint8_t*>(rflag_out),
-               static_cast<int32_t*>(stats), static_cast<uint32_t*>(need),
-               need_sa, need_pac, need_rw, n_lanes, seq_len, primary, n_sa,
-               n_pac, L, W16, phase1_steps, sa_intv, log2_intv};
-  auto st = static_cast<cudaStream_t>(stream);
-  return fused ? launch_diag<true>(a, pos_bytes, st)
-               : launch_diag<false>(a, pos_bytes, st);
+               static_cast<int32_t*>(stats), need_pac, need_rw, n_lanes,
+               n_pac, L, W16, phase1_steps};
+  return launch<false>(a, n_lanes, fused != 0, pos_bytes,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The locate of n rows (int64) where valid (bool) is set, over the index
+// as lf_seed_ext takes it, with sa_intv a power of two above 1: out (n,)
+// int64, each valid row's SA position and 0 for the rest; stats (n,)
+// int32 or null: each lane's walk steps; need (bits) int32 zeros or null
+// (not with stats): the bitmap of the input pieces the walks need,
+// segments at bits 0 (rank rows, as lf_seed_ext's) and need_sa (sa_samp
+// entries).  Returns a cudaError_t (0 on a clean launch).
+extern "C" int lf_sa_locate(
+    const void* rows, const void* valid, const void* rank_a,
+    const void* rank_b, const void* bwt_words, const void* sa_samp,
+    const void* l2, void* out, void* stats, void* need, long long need_sa,
+    long long n, long long seq_len, long long primary, long long n_sa,
+    int sa_intv, int pos_bytes, int fused, void* stream) {
+  Index ix;
+  if (!make_index(ix, rank_a, rank_b, bwt_words, sa_samp, l2, need, need_sa,
+                  seq_len, primary, n_sa, sa_intv, pos_bytes, fused) ||
+      sa_intv < 2 || (stats != nullptr && need != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 0) return 0;
+  const LocArgs a{ix, static_cast<const int64_t*>(rows),
+                  static_cast<const uint8_t*>(valid),
+                  static_cast<int64_t*>(out), static_cast<int32_t*>(stats),
+                  n};
+  return launch<true>(a, n, fused != 0, pos_bytes,
+                      static_cast<cudaStream_t>(stream));
 }

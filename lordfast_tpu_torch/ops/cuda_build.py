@@ -2,7 +2,7 @@
 ``myers.cu`` (the Myers gap DP, ``gap_dp_cuda``), ``affine_ext.cu``
 (ksw_extend2, ``affine_cuda``), ``chain_dp.cu`` (the chaining DP and its
 backtrack, ``chain_cuda``) and ``seed_ext.cu`` (the seeder's staged
-extension, ``fm_index_cuda``).
+extension and the locate walk of a sampled SA, ``fm_index_cuda``).
 
 Each source is compiled by ``nvcc`` for sm_90a into a shared library
 with a plain C interface in ``lordfast_tpu_torch/_build`` at first use

@@ -21,14 +21,17 @@ int64 inside and cast to the index's position dtype on output.
 On a CUDA tensor the staged extension (``_staged_ext``: the greedy
 extension steps and the occ==1 finish) is one launch of the hand-written
 kernel ``csrc/seed_ext.cu`` (``fm_index_cuda.seed_ext``), one thread per
-lane.  The plain PyTorch loops here are its plain version, the CPU path
-and the oracle.  Where the JAX version bounds its lockstep loops with
-fixed-width compaction (``top_k`` into capped buffers inside
-``lax.cond``), they compact to the exact surviving lane set with
-``nonzero`` — eager PyTorch has dynamic shapes.  Which lanes ride which
-stage does not change any lane's result, so the outputs are the JAX
-version's.  The locate walk (``sa_lookup``) stays plain PyTorch on every
-device: with a full SA it is one gather.
+lane, and with a sampled SA the locate of the multi-hit slots
+(``sa_lookup``) is one launch of the same library's locate kernel
+(``fm_index_cuda.sa_locate``), one thread per slot; with a full SA the
+locate is one gather.  The plain PyTorch loops here are their plain
+versions, the CPU path, the path of ``plain`` (``MappingEngine(
+plain_loops=True)``) and the oracle.  Where the JAX version bounds its
+lockstep loops with fixed-width compaction (``top_k`` into capped
+buffers inside ``lax.cond``), they compact to the exact surviving lane
+set with ``nonzero`` — eager PyTorch has dynamic shapes.  Which lanes
+ride which stage does not change any lane's result, so the outputs are
+the JAX version's.
 
 Sharded index (``group=``, parallel/sharded_index.py): the row arrays
 ``fm_blocks`` / ``occ_cp`` / ``bwt_blocks`` / ``bwt_words`` / ``sa_samp``
@@ -40,6 +43,8 @@ extension loop (no occ==1 text-compare fast path) and the walk over
 every slot, each loop ending on a group-wide any (``_global_any``), so
 all ranks make the same calls.  The ``nonzero`` compactions above would
 give each rank its own lane set and stay on the ``group=None`` path.
+Neither kernel serves a sharded index: its walk and its extension stay
+eager, since each step makes collective calls, which a kernel cannot.
 """
 
 from __future__ import annotations
@@ -204,10 +209,18 @@ def sa_lookup(arrs, meta, rows, valid, group=None):
 
     With the full SA on device (sa_intv == 1) locate is one gather.  Else
     the walk runs in two phases like the JAX version's: intv/2 lockstep
-    steps over every lane (the remaining walk length is uniform in
-    [0, intv), so about half the lanes finish), then the survivors are
-    compacted and walked to the end.  Under a sharded index (group) every
-    lane walks until no lane of any rank is active, as JAX's does."""
+    steps over every lane, then the survivors are compacted and walked
+    to the end.  The index samples by row (``sa_full[::intv]``), so a
+    walk ends at the first row that is a multiple of intv: its length is
+    geometric with mean ~intv (not uniform in [0, intv)), and the
+    longest of n lanes ~intv ln n.  At intv 32 (chip_smoke.py's
+    sa_locate lines): v2's first locate call, 22,044 lanes, a mean of
+    31.2 steps, p99 146, the longest 340; a 300 Mbp random genome's,
+    147,386 lanes, 31.0, 146 and 459.  So ~60% of the lanes survive the
+    first intv/2 steps.  Under a sharded index (group) every lane walks
+    until no lane of any rank is active, as JAX's does.  Each walk
+    (sa_intv > 1) adds one to ``sa_lookup.entries``: on the card, the
+    locate kernel (``fm_index_cuda.sa_locate``) replaces it."""
     rows = rows.long()
     intv = meta["sa_intv"]
     sa = arrs["sa_samp"]
@@ -216,6 +229,7 @@ def sa_lookup(arrs, meta, rows, valid, group=None):
         if group is None:
             r = r.clamp(0, sa.shape[0] - 1)
         return torch.where(valid, _row_gather(sa, r, group).long(), 0)
+    sa_lookup.entries += 1
     mask = intv - 1
     log2_intv = int(intv).bit_length() - 1
     rows = torch.where(valid, rows, 0)
@@ -245,6 +259,9 @@ def sa_lookup(arrs, meta, rows, valid, group=None):
         idx, r, s = idx[keep], r[keep], s[keep]
     out = steps + sa[rows >> log2_intv].long()
     return torch.where(valid, out, 0)
+
+
+sa_lookup.entries = 0
 
 
 class SeedBatch(NamedTuple):
@@ -415,7 +432,10 @@ def _seed_anchors_impl(arrs, reads, read_lens, pos, meta, sampling_count,
     sharded index's stripes (this rank's rows of the batch; every rank
     passes the same B).  The staged extension runs in the seed_ext
     kernel on a CUDA device, in _staged_ext on the CPU or with ``plain``
-    (the smoke's and the tests' comparison pass)."""
+    (the smoke's and the tests' comparison pass); with a sampled SA, the
+    locate of the slots the extension did not resolve runs in the
+    sa_locate kernel on a CUDA device, in sa_lookup on the CPU or with
+    ``plain``."""
     dev = reads.device
     pdt = torch_pos_dtype(meta)
     B, L = reads.shape
@@ -511,7 +531,13 @@ def _seed_anchors_impl(arrs, reads, read_lens, pos, meta, sampling_count,
     if group is None:
         sel = walk.nonzero().squeeze(1)
         p_occ = torch.zeros(B * MS, dtype=torch.int64, device=dev)
-        p_occ[sel] = sa_lookup(arrs, meta, row.reshape(-1)[sel], walk[sel])
+        rows_sel = row.reshape(-1)[sel]
+        if meta["sa_intv"] > 1 and dev.type == "cuda" and not plain:
+            from .fm_index_cuda import sa_locate
+
+            p_occ[sel] = sa_locate(arrs, meta, rows_sel, walk[sel])
+        else:
+            p_occ[sel] = sa_lookup(arrs, meta, rows_sel, walk[sel])
     else:
         p_occ = sa_lookup(arrs, meta, row.reshape(-1), walk, group)
     p_occ = torch.where(res_f, rposf.gather(1, sidx), p_occ.view(B, MS))

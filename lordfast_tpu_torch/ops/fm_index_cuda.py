@@ -1,4 +1,4 @@
-"""The hand-written CUDA seed-extension kernel and its wrapper.
+"""The hand-written CUDA seeding kernels and their wrappers.
 
 ``seed_ext`` runs the seeder's staged greedy extension of every lane (a
 read times a sample position) with its occ == 1 finish in one launch of
@@ -16,7 +16,15 @@ The kernel replaces the JAX package's device loops of
 ``lordfast_tpu/ops/fm_index.py`` ``_seed_anchors_impl`` (:387):
 ``ext_loop_flat`` (:485, ``lax.while_loop`` :492), ``_resolve_rounds``
 (:497, :568) and ``staged_ext`` (:602); see the source for its design
-and what bounds it.  Build: ``cuda_build`` (nvcc at first use, ctypes).
+and what bounds it.
+
+``sa_locate`` walks a batch of rows to their sampled SA rows (the
+locate of the seeder's multi-hit slots with a sampled SA) in one launch
+of the same library's ``sa_locate_kernel``, one thread per row, each to
+its own end; it replaces the JAX package's ``sa_lookup`` (:267,
+``lax.while_loop`` :303).  Its plain version is ``fm_index.sa_lookup``.
+Both kernels locate through one device function, so their walks cannot
+drift.  Build: ``cuda_build`` (nvcc at first use, ctypes).
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ import torch
 
 from . import cuda_build
 from .cuda_build import check_tensor
-from .fm_index import _staged_ext
+from .fm_index import _staged_ext, sa_lookup
 
 
 def _fn():
@@ -37,6 +45,15 @@ def _fn():
         f.restype = ci
         f.argtypes = ([vp] * 21 + [cl] * 3 + [cl, ci, ci, ci, cl, cl, cl,
                                                cl, ci, ci, ci] + [vp])
+    return f
+
+
+def _locate_fn():
+    f = cuda_build.load("seed_ext").lf_sa_locate
+    if f.argtypes is None:
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        f.restype = ci
+        f.argtypes = [vp] * 10 + [cl] * 5 + [ci] * 3 + [vp]
     return f
 
 
@@ -61,17 +78,36 @@ def _rank_arrays(arrs, dev):
     return False, cp, bb
 
 
-def _need_segments(arrs, fused, rank_a, rank_b, sa, B, W16):
+def _index_args(arrs, meta, dev, who):
+    """(fused, rank_a, rank_b, sa_samp, L2, sa_intv) of a replicated
+    index's arrays on dev, checked as both kernels take them."""
+    intv = int(meta["sa_intv"])
+    if intv < 1 or intv & (intv - 1):
+        raise ValueError(f"{who}: sa_intv {intv} is not a power of two")
+    fused, rank_a, rank_b = _rank_arrays(arrs, dev)
+    sa, l2 = arrs["sa_samp"], arrs["L2"]
+    if sa.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{who}: sa_samp dtype {sa.dtype}, expected "
+                        "int32 or int64")
+    check_tensor("sa_samp", sa, sa.dtype, (sa.shape[0],), dev)
+    check_tensor("L2", l2, sa.dtype, (5,), dev)
+    x = arrs["bwt_words"]
+    check_tensor("bwt_words", x, torch.int64, (x.shape[0],), dev)
+    return fused, rank_a, rank_b, sa, l2, intv
+
+
+def _need_segments(arrs, fused, rank_a, rank_b, sa, B=None, W16=None):
     """The need bitmap's segments as (name, first bit, bits, bytes a
     bit), each starting on a 32-bit word: the rank rows' 16-byte pieces (6
     a block of 128 rows: two of counts, four of BWT word pairs), the
-    sa_samp entries, the pac words and the read words."""
+    sa_samp entries and, for seed_ext (B reads of W16 words), the pac
+    words and the read words."""
     nb = rank_a.shape[0] if fused else max(rank_a.shape[0], rank_b.shape[0])
+    kinds = [("rank", 6 * nb, 16), ("sa", sa.shape[0], sa.element_size())]
+    if B is not None:
+        kinds += [("pac", arrs["pac_words"].shape[0], 8), ("rw", B * W16, 8)]
     segs, bit = [], 0
-    for name, n, size in (("rank", 6 * nb, 16),
-                          ("sa", sa.shape[0], sa.element_size()),
-                          ("pac", arrs["pac_words"].shape[0], 8),
-                          ("rw", B * W16, 8)):
+    for name, n, size in kinds:
         segs.append((name, bit, n, size))
         bit += -(-n // 32) * 32
     return segs, bit
@@ -122,9 +158,8 @@ def seed_ext(arrs, meta, rd, alive0, k0, l0, m0, pos_f, b_lane,
         raise ValueError(f"seed_ext: unsupported device {dev}")
     if phase1_steps < 1:
         raise ValueError(f"seed_ext: phase1_steps {phase1_steps} < 1")
-    intv = int(meta["sa_intv"])
-    if intv < 1 or intv & (intv - 1):
-        raise ValueError(f"seed_ext: sa_intv {intv} is not a power of two")
+    fused, rank_a, rank_b, sa, l2, intv = _index_args(arrs, meta, dev,
+                                                      "seed_ext")
     B, W16 = rw.shape
     L = rd.L
     BS = alive0.shape[0]
@@ -134,16 +169,8 @@ def seed_ext(arrs, meta, rd, alive0, k0, l0, m0, pos_f, b_lane,
     for name, x in (("k0", k0), ("l0", l0), ("m0", m0), ("pos_f", pos_f),
                     ("b_lane", b_lane)):
         check_tensor(name, x, torch.int64, (BS,), dev)
-    fused, rank_a, rank_b = _rank_arrays(arrs, dev)
-    sa, l2 = arrs["sa_samp"], arrs["L2"]
-    if sa.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"seed_ext: sa_samp dtype {sa.dtype}, expected "
-                        "int32 or int64")
-    check_tensor("sa_samp", sa, sa.dtype, (sa.shape[0],), dev)
-    check_tensor("L2", l2, sa.dtype, (5,), dev)
-    for name in ("bwt_words", "pac_words"):
-        x = arrs[name]
-        check_tensor(name, x, torch.int64, (x.shape[0],), dev)
+    x = arrs["pac_words"]
+    check_tensor("pac_words", x, torch.int64, (x.shape[0],), dev)
     if not 1 <= L <= 16 * W16:
         raise ValueError(f"seed_ext: reads of width {L} in {W16} words")
     outs = [torch.empty(BS, dtype=torch.int64, device=dev) for _ in range(4)]
@@ -186,3 +213,67 @@ def seed_ext(arrs, meta, rd, alive0, k0, l0, m0, pos_f, b_lane,
 
 
 seed_ext.launches = 0
+
+
+def sa_locate(arrs, meta, rows, valid, want_stats: bool = False,
+              want_need: bool = False):
+    """SA positions of rows (n,) int64 where valid (n,) bool is set, 0
+    elsewhere, as ``fm_index.sa_lookup`` returns them (int64), over a
+    replicated index with a sampled SA (sa_intv a power of two above 1).
+
+    CUDA tensors launch ``sa_locate_kernel`` on the current stream
+    (counted in ``sa_locate.launches``), and with ``want_stats`` also
+    return each lane's walk steps (n,) int32, or with ``want_need`` (not
+    both) a dict of the bytes of the index's arrays the walks need, each
+    piece counted once (rank, sa: ``_need_segments``); CPU tensors run
+    the plain version (neither)."""
+    if want_stats and want_need:
+        raise ValueError("sa_locate: want_stats or want_need, not both")
+    if rows.device.type == "cpu":
+        if want_stats or want_need:
+            raise ValueError("sa_locate: the walk steps and the needed "
+                             "bytes come from the kernel; the plain "
+                             "version has none")
+        return sa_lookup(arrs, meta, rows, valid)
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"sa_locate: unsupported device {dev}")
+    fused, rank_a, rank_b, sa, l2, intv = _index_args(arrs, meta, dev,
+                                                      "sa_locate")
+    if intv < 2:
+        raise ValueError("sa_locate: a full SA (sa_intv 1) is one gather, "
+                         "not a walk")
+    n = rows.shape[0]
+    check_tensor("rows", rows, torch.int64, (n,), dev)
+    check_tensor("valid", valid, torch.bool, (n,), dev)
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    stats = (torch.empty(n, dtype=torch.int32, device=dev)
+             if want_stats else None)
+    need, need_sa = None, 0
+    if want_need:
+        segs, n_bits = _need_segments(arrs, fused, rank_a, rank_b, sa)
+        need = torch.zeros(n_bits // 32, dtype=torch.int32, device=dev)
+        need_sa = {name: bit for name, bit, _, _ in segs}["sa"]
+    if n:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = _locate_fn()(
+                rows.data_ptr(), valid.data_ptr(), rank_a.data_ptr(),
+                rank_b.data_ptr() if rank_b is not None else None,
+                arrs["bwt_words"].data_ptr(), sa.data_ptr(), l2.data_ptr(),
+                out.data_ptr(), stats.data_ptr() if want_stats else None,
+                need.data_ptr() if want_need else None, need_sa, n,
+                meta["seq_len"], meta["primary"], sa.shape[0], intv,
+                sa.element_size(), int(fused), stream)
+        if rc != 0:
+            raise RuntimeError(f"sa_locate: kernel launch failed (cudaError "
+                               f"{rc})")
+        sa_locate.launches += 1
+    if want_stats:
+        return out, stats
+    if want_need:
+        return out, _need_bytes(need, segs)
+    return out
+
+
+sa_locate.launches = 0

@@ -9,7 +9,9 @@ kernel's 32-seed tile edges with planted exact ties, and 1024 full
 windows of 512 seeds) and ``seed_ext`` against ``_staged_ext`` (every
 lane's k, l, m, rpos, rflag; full and sampled SA, fused and split rank
 rows; runs of its 16-char compare ending at every offset of a trip, at
-an N, the read's end, the text's start and MAX_ANCHOR_LEN), and the
+an N, the read's end, the text's start and MAX_ANCHOR_LEN), ``sa_locate``
+against ``sa_lookup`` (every row of a small genome's text and edge lanes
+at sa_intv 2 to 64, both rank layouts, int32 and int64 sa_samp), and the
 dispatch of ``chain_seeds`` and of the seeder to them.  Needs an
 NVIDIA GPU (marker ``cuda``) and skips
 without one.  This file imports neither jax nor lordfast_tpu, so it also
@@ -563,3 +565,99 @@ def test_cuda_loop_wrappers_reject_bad_inputs(cuda_device, genome):
             dict(arrs, fm_blocks=arrs["fm_blocks"].reshape(-1)[1:-11]
                  .reshape(-1, 12)), idx.meta, rd, *lanes, 6)
     assert fm_index_cuda.seed_ext.launches == before
+
+
+def _sampled(path, sa_interval, device):
+    """The genome's index with the full SA sliced to sa_interval
+    (chip_smoke.slice_sa), its arrays on device, and the full SA."""
+    from lordfast_tpu_torch.index.builder import build_index
+
+    full = build_index(path, LordfastConfig(kmer_cache_k=6, sa_interval=1),
+                       verbose=False)
+    idx = chip_smoke.slice_sa(full, sa_interval)
+    return idx, idx.device_arrays(device), full.sa_samp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sa_interval", [2, 4, 16, 32, 64])
+def test_cuda_sa_locate_matches_plain(cuda_device, genome, sa_interval):
+    # every row of the text (90% valid) and the edge lanes, both rank
+    # layouts, int32 and int64 sa_samp, the pipeline's instantiation and
+    # the two diagnostic ones (chip_smoke.check_sa_locate); each valid
+    # row's position is the full SA's
+    idx, arrs, sa_full = _sampled(genome[0], sa_interval, cuda_device)
+    n = idx.seq_len + 1
+    rows = torch.arange(n, device=cuda_device)
+    valid = torch.from_numpy(
+        np.random.default_rng(sa_interval).random(n) < 0.9).to(cuda_device)
+    rec = dict(arrs=arrs, meta=idx.meta, rows=rows, valid=valid)
+    got = chip_smoke.check_sa_locate(f"sa_intv {sa_interval}", idx, rec,
+                                     16.7e12, timed=True)
+    assert got["walk_steps"] > 0 and got["longest_walk"] >= sa_interval - 1
+    out = fm_index_cuda.sa_locate(arrs, idx.meta, rows, valid).cpu()
+    full = torch.from_numpy(sa_full.astype(np.int64))
+    v = valid.cpu()
+    assert torch.equal(out[v], full[v]) and bool((out[~v] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sa_interval", [1, 32])
+def test_cuda_seeding_routes_the_locate(cuda_device, genome, sa_interval):
+    # a sampled SA's locate launches sa_locate once and walks never on
+    # cuda, plain=True walks and launches it never, the seeds are equal;
+    # a full SA's is one gather either way.  Anchors from 8 chars: on a
+    # 30 kb random genome the default 14 leaves no multi-hit slot to
+    # locate (every anchor is resolved by the occ == 1 finish)
+    path, reads, lens = genome
+    idx, arrs, _ = _sampled(path, sa_interval, cuda_device)
+    cfg = LordfastConfig(kmer_cache_k=6, sampling_count=200,
+                         min_anchor_len=8)
+    r = torch.from_numpy(reads).to(cuda_device)
+    n = torch.from_numpy(lens).to(cuda_device)
+    pos = torch.from_numpy(fm_index.sample_positions_host(
+        lens, cfg.sampling_count)).to(cuda_device)
+    args = (arrs, r, n, pos, idx.meta, cfg.sampling_count,
+            cfg.min_anchor_len, cfg.max_ref_hits, cfg.max_seeds_per_read,
+            cfg.seed_phase1_steps)
+    sampled = sa_interval > 1
+    chip_smoke.reset_launches()
+    got = fm_index._seed_anchors_impl(*args)
+    counts = chip_smoke.read_launches()
+    assert (counts["sa_locate"], counts["sa_lookup"]) == (int(sampled), 0)
+    chip_smoke.reset_launches()
+    want = fm_index._seed_anchors_impl(*args, plain=True)
+    counts = chip_smoke.read_launches()
+    assert counts["sa_locate"] == 0
+    assert (counts["sa_lookup"] > 0) == sampled
+    for name in fm_index.SeedBatch._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.cuda
+def test_cuda_sa_locate_rejects_bad_inputs(cuda_device, genome):
+    idx, arrs, _ = _sampled(genome[0], 32, cuda_device)
+    meta = idx.meta
+    rows = torch.arange(100, device=cuda_device)
+    valid = torch.ones(100, dtype=torch.bool, device=cuda_device)
+    before = fm_index_cuda.sa_locate.launches
+    with pytest.raises(ValueError):  # a full SA is a gather, not a walk
+        fm_index_cuda.sa_locate(arrs, dict(meta, sa_intv=1), rows, valid)
+    with pytest.raises(ValueError):
+        fm_index_cuda.sa_locate(arrs, dict(meta, sa_intv=24), rows, valid)
+    with pytest.raises(TypeError):
+        fm_index_cuda.sa_locate(arrs, meta, rows.int(), valid)
+    with pytest.raises(ValueError):
+        fm_index_cuda.sa_locate(arrs, meta, rows, valid.cpu())
+    with pytest.raises(TypeError):  # sa_samp and L2 of one dtype
+        fm_index_cuda.sa_locate(dict(arrs, L2=arrs["L2"].long()), meta,
+                                rows, valid)
+    with pytest.raises(ValueError):  # one diagnostic a launch
+        fm_index_cuda.sa_locate(arrs, meta, rows, valid, want_stats=True,
+                                want_need=True)
+    with pytest.raises(ValueError):  # rank rows off a 16-byte boundary
+        fm_index_cuda.sa_locate(
+            dict(arrs, fm_blocks=arrs["fm_blocks"].reshape(-1)[1:-11]
+                 .reshape(-1, 12)), meta, rows, valid)
+    assert fm_index_cuda.sa_locate.launches == before
+    empty = fm_index_cuda.sa_locate(arrs, meta, rows[:0], valid[:0])
+    assert empty.shape == (0,) and fm_index_cuda.sa_locate.launches == before
