@@ -5,7 +5,10 @@
 
 (``--mesh``: phases 1, 3, 5 and 10 only, for a host of several cards;
 ``--against DIR``: the loop kernels of this checkout against those of
-the checkout at DIR, timed in turns, see ``compare_loops``.)
+the checkout at DIR, timed in turns, see ``compare_loops``: chain_dp and
+seed_ext at v2's call, chain_dp on full windows, sa_locate at v2's call
+over its SA sliced to 32, at the 300 Mbp genome's and on its 1,048,576
+rows.)
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. environment: torch/CUDA versions, the card's name, power limit and
@@ -65,11 +68,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      v2 passes at sa_intv 32 and 16, each with edge lanes (the primary
      row, sampled rows, row seq_len, invalid lanes), in both rank
      layouts and with int32 and int64 sa_samp: every position equal;
-     the walks' steps, warp efficiency and longest walk (a diagnostic
-     instantiation), timed at sa_intv 32 against one plain pass, with
-     its bound (the rank-row pieces and SA entries its walks need, each
-     once, from the kernel's bitmap, and the lanes' own bytes, over the
-     HBM rate);
+     the walks' steps, longest walk and warp efficiency under the lane
+     queue (a diagnostic instantiation's per-warp counts), timed at
+     sa_intv 32 against one plain pass, with its bound (the rank-row
+     pieces and SA entries its walks need, each once, from the kernel's
+     bitmap, and the lanes' own bytes, over the HBM rate) and its
+     latency floor (the longest walk's steps times the ns of a
+     dependent load over a buffer of the rank arrays' size:
+     ``chase_ns``, a one-thread pointer chase);
 3. golden: MappingEngine(device="cuda") on tests/data (the golden test's
    config, the escalation offload on by default); the SAM must equal
    tests/data/golden.sam byte for byte, the offload must have fired, and
@@ -146,8 +152,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    other two; its seconds and peak RSS), 512 reads of
    ``bench.gen_gbp_reads``: two passes (the SAM repeats, >= 95% mapped),
    a plain_loops pass and the first 16 reads on the CPU (the same
-   records), and sa_locate on its first locate call (bit-equal, timed,
-   with its bound).
+   records), and sa_locate on its first locate call and on 1,048,576
+   seeded rows with every edge row (more than the card holds lanes at
+   once: the lane queue's case), each bit-equal, timed, with its bound
+   and its latency floor (a pointer chase over the index's 1.26 GB of
+   rank rows); then dp-n2's log on v1, v2 and the 300 Mbp genome (every
+   chain call of their first pass): the linked pairs with d >= 65,536
+   and with a d at which torch.log differs from the C library's log
+   (on the host CPU or on the card), and the largest d against the log
+   table's length (``phase_log_counts``).
 
 Phases 4 and 5 run the engine at verbosity 2, which adds the
 ``gpart_*`` counters (launches per bucket and part size) and prints them
@@ -224,11 +237,9 @@ AFFINE_OPS_PER_CELL = 16
 # difference and its absolute value, 2); on a linked pair only (an
 # unlinked one needs no float), the float operations: dp-n2 with d > 1,
 # 0.1 d, penalty log d, their sum, + reward, - pen and the compare (6),
-# with d <= 1 + reward, - 0 and the compare (3), and for d >= LOG_TABLE
-# the log itself (~20 operations in the CUDA math library's double log;
-# the log of a smaller d is a table entry, each distinct one read once,
-# counted as bytes); clasp, max, min, two products, their sum, - gsop and
-# the compare (7).  Float operations go over the card's FP64 rate
+# with d <= 1 + reward, - 0 and the compare (3); the log of d is a table
+# entry (chain.log_table), each distinct one read once, counted as bytes;
+# clasp, max, min, two products, their sum, - gsop and the compare (7).  Float operations go over the card's FP64 rate
 # outside the tensor cores (NVIDIA's H100 SXM data sheet, 34 TFLOP/s;
 # 67 for FP32, chain_dp_dtype "f32"), integer ones over the INT32 rate,
 # and the bound takes the slower of the two and the bytes.
@@ -236,7 +247,7 @@ FP64_FLOPS = 34e12
 FP32_FLOPS = 67e12
 CHAIN_INT_OPS = 4
 DPN2_D_OPS = 2
-DPN2_FAR_OPS, DPN2_NEAR_OPS, LOG_OPS, CLASP_OPS = 6, 3, 20, 7
+DPN2_FAR_OPS, DPN2_NEAR_OPS, CLASP_OPS = 6, 3, 7
 KERNELS = ("myers_dist", "myers_moves", "affine_extend", "chain_dp",
            "seed_ext", "sa_locate")
 # the loops these three kernels replace, counted on entry (sa_lookup
@@ -623,6 +634,41 @@ def make_windows(rng, W, N, counts, wrap=False):
         for i, (qp, tp, m) in enumerate(s):
             q[w, i], t[w, i], ln[w, i], va[w, i] = qp, tp, m, True
     return q, t, ln, va
+
+
+LOG_SEED_LEN = 2**17  # log_windows' first seed: longer than any penalty
+
+
+def log_windows(ds):
+    """One window of two seeds for each d of ds (int64 array): seed 0 at
+    q = t = 0 of length LOG_SEED_LEN, seed 1 at q = LOG_SEED_LEN, t =
+    LOG_SEED_LEN + d, of length 1, so that dr = 1, dt = d + 1 and dp-n2's
+    pair has that d and links; seed 1 takes it (its val, LOG_SEED_LEN +
+    reward - pen(d), beats its length 1 for every d of the log table),
+    so its dp carries the penalty's bits.  (q, t int64, len, valid)."""
+    import numpy as np
+
+    W = len(ds)
+    q = np.zeros((W, 2), np.int32)
+    t = np.zeros((W, 2), np.int64)
+    ln = np.ones((W, 2), np.int32)
+    q[:, 1] = LOG_SEED_LEN
+    t[:, 1] = LOG_SEED_LEN + np.asarray(ds, np.int64)
+    ln[:, 0] = LOG_SEED_LEN
+    return q, t, ln, np.ones((W, 2), bool)
+
+
+def log_window_dp(ds, cfg):
+    """The dp of log_windows' seed 1 in C doubles, as the reference
+    computes it (src/Chain.cpp:217-225, 275): (LOG_SEED_LEN + reward) -
+    (0.1 d + penalty log(d)), 0 penalty for d <= 1, each product and sum
+    rounded on its own, log the C library's (math.log)."""
+    import math
+
+    reward = cfg.chain_reward * cfg.min_anchor_len
+    return [(LOG_SEED_LEN + reward)
+            - (0.0 if d <= 1 else 0.1 * d + cfg.chain_penalty * math.log(d))
+            for d in (int(x) for x in ds)]
 
 
 # seed counts at chain_dp's tile edges (32 seeds a tile) and v2's deepest
@@ -1142,6 +1188,37 @@ def _wrap32(x):
     return ((x + 2**31) & 0xFFFFFFFF) - 2**31
 
 
+def _linked_d(ws, dpn2=True):
+    """The linked pairs j < i of every window of ws, a chunk of windows
+    at a time: dp-n2's d of each (int64), or with dpn2 False clasp's dx
+    of each pair linked under its precedence."""
+    import torch
+
+    N = ws.q_pos.shape[-1]
+    q, t, ln = (x.reshape(-1, N).long()
+                for x in (ws.q_pos, ws.t_pos, ws.length))
+    ok = ws.valid.reshape(-1, N)
+    dev = q.device
+    below = torch.arange(N, device=dev)[None, :] < torch.arange(
+        N, device=dev)[:, None]  # [i, j]: j < i
+    step = max(1, 2**24 // (N * N))
+    for w0 in range(0, q.shape[0], step):
+        sl = slice(w0, w0 + step)
+        qe = q[sl] + ln[sl] - 1  # the ends of j
+        te = t[sl] + ln[sl] - 1
+        live = below & ok[sl][:, None, :] & ok[sl][:, :, None]
+        if dpn2:
+            dr = _wrap32(q[sl][:, :, None] - qe[:, None, :])
+            dt = _wrap32(t[sl][:, :, None] - te[:, None, :])
+            link = live & (dr > 0) & (dt > 0)
+            dd = _wrap32(dr - dt)
+            yield torch.where(dd == -2**31, dd, dd.abs())[link]
+        else:
+            dy = _wrap32(q[sl][:, :, None] - qe[:, None, :] - 1)
+            dx = _wrap32(t[sl][:, :, None] - te[:, None, :] - 1)
+            yield dx[live & (dy >= 0) & (dx >= 0)]
+
+
 def chain_work(ws, cfg) -> dict:
     """What chain_dp's function needs on the windows ws under cfg's cost
     and float type, counted from the windows (see CHAIN_INT_OPS): the
@@ -1154,45 +1231,27 @@ def chain_work(ws, cfg) -> dict:
     import torch
 
     from lordfast_tpu_torch.config import ChainAlg
-    from lordfast_tpu_torch.ops import chain, chain_cuda
+    from lordfast_tpu_torch.ops import chain
 
     N = ws.q_pos.shape[-1]
-    q, t, ln = (x.reshape(-1, N).long()
-                for x in (ws.q_pos, ws.t_pos, ws.length))
     ok = ws.valid.reshape(-1, N)
-    W, dev = q.shape[0], q.device
+    W, dev = ok.shape[0], ok.device
     n = ok.sum(-1)
     dpn2 = cfg.chain_alg != ChainAlg.CLASP
     fsize = torch.empty((), dtype=chain._dp_dtype(cfg)).element_size()
-    below = torch.arange(N, device=dev)[None, :] < torch.arange(
-        N, device=dev)[:, None]  # [i, j]: j < i
-    seen = torch.zeros(chain_cuda.LOG_TABLE, dtype=torch.bool, device=dev)
+    seen = torch.zeros(chain.log_table_len(cfg), dtype=torch.bool,
+                       device=dev)
     linked = fp_ops = d_ops = 0
-    step = max(1, 2**24 // (N * N))
-    for w0 in range(0, W, step):
-        sl = slice(w0, w0 + step)
-        qe = q[sl] + ln[sl] - 1  # the ends of j
-        te = t[sl] + ln[sl] - 1
-        live = below & ok[sl][:, None, :] & ok[sl][:, :, None]
+    for d in _linked_d(ws, dpn2):
         if dpn2:
-            dr = _wrap32(q[sl][:, :, None] - qe[:, None, :])
-            dt = _wrap32(t[sl][:, :, None] - te[:, None, :])
-            link = live & (dr > 0) & (dt > 0)
-            dd = _wrap32(dr - dt)
-            d = torch.where(dd == -2**31, dd, dd.abs())[link]
             near = d <= 1
-            far = d >= chain_cuda.LOG_TABLE
             fp_ops += (DPN2_FAR_OPS * int((~near).sum())
-                       + DPN2_NEAR_OPS * int(near.sum())
-                       + LOG_OPS * int(far.sum()))
-            seen[d[~near & ~far]] = True
-            d_ops += DPN2_D_OPS * int(link.sum())
+                       + DPN2_NEAR_OPS * int(near.sum()))
+            seen[d[~near]] = True
+            d_ops += DPN2_D_OPS * len(d)
         else:
-            dy = _wrap32(q[sl][:, :, None] - qe[:, None, :] - 1)
-            dx = _wrap32(t[sl][:, :, None] - te[:, None, :] - 1)
-            link = live & (dy >= 0) & (dx >= 0)
-            fp_ops += CLASP_OPS * int(link.sum())
-        linked += int(link.sum())
+            fp_ops += CLASP_OPS * len(d)
+        linked += len(d)
     pairs = int((n * (n - 1) // 2).sum())
     tb = ws.t_pos.element_size()
     nbytes = (W * N + int(n.sum()) * (4 + tb + 4) + W * N * (4 + tb + 4)
@@ -1398,54 +1457,139 @@ def locate_work(rec, need) -> float:
                  + l2.numel() * l2.element_size())
 
 
-def check_sa_locate(tag, idx, rec, int_rate, timed=False):
+# check_sa_locate's beyond-residency case: more rows than the card holds
+# lanes at once (132 SMs x 2048 threads = 270,336), drawn over the rows
+# of the 300 Mbp index, so the lane queue hands most of them out as walks
+# end; and the pointer chase that gives a walk step's latency floor
+BEYOND_ROWS = 1 << 20
+BEYOND_SEED = 20261021
+CHASE_WARM, CHASE_HOPS, CHASE_SEED = 2_000, 50_000, 20261020
+
+
+def rank_bytes(arrs) -> int:
+    """Bytes of an index's rank arrays on the card (fm_blocks, or occ_cp
+    and bwt_blocks), which a walk step reads."""
+    return sum(arrs[k].numel() * arrs[k].element_size()
+               for k in ("fm_blocks", "occ_cp", "bwt_blocks") if k in arrs)
+
+
+def chase_ns(nbytes: int) -> float:
+    """Nanoseconds of one dependent load on the card over a buffer of
+    nbytes: one thread follows a seeded random cyclic permutation of
+    nbytes / 8 int64 indexes (csrc/seed_ext.cu chase_kernel, CHASE_WARM
+    hops, then CHASE_HOPS timed on the card's timer).  A walk step's
+    load depends on the previous step's, so this is its floor: an
+    L2-sized buffer (v2's index, 42 MB of rank rows) hits L2 mostly, a
+    1.26 GB one (the 300 Mbp index) goes to HBM, with TLB misses."""
+    import ctypes
+
+    import torch
+
+    from lordfast_tpu_torch.ops import cuda_build
+
+    n = max(nbytes // 8, 2)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(CHASE_SEED)
+    perm = torch.randperm(n, device="cuda", generator=g)
+    buf = torch.empty(n, dtype=torch.int64, device="cuda")
+    buf[perm] = perm.roll(-1)
+    start = int(perm[0])
+    del perm
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    f = cuda_build.load("seed_ext").lf_chase
+    vp = ctypes.c_void_p
+    f.restype = ctypes.c_int
+    f.argtypes = [vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, vp, vp]
+    rc = f(buf.data_ptr(), start, CHASE_WARM, CHASE_HOPS, out.data_ptr(),
+           torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"chase: kernel launch failed (cudaError {rc})")
+    torch.cuda.synchronize()
+    ns = int(out[1]) / CHASE_HOPS
+    del buf
+    torch.cuda.empty_cache()
+    return ns
+
+
+def beyond_rows(meta):
+    """BEYOND_ROWS rows drawn with a seeded torch.Generator over [0,
+    seq_len], the first ones every valid edge row of locate_rows
+    (primary and its neighbours, sampled rows, seq_len), all valid."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(BEYOND_SEED)
+    rows = torch.randint(0, meta["seq_len"] + 1, (BEYOND_ROWS,),
+                         generator=g, device="cuda")
+    e_rows, e_ok = locate_rows(meta, rows[:0], rows[:0].bool())
+    edge = e_rows[e_ok]
+    rows[: len(edge)] = edge
+    return rows, torch.ones(BEYOND_ROWS, dtype=torch.bool, device="cuda")
+
+
+def check_sa_locate(tag, idx, rec, int_rate, timed=False, chase=None,
+                    layouts=True):
     """sa_locate's kernel against the plain sa_lookup on the card, on one
-    recorded call (record_loops) and its edge lanes (locate_rows), in
-    both rank layouts and with int32 and int64 sa_samp (L2 with it):
-    every position equal, in the pipeline's instantiation and in the
-    two diagnostic ones.  Logs the walks (steps a lane, the warp
-    efficiency, the longest walk) and the bytes needed; with ``timed``
-    also the kernel's time on the call's own lanes (fused, the index's
-    dtype) against one plain pass, and its bound, returned as a dict."""
+    recorded call (record_loops) and, with ``layouts``, its edge lanes
+    (locate_rows) in both rank layouts and with int32 and int64 sa_samp
+    (L2 with it): every position equal, in the pipeline's instantiation
+    and in the two diagnostic ones.  Logs the walks (steps a lane, the
+    longest, the warp efficiency under the lane queue from the kernel's
+    per-warp counts) and the bytes needed; with ``timed`` also the
+    kernel's time on the call's own lanes (fused, the index's dtype)
+    against one plain pass, its bound, and with ``chase`` (ns a
+    dependent load, chase_ns) its latency floor, the longest walk's steps
+    times that; returned as a dict."""
     import numpy as np
     import torch
 
     from lordfast_tpu_torch.ops import fm_index
 
     meta = rec["meta"]
-    rows, valid = locate_rows(meta, rec["rows"], rec["valid"])
     loc = _wrappers()["sa_locate"]
-    for layout in ("fused", "split"):
-        a0 = (rec["arrs"] if layout == "fused"
-              else split_layout(idx, rec["arrs"]))
-        for dt in (torch.int32, torch.int64):
-            a = {**a0, "sa_samp": a0["sa_samp"].to(dt),
-                 "L2": a0["L2"].to(dt)}
-            want = fm_index.sa_lookup(a, meta, rows, valid)
-            for kw in ("plain", "want_stats", "want_need"):
-                got = loc(a, meta, rows, valid,
-                          **({} if kw == "plain" else {kw: True}))
-                got = got if kw == "plain" else got[0]
-                if not bool((got == want).all()):
-                    raise AssertionError(
-                        f"sa_locate {tag} ({layout}, {dt}, {kw}): kernel "
-                        f"!= sa_lookup in {int((got != want).sum())} of "
-                        f"{len(rows)} lanes")
     r, v = rec["rows"], rec["valid"]
-    _, steps = loc(rec["arrs"], meta, r, v, want_stats=True)
+    cases = []
+    if layouts:
+        rows, valid = locate_rows(meta, r, v)
+        for layout in ("fused", "split"):
+            a0 = (rec["arrs"] if layout == "fused"
+                  else split_layout(idx, rec["arrs"]))
+            for dt in (torch.int32, torch.int64):
+                cases.append(({**a0, "sa_samp": a0["sa_samp"].to(dt),
+                               "L2": a0["L2"].to(dt)}, rows, valid,
+                              f"{layout}, {dt}"))
+    else:
+        cases.append((rec["arrs"], r, v, "fused"))
+    for a, rows, valid, what in cases:
+        want = fm_index.sa_lookup(a, meta, rows, valid)
+        for kw in ("plain", "want_stats", "want_need"):
+            got = loc(a, meta, rows, valid,
+                      **({} if kw == "plain" else {kw: True}))
+            got = got if kw == "plain" else got[0]
+            if not bool((got == want).all()):
+                raise AssertionError(
+                    f"sa_locate {tag} ({what}, {kw}): kernel != sa_lookup "
+                    f"in {int((got != want).sum())} of {len(rows)} lanes")
+    _, steps, wsteps = loc(rec["arrs"], meta, r, v, want_stats=True)
     _, need = loc(rec["arrs"], meta, r, v, want_need=True)
     st = steps.cpu().numpy().astype(np.int64)
-    pad = np.zeros(-(-len(st) // 32) * 32, np.int64)
-    pad[: len(st)] = st
-    issued = 32 * pad.reshape(-1, 32).max(1).sum()
+    ws = wsteps.cpu().numpy().astype(np.int64)
+    ws = ws[ws[:, 0] > 0]  # the warps that stepped
+    if ws[:, 1].sum() != st.sum():
+        raise AssertionError(f"sa_locate {tag}: the warps' lane steps "
+                             f"{ws[:, 1].sum()} != the rows' {st.sum()}")
+    eff = float(st.sum() / max(32 * ws[:, 0].sum(), 1))
+    longest = int(st.max()) if len(st) else 0
     line = (f"[loops] sa_locate {tag} (sa_intv {meta['sa_intv']}): "
             f"{len(r)} lanes ({int(v.sum())} valid), {int(st.sum())} walk "
             f"steps, {st.mean():.1f} a lane, p99 "
-            f"{np.percentile(st, 99):.0f}, the longest {int(st.max())}; "
-            f"warp efficiency {st.sum() / max(issued, 1):.3f}: equal to "
-            f"sa_lookup on them and {len(rows) - len(r)} edge lanes in "
-            "both rank layouts, int32 and int64 sa_samp | input bytes "
-            "needed " + " ".join(f"{k} {x}" for k, x in need.items())
+            f"{np.percentile(st, 99):.0f}, the longest {longest}; "
+            f"{len(ws)} warps, warp efficiency {eff:.3f} (lane steps over "
+            f"32 x issued steps): equal to sa_lookup"
+            + (f" on them and {len(cases[0][1]) - len(r)} edge lanes in both "
+               "rank layouts, int32 and int64 sa_samp" if layouts else "")
+            + " | input bytes needed "
+            + " ".join(f"{k} {x}" for k, x in need.items())
             + f" (all {locate_work(rec, need):.0f})")
     out = None
     if timed:
@@ -1454,11 +1598,18 @@ def check_sa_locate(tag, idx, rec, int_rate, timed=False):
             lambda: fm_index.sa_lookup(rec["arrs"], meta, r, v), 1)
         b = bound(locate_work(rec, need), 0, int_rate)
         line += (f" | kernel {ms:.4f} ms | plain (sa_lookup) "
-                 f"{plain_ms:.1f} ms | bound {b[0]:.5f} ms ({b[1]})")
+                 f"{plain_ms:.1f} ms | bound {b[0]:.5f} ms ({b[1]}), "
+                 f"kernel {ms / b[0]:.1f}x")
+        floor = longest * chase * 1e-6 if chase else None
+        if floor:
+            line += (f" | latency floor {floor:.4f} ms ({longest} steps x "
+                     f"{chase:.1f} ns a dependent load over "
+                     f"{rank_bytes(rec['arrs'])} bytes), kernel "
+                     f"{ms / floor:.2f}x")
         out = {"ms": ms, "plain_ms": plain_ms, "bound": b,
-               "lanes": len(r), "walk_steps": int(st.sum()),
-               "longest_walk": int(st.max()),
-               "warp_efficiency": float(st.sum() / max(issued, 1))}
+               "floor_ms": floor, "chase_ns": chase, "lanes": len(r),
+               "walk_steps": int(st.sum()), "longest_walk": longest,
+               "warp_efficiency": eff, "warps": len(ws)}
     log(line)
     return out
 
@@ -1533,8 +1684,12 @@ def phase_loops(caps, golden_idx, v2_idx, int_rate):
                            f"{layout} rank rows", rec.seed[0], stats, need))
             if sa == "sampled" and layout == "fused":
                 check_sa_locate("golden", idx, rec.locate[0], int_rate)
-    v2_32 = check_sa_locate("v2", v2_idx, caps["v2_32"].locate[0],
-                            int_rate, timed=True)
+    v2_rec = caps["v2_32"].locate[0]
+    ns = chase_ns(rank_bytes(v2_rec["arrs"]))
+    log(f"[loops] pointer chase over {rank_bytes(v2_rec['arrs'])} bytes "
+        f"(v2's rank arrays): {ns:.1f} ns a dependent load")
+    v2_32 = check_sa_locate("v2", v2_idx, v2_rec, int_rate, timed=True,
+                            chase=ns)
     check_sa_locate("v2", v2_idx, caps["v2_16"].locate[0], int_rate)
     log("[loops] chain_dp, seed_ext and sa_locate bit-equal to their plain "
         "versions in every case")
@@ -1553,8 +1708,8 @@ def phase_loops(caps, golden_idx, v2_idx, int_rate):
                   also_replaces="lordfast_tpu/ops/fm_index.py:267",
                   timed_at="v2 sliced to sa_intv 32, its first locate call",
                   **{k: v2_32[k] for k in ("lanes", "walk_steps",
-                                           "longest_walk",
-                                           "warp_efficiency")}),
+                                           "longest_walk", "warp_efficiency",
+                                           "floor_ms", "chase_ns")}),
     ]
 
 
@@ -1578,19 +1733,23 @@ def _load_other(root: Path):
 
 
 def compare_loops(other: Path, reps: int = 5) -> int:
-    """``--against DIR``: this checkout's chain_dp and seed_ext kernels
-    against those of the checkout at DIR (e.g. the parent commit,
-    unpacked with git archive into a directory .gitignore lists), on one
-    card.  Both checkouts' chain_dp.cu and seed_ext.cu are built at once
-    (one nvcc each, each into its own checkout's _build); the inputs are
-    v2's first device call, recorded from one pass of this checkout's
-    engine over .smoke_cache's v2 dataset (made by a smoke run, or here),
-    and the full windows; each checkout's kernel is held bit-equal to
-    the plain version, then timed with _time_launches in turns A B B A
-    (A this checkout).  Each wrapper is called as its checkout's
-    signature asks (seed_ext took (B, L) uint8 reads and int32 lengths
-    before it took an fm_index._Reads).  One JSON line per case, then
-    the card's name and power limit; no contract line."""
+    """``--against DIR``: this checkout's chain_dp, seed_ext and
+    sa_locate kernels against those of the checkout at DIR (e.g. the
+    parent commit, unpacked with git archive into a directory .gitignore
+    lists), on one card.  Both checkouts' chain_dp.cu and seed_ext.cu are
+    built at once (one nvcc each, each into its own checkout's _build);
+    the inputs are v2's first device call, recorded from one pass of this
+    checkout's engine over .smoke_cache's v2 dataset (made by a smoke
+    run, or here), the full windows, and for sa_locate the first locate
+    call of a pass over v2's index with the SA sliced to 32, that of a
+    pass over the 300 Mbp genome (when a smoke run has left its index in
+    .smoke_cache) and its BEYOND_ROWS rows (beyond_rows); each
+    checkout's kernel is held bit-equal to the plain version, then timed
+    with _time_launches in turns A B B A (A this checkout).  Each
+    wrapper is called as its checkout's signature asks (seed_ext took
+    (B, L) uint8 reads and int32 lengths before it took an
+    fm_index._Reads).  One JSON line per case, then the card's name and
+    power limit; no contract line."""
     import inspect
     import threading
 
@@ -1657,6 +1816,26 @@ def compare_loops(other: Path, reps: int = 5) -> int:
         seed["arrs"], seed["meta"], seed["rd"], *lanes), {
             "this": seed_call(fm_index_cuda.seed_ext),
             "other": seed_call(o_fm.seed_ext)}))
+    locs = {"v2 sa_intv 32 call": (slice_sa(eng.idx, 32), reads_path)}
+    del eng
+    if (CACHE / "g300.lft.npz").exists():
+        locs["300 Mbp call"] = (load_index(CACHE / "g300.lft.npz"),
+                                _paths("g300")[1])
+    for label, (idx, path) in locs.items():
+        e = MappingEngine(idx, LordfastConfig(), device="cuda")
+        with record_loops() as rec:
+            e.map_file(path, io.StringIO(), "chip_smoke")
+        calls = {label: rec.locate[0]}
+        if label == "300 Mbp call":
+            rows, valid = beyond_rows(idx.meta)
+            calls["300 Mbp beyond residency"] = dict(
+                arrs=e.arrs, meta=idx.meta, rows=rows, valid=valid)
+        for name, c in calls.items():
+            args = (c["arrs"], c["meta"], c["rows"], c["valid"])
+            cases.append((f"sa_locate {name}", (fm_index.sa_lookup(*args),),
+                          {"this": lambda a=args: (
+                              fm_index_cuda.sa_locate(*a),),
+                           "other": lambda a=args: (o_fm.sa_locate(*a),)}))
     for label, want, fns in cases:
         for side, fn in fns.items():
             got = fn()
@@ -2149,7 +2328,7 @@ def phase_v1(builds):
     log(f"[v1] engine set up (index arrays on the card) in "
         f"{time.time() - t:.2f} s")
     runs = []
-    caps = record_loops()
+    caps = record_loops(LOG_COUNT_CALLS)
     for label in ("first pass, offload on", "second pass, offload on"):
         runs.append(map_pass(eng, reads, caps if not runs else None))
         _report("v1", label, eng, runs[-1])
@@ -2196,7 +2375,7 @@ def phase_v2(builds):
     torch.cuda.reset_peak_memory_stats()
     eng = MappingEngine(idx, cfg, device="cuda")
     runs = []
-    caps = record_loops()
+    caps = record_loops(LOG_COUNT_CALLS)
     for label in ("first pass, offload on", "second pass, offload on"):
         runs.append(map_pass(eng, reads, caps if not runs else None))
         c = eng.metrics.counters
@@ -2292,15 +2471,18 @@ def phase_v2_sampled(v2) -> tuple:
     return by_path, caps
 
 
-def phase_g300(builds, row, int_rate) -> dict:
+def phase_g300(builds, row, int_rate) -> tuple:
     """The G300_BP genome (its index built by a build_bench process since
     phase 1): LordfastConfig() must have sampled its SA at 32; two
     passes of its 512 reads on the card (the SAM repeats, at least 95%
     mapped, sa_locate launched once a device call and no walk entered),
     a plain_loops pass (the same SAM), the first 16 reads on the CPU
     (the same records), and sa_locate on the first pass's first locate
-    call (check_sa_locate, timed), whose figures go into the kernel
-    table's sa_locate row.  Returns the first pass's launches."""
+    call and on BEYOND_ROWS rows (beyond_rows: more than the card holds
+    lanes at once), each bit-equal to sa_lookup and timed, with its
+    latency floor from a pointer chase over the rank arrays (chase_ns);
+    their figures go into the kernel table's sa_locate row.  Returns the
+    first pass's launches and its record_loops (every chain call)."""
     import torch
 
     from lordfast_tpu_torch.config import LordfastConfig
@@ -2318,7 +2500,7 @@ def phase_g300(builds, row, int_rate) -> dict:
     log(f"[g300] engine set up in {time.time() - t:.2f} s: {nbytes} bytes "
         f"of index arrays on the card (l_pac {idx.l_pac}, sa_intv "
         f"{idx.sa_intv})")
-    caps = record_loops()
+    caps = record_loops(LOG_COUNT_CALLS)
     runs = []
     for label in ("first pass", "second pass"):
         runs.append(map_pass(eng, reads, caps if not runs else None))
@@ -2338,14 +2520,79 @@ def phase_g300(builds, row, int_rate) -> dict:
                        reads, sam, runs[1][1])
     _cpu_subset(idx, sam, reads, CACHE / "g300_first16.fq",
                 lambda name, i: i < 16, "g300")
-    g = check_sa_locate("g300", idx, caps.locate[0], int_rate, timed=True)
-    row.update({"g300_ms": g["ms"], "g300_plain_ms": g["plain_ms"],
-                "g300_bound_ms": g["bound"][0],
-                "g300_bound_by": g["bound"][1], "g300_lanes": g["lanes"],
-                "g300_walk_steps": g["walk_steps"],
-                "g300_longest_walk": g["longest_walk"],
-                "g300_warp_efficiency": g["warp_efficiency"]})
-    return {"g300": runs[0][4], "g300_plain": plain[4]}
+    ns = chase_ns(rank_bytes(eng.arrs))
+    log(f"[g300] pointer chase over {rank_bytes(eng.arrs)} bytes (the rank "
+        f"arrays): {ns:.1f} ns a dependent load")
+    g = check_sa_locate("g300", idx, caps.locate[0], int_rate, timed=True,
+                        chase=ns)
+    rows, valid = beyond_rows(idx.meta)
+    b = check_sa_locate("g300 beyond residency", idx, dict(
+        arrs=eng.arrs, meta=idx.meta, rows=rows, valid=valid), int_rate,
+        timed=True, chase=ns, layouts=False)
+    for pre, x in (("g300", g), ("beyond", b)):
+        row.update({f"{pre}_ms": x["ms"], f"{pre}_plain_ms": x["plain_ms"],
+                    f"{pre}_bound_ms": x["bound"][0],
+                    f"{pre}_bound_by": x["bound"][1],
+                    **{f"{pre}_{k}": x[k] for k in (
+                        "floor_ms", "chase_ns", "lanes", "walk_steps",
+                        "longest_walk", "warp_efficiency", "warps")}})
+    return {"g300": runs[0][4], "g300_plain": plain[4]}, caps
+
+
+# recorded chain calls of a pass, for phase_log_counts: more than any
+# pass of the smoke's datasets makes (v2: 6)
+LOG_COUNT_CALLS = 64
+
+
+def torch_log_misses(n: int):
+    """The d in [2, n) at which torch.log in float64 differs from the C
+    library's log (Python's math.log), on the host's CPU and on the card:
+    two int64 tensors on the card."""
+    import math
+
+    import torch
+
+    d = torch.arange(2, n, dtype=torch.float64)
+    ref = torch.tensor(list(map(math.log, range(2, n))), dtype=torch.float64)
+    host = torch.nonzero(torch.log(d) != ref)[:, 0] + 2
+    card = torch.nonzero(torch.log(d.cuda()).cpu() != ref)[:, 0] + 2
+    return host.cuda(), card.cuda()
+
+
+def phase_log_counts(caps):
+    """dp-n2's log on the datasets (caps: record_loops of the first pass
+    of v1, v2 and the 300 Mbp genome, every chain call): how many linked
+    pairs have d >= 65,536 (past the table of torch.log values the port
+    read before it read one table of the C library's log for every d a
+    window links) and how many a d at which torch.log differs from the C
+    library's log for d = 2..2,000,000, on the host CPU or on the card;
+    and the largest linked d, against the table's length."""
+    import torch
+
+    from lordfast_tpu_torch.ops import chain
+
+    host, card = torch_log_misses(2_000_001)
+    log(f"[chain log] torch.log in float64 differs from the C library's "
+        f"log at {len(host)} d of 2..2,000,000 on the host CPU (the first "
+        f"{host[:6].tolist()}) and at {len(card)} on the card (the first "
+        f"{card[:6].tolist()}); the port reads neither")
+    for tag, rec in caps.items():
+        linked = far = on_host = on_card = top = 0
+        for ws, cfg in rec.chain:
+            for d in _linked_d(ws):
+                linked += len(d)
+                far += int((d >= 65_536).sum())
+                on_host += int(torch.isin(d, host).sum())
+                on_card += int(torch.isin(d, card).sum())
+                top = max(top, int(d.max()) if len(d) else 0)
+        n = chain.log_table_len(rec.chain[0][1])
+        if top >= n:
+            raise AssertionError(f"{tag}: a linked d {top} past the log "
+                                 f"table's {n} entries")
+        log(f"[chain log] {tag}: {len(rec.chain)} chain calls, {linked} "
+            f"linked dp-n2 pairs, {far} with d >= 65,536, {on_host} with a "
+            f"d where the host's torch.log differs, {on_card} where the "
+            f"card's does; the largest d {top} (the table holds {n})")
 
 
 def _sv_junk(name, i):
@@ -2849,7 +3096,9 @@ def _phases(mesh_only, int_rate, builds, t0) -> int:
     by_path.update(phase_mesh(golden, v2))
     t10 = time.time()
     log(f"[smoke] phase 10 done in {t10 - t9:.1f} s")
-    by_path.update(phase_g300(builds, rows[-1], int_rate))
+    g300_paths, g300_caps = phase_g300(builds, rows[-1], int_rate)
+    by_path.update(g300_paths)
+    phase_log_counts({"v1": v1_caps, "v2": v2["caps"], "g300": g300_caps})
     log(f"[smoke] phase 12 (300 Mbp) done in {time.time() - t10:.1f} s")
     for row in rows:
         # each kernel's main path: v2's, and for sa_locate (sampled SA

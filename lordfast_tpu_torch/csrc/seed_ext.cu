@@ -41,7 +41,8 @@
 //     four counts (two loads) and the BWT words up to the row's word (up
 //     to four loads; a fused row is 96 bytes, six loads in all), then
 //     counts from registers;
-//   - a walk step loads the BWT word of its char with its row's;
+//   - a walk step (locate, below) is one load of one array: the rank row
+//     of its row, whose own word holds the row's char;
 //   - the comparison takes 16 chars a round trip: the text [p - 16, p)
 //     from the two pac words that hold it (a funnel shift), spread to
 //     3-bit groups in the order p - 1, p - 2, ..., beside the read's next
@@ -81,23 +82,44 @@
 // multi-hit slots with a sampled SA: it replaces the JAX package's
 // sa_lookup (lordfast_tpu/ops/fm_index.py:267, lax.while_loop :303); its
 // plain version is ops/fm_index.py sa_lookup (eager: intv/2 lockstep
-// steps, then one host-synced nonzero compaction a step).  One thread a
-// row, each walked to its own end by locate, the device function the
-// occ == 1 finish above calls too.  The index samples by row, so a walk
-// is geometric with mean ~sa_intv and a warp ends with the longest of its
-// 32 walks (~4x the mean): what bounds it is that lane's chain of
-// dependent rank-row round trips (1.1 us a step on v2's 28 Mbp index,
-// 1.6 on a 300 Mbp one, on an H100: chip_smoke.py), not the bytes the
-// walks need.  A lane queue or a compaction pass would shorten
-// it; this simple kernel has neither.  kDiag 1 writes each lane's steps,
-// kDiag 2 marks the need bitmap (rank pieces and SA entries).
+// steps, then one host-synced nonzero compaction a step).  The index
+// samples by row, so a walk is geometric with mean ~sa_intv, and each of
+// its steps is a dependent round trip to the rank rows: a warp whose
+// lanes each walk one row ends with the longest of its 32 walks (~4x the
+// mean; warp efficiency ~0.25), and a launch with the longest walk of
+// all (one thread a row: 340 steps at 1.09 us on v2's 28 Mbp index, 459
+// at 1.63 us on a 300 Mbp one, on an H100 80GB HBM3 at 700 W:
+// chip_smoke.py).  So the design attacks both:
+//   - the step: one load of one array (walk_step: the char from the word
+//     of the row's own rank row, no second array for the BWT word), the
+//     count for the one char in 32 bits, one masked popcount a word,
+//     L2 in registers;
+//   - the idle lanes: a lane queue.  The grid is persistent (as many
+//     blocks as the card holds at once, or fewer for a small n); warp w
+//     starts with rows [32 w, 32 w + 32) and then takes chunks of 32 rows
+//     from a device counter (one atomicAdd a chunk by lane 0, zeroed on
+//     the stream in the launch); a lane whose walk ends writes out[i] by
+//     its row's own index, so no order of completion can change a bit,
+//     and takes the chunk's next row at once.  The warp loops while any
+//     lane has a row.  At v2's call (22,044 rows, every warp resident)
+//     the queue changes nothing: the critical path is the longest walk's
+//     chain of steps, and what bounds it is that chain's latency, which
+//     chip_smoke.py holds against a pointer chase over a buffer of the
+//     rank arrays' size; beyond residency (a Gbp genome's calls) it keeps
+//     the lanes busy.
+// kDiag 1 writes each row's walk steps and each warp's issued steps and
+// its lanes' steps (the warp efficiency under the queue), kDiag 2 marks
+// the need bitmap (rank pieces and SA entries).
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int64_t kMaxAnchor = 4095;  // ops/fm_index.py MAX_ANCHOR_LEN
 constexpr uint64_t kThrees = 0x6DB6DB6DB6DBull;  // 3 in each 3-bit group
 constexpr uint64_t kMask48 = 0xFFFFFFFFFFFFull;
@@ -107,7 +129,6 @@ constexpr uint64_t kMask48 = 0xFFFFFFFFFFFFull;
 struct Index {
   const int64_t* rank_a;   // fm_blocks (nb, 12), or occ_cp (nc, 4)
   const int64_t* rank_b;   // bwt_blocks (nb, 8) with occ_cp
-  const int64_t* bwt_words;
   const void* sa_samp;     // Pos
   const void* l2;          // (5,) Pos
   uint32_t* need;          // the bitmap of needed input pieces, or null
@@ -142,6 +163,8 @@ struct LocArgs : Index {
   const uint8_t* valid;    // (n,) bool
   int64_t* out;            // (n,)
   int32_t* stats;          // (n,) walk steps, or null
+  int32_t* wstats;         // (warps, 2) issued and lane steps, with stats
+  unsigned long long* counter;  // the queue's next chunk, zeroed in launch
   int64_t n;
 };
 
@@ -160,13 +183,6 @@ __device__ __forceinline__ uint32_t now_ns() {
   return static_cast<uint32_t>(t);
 }
 
-// per-char match bits of a BWT word (low bit of each 2-bit char)
-__device__ __forceinline__ uint32_t match(uint32_t w, int c) {
-  const uint32_t hi = (c & 2) ? w : ~w;
-  const uint32_t lo = (c & 1) ? w : ~w;
-  return (hi >> 1) & lo & 0x55555555u;
-}
-
 // L2 (the count of chars smaller than c) in registers: five values
 // selected by c, so no array of them goes to local memory
 struct L2 {
@@ -177,25 +193,24 @@ struct L2 {
 };
 
 // One occ query's rank row in registers: the four counts and the BWT
-// words up to the query's word (the rest are not loaded), with the
-// query's row within them and its special cases.
+// word pairs up to the pair of the row's word (the rest are not loaded,
+// zero), with the queried row and its position in the block.
 struct Row {
   longlong2 cnt01, cnt23;
   longlong2 w01, w23, w45, w67;
   int64_t k;  // the queried row: < 0 and == seq_len are special
-  int f, r;   // the word holding the row, and its char in it
+  int off;    // the row's char in its block of 128 (word off >> 4)
 };
 
+// The rank row of the $-removed BWT position kp, for the query of row k,
+// all its loads issued together (16 bytes each): one round trip.
 template <bool kFused>
-__device__ __forceinline__ void load_row(const Index& a, int64_t k,
-                                         Row& row) {
-  const int64_t kk = k < 0 ? 0 : (k < a.seq_len - 1 ? k : a.seq_len - 1);
-  const int64_t kp = kk - (kk >= a.primary ? 1 : 0);
+__device__ __forceinline__ void load_at(const Index& a, int64_t kp,
+                                        int64_t k, Row& row) {
   const int64_t blk = kp >> 7;
-  const int off = static_cast<int>(kp & 127);
   row.k = k;
-  row.f = off >> 4;
-  row.r = off & 15;
+  row.off = static_cast<int>(kp & 127);
+  const int f = row.off >> 4;
   const longlong2* cp;
   const longlong2* wp;
   if (kFused) {
@@ -209,9 +224,18 @@ __device__ __forceinline__ void load_row(const Index& a, int64_t k,
   row.cnt01 = __ldg(cp);
   row.cnt23 = __ldg(cp + 1);
   row.w01 = __ldg(wp);
-  row.w23 = row.f >= 2 ? __ldg(wp + 1) : z;
-  row.w45 = row.f >= 4 ? __ldg(wp + 2) : z;
-  row.w67 = row.f >= 6 ? __ldg(wp + 3) : z;
+  row.w23 = f >= 2 ? __ldg(wp + 1) : z;
+  row.w45 = f >= 4 ? __ldg(wp + 2) : z;
+  row.w67 = f >= 6 ? __ldg(wp + 3) : z;
+}
+
+// The rank row of an occ query of row k (k clamped into [0, seq_len - 1]
+// and shifted past primary, bwt_occ's adjustment).
+template <bool kFused>
+__device__ __forceinline__ void load_row(const Index& a, int64_t k,
+                                         Row& row) {
+  const int64_t kk = k < 0 ? 0 : (k < a.seq_len - 1 ? k : a.seq_len - 1);
+  load_at<kFused>(a, kk - (kk >= a.primary ? 1 : 0), k, row);
 }
 
 // Marks bit i of the need bitmap.
@@ -232,26 +256,78 @@ __device__ __forceinline__ void mark_row(const Index& a, int64_t x, int c) {
   for (int pc = 0; pc <= (f >> 1); ++pc) mark(a.need, bit + 2 + pc);
 }
 
-// occ(k, c) from a loaded row (bwt_occ with the primary-row adjustment)
+// per-char match bits of a BWT word (low bit of each 2-bit char)
+__device__ __forceinline__ uint32_t match(uint32_t w, int c) {
+  const uint32_t hi = (c & 2) ? w : ~w;
+  const uint32_t lo = (c & 1) ? w : ~w;
+  return (hi >> 1) & lo & 0x55555555u;
+}
+
+// the chars 0..n - 1 of a BWT word (the first char highest)
+__device__ __forceinline__ uint32_t first_chars(int n) {
+  return n >= 16 ? ~0u : (n <= 0 ? 0u : ~0u << (32 - 2 * n));
+}
+
+// occ(k, c) from a loaded row (bwt_occ with the primary-row adjustment):
+// the count of c before the row's block plus, in 32-bit arithmetic on the
+// block offset, the c's among the block's chars 0..off: each word's match
+// bits masked to those chars, one popcount a word (the words past the
+// row's are not loaded, zero, and masked out), all eight independent, in
+// place of a select a word.
 __device__ __forceinline__ int64_t occ(const Index& a, const L2& l2,
                                        const Row& row, int c) {
   if (row.k < 0) return 0;
   if (row.k == a.seq_len) return l2[c + 1] - l2[c];
   const int64_t base = c == 0 ? row.cnt01.x : c == 1 ? row.cnt01.y
                      : c == 2 ? row.cnt23.x : row.cnt23.y;
-  const uint32_t words[8] = {
-      static_cast<uint32_t>(row.w01.x), static_cast<uint32_t>(row.w01.y),
-      static_cast<uint32_t>(row.w23.x), static_cast<uint32_t>(row.w23.y),
-      static_cast<uint32_t>(row.w45.x), static_cast<uint32_t>(row.w45.y),
-      static_cast<uint32_t>(row.w67.x), static_cast<uint32_t>(row.w67.y)};
-  const uint32_t upto = ~((1u << ((15 - row.r) << 1)) - 1u);
-  uint32_t cnt = 0;
-#pragma unroll
-  for (int w = 0; w < 8; ++w) {
-    const uint32_t m = match(words[w], c);
-    cnt += w < row.f ? __popc(m) : (w == row.f ? __popc(m & upto) : 0);
-  }
+  const int n = row.off + 1;
+  auto masked = [&](int64_t w, int first) {
+    return __popc(match(static_cast<uint32_t>(w), c) &
+                  first_chars(n - first));
+  };
+  const uint32_t cnt = masked(row.w01.x, 0) + masked(row.w01.y, 16) +
+                       masked(row.w23.x, 32) + masked(row.w23.y, 48) +
+                       masked(row.w45.x, 64) + masked(row.w45.y, 80) +
+                       masked(row.w67.x, 96) + masked(row.w67.y, 112);
   return base + static_cast<int64_t>(cnt);
+}
+
+// the char of a loaded row's own position, from its word
+__device__ __forceinline__ int row_char(const Row& row) {
+  const int f = row.off >> 4;
+  const longlong2 p = f >= 6 ? row.w67 : f >= 4 ? row.w45
+                    : f >= 2 ? row.w23 : row.w01;
+  const uint32_t w = static_cast<uint32_t>((f & 1) ? p.y : p.x);
+  return static_cast<int>((w >> ((15 - (row.off & 15)) << 1)) & 3u);
+}
+
+// Marks the pieces of x's rank row that a walk step from row k (x = k -
+// (k > primary)) needs: as mark_row for k < seq_len; row seq_len counts
+// its char's total and needs only the word pair of x's char.
+__device__ __forceinline__ void mark_walk(const Index& a, int64_t k,
+                                          int64_t x, int c) {
+  if (k != a.seq_len) {
+    mark_row(a, k, c);
+    return;
+  }
+  mark(a.need, 6 * (x >> 7) + 2 + (static_cast<int>(x & 127) >> 5));
+}
+
+// One inverse-Psi step from row k != primary (bwt_invPsi,
+// lib/bwa/bwt.c:53-59; the plain _walk_step): L2[c] + occ(k, c), c the
+// char at x = k - (k > primary) of the $-removed BWT.  For k < seq_len
+// the rank row of x is k's own, and its word holds c: the counts and the
+// char are one round trip to one array.  Row seq_len, past the last rank
+// row, counts c's total and takes c from the row of x = seq_len - 1.
+template <bool kFused, bool kNeed>
+__device__ __forceinline__ int64_t walk_step(const Index& a, const L2& l2,
+                                             int64_t k) {
+  const int64_t x = k - (k > a.primary ? 1 : 0);
+  Row row;
+  load_at<kFused>(a, x, k, row);
+  const int c = row_char(row);
+  if (kNeed) mark_walk(a, k, x, c);
+  return l2[c] + occ(a, l2, row, c);
 }
 
 // element i of an int32 or int64 array of the index's position dtype
@@ -266,12 +342,12 @@ __device__ __forceinline__ int64_t pos_at(const void* p, int64_t i) {
 
 // The SA position of row k (bwt_sa, lib/bwa/bwt.c:86-96): with the full
 // SA (sa_intv 1) its entry, k clamped into the array as the plain gather
-// clamps it; else the inverse-Psi walk (bwt_invPsi, lib/bwa/bwt.c:53-59;
-// the plain _walk_step) to a sampled row, a step one round trip (the BWT
-// word of the row's char with its rank row), then the sampled entry plus
-// the steps.  Both kernels locate through it, so their walks cannot
-// drift; n_walk counts the steps.  With kNeed it marks the rank-row
-// pieces and the SA entry it needs.
+// clamps it; else the inverse-Psi walk to a sampled row (walk_step, one
+// round trip a step; the primary row steps to 0), then the sampled entry
+// plus the steps.  The occ == 1 finish walks through it, and
+// sa_locate_kernel through walk_step, so their walks cannot drift;
+// n_walk counts the steps.  With kNeed it marks the rank-row pieces and
+// the SA entry it needs.
 template <bool kFused, typename Pos, bool kNeed>
 __device__ __forceinline__ int64_t locate(const Index& a, const L2& l2,
                                           int64_t k, int32_t& n_walk) {
@@ -284,17 +360,7 @@ __device__ __forceinline__ int64_t locate(const Index& a, const L2& l2,
   int64_t rows = k;
   int64_t steps = 0;
   while ((rows & mask) != 0) {
-    if (rows == a.primary) {
-      rows = 0;
-    } else {
-      const int64_t x = rows - (rows > a.primary ? 1 : 0);
-      const uint32_t bw = word32(a.bwt_words + (x >> 4));
-      Row rr;
-      load_row<kFused>(a, rows, rr);
-      const int ch = static_cast<int>((bw >> ((15 - (x & 15)) << 1)) & 3u);
-      if (kNeed) mark_row(a, rows, ch);  // its word too
-      rows = l2[ch] + occ(a, l2, rr, ch);
-    }
+    rows = rows == a.primary ? 0 : walk_step<kFused, kNeed>(a, l2, rows);
     ++steps;
     ++n_walk;
   }
@@ -325,8 +391,12 @@ __global__ void __launch_bounds__(kThreads) seed_ext_kernel(const Args a) {
   if (lane >= a.n_lanes) return;
   constexpr bool timed = kDiag == 1;  // step counts and timers
   constexpr bool needs = kDiag == 2;  // the need bitmap
-  const uint32_t t_start = timed ? now_ns() : 0u;
-  uint32_t t_ext = t_start;
+  int32_t* srow = timed ? a.stats + 7 * lane : nullptr;
+  if (timed) {  // the timers go to stats as they are read
+    const int32_t t0 = static_cast<int32_t>(now_ns());
+    srow[4] = t0;
+    srow[5] = t0;
+  }
   bool alive = a.alive0[lane] != 0;
   int64_t k = a.k0[lane];
   int64_t l = a.l0[lane];
@@ -371,7 +441,7 @@ __global__ void __launch_bounds__(kThreads) seed_ext_kernel(const Args a) {
         }
         ++n_ext;
       }
-      if (timed) t_ext = now_ns();
+      if (timed) srow[5] = static_cast<int32_t>(now_ns());
       if (!alive) break;
       if (k != l) continue;
       // one row at the block's end: locate it (_resolve_rounds' sa_lookup)
@@ -423,63 +493,184 @@ __global__ void __launch_bounds__(kThreads) seed_ext_kernel(const Args a) {
   a.rpos_out[lane] = rpos;
   a.rflag_out[lane] = rflag;
   if (timed) {
-    int32_t* row = a.stats + 7 * lane;
-    row[0] = n_ext;
-    row[1] = n_walk;
-    row[2] = n_cmp;
-    row[3] = n_trip;
-    row[4] = static_cast<int32_t>(t_start);
-    row[5] = static_cast<int32_t>(t_ext);
-    row[6] = static_cast<int32_t>(now_ns());
+    srow[0] = n_ext;
+    srow[1] = n_walk;
+    srow[2] = n_cmp;
+    srow[3] = n_trip;
+    srow[6] = static_cast<int32_t>(now_ns());
   }
 }
 
 // The locate of the seeder's multi-hit slots (_seed_anchors_impl's
-// sa_lookup): one thread per row, walked to its sampled row by locate;
-// an invalid lane writes 0.  kDiag 1 writes each lane's walk steps to
-// stats, kDiag 2 marks the need bitmap.
+// sa_lookup) through a lane queue: a persistent grid, warp w starting with
+// the chunk of rows [32 w, 32 w + 32) and then taking chunk n_warps +
+// atomicAdd(counter, 1) when an idle lane finds its chunk handed out (it
+// gets a row in the next iteration); each idle lane
+// takes the chunk's next row (its row and flag, loaded with the chunk,
+// come by shuffle), a lane with a row takes one walk step (walk_step; the
+// primary row steps to 0) or, at a sampled row, loads its entry and
+// writes out[i] = steps + entry by the row's own index and goes idle.  An
+// invalid row writes 0.  kDiag 1 writes each row's walk steps and each
+// warp's issued steps (iterations in which a lane stepped) and its lanes'
+// steps; kDiag 2 marks the need bitmap.
 template <bool kFused, typename Pos, int kDiag>
 __global__ void __launch_bounds__(kThreads) sa_locate_kernel(
     const LocArgs a) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads +
-                    threadIdx.x;
-  if (i >= a.n) return;
-  int32_t n_walk = 0;
-  int64_t p = 0;
-  if (a.valid[i] != 0) {
-    const L2 l2{pos_at<Pos>(a.l2, 0), pos_at<Pos>(a.l2, 1),
-                pos_at<Pos>(a.l2, 2), pos_at<Pos>(a.l2, 3),
-                pos_at<Pos>(a.l2, 4)};
-    p = locate<kFused, Pos, kDiag == 2>(a, l2, a.rows[i], n_walk);
+  constexpr bool timed = kDiag == 1;  // step counts
+  constexpr bool needs = kDiag == 2;  // the need bitmap
+  const int lane = threadIdx.x & 31;
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int64_t n_warps = static_cast<int64_t>(gridDim.x) * (kThreads / 32);
+  const L2 l2{pos_at<Pos>(a.l2, 0), pos_at<Pos>(a.l2, 1),
+              pos_at<Pos>(a.l2, 2), pos_at<Pos>(a.l2, 3),
+              pos_at<Pos>(a.l2, 4)};
+  const int64_t mask = a.sa_intv - 1;
+  // the warp's chunk of the queue: rows [cb, cb + 32), lane x's entry in
+  // (crow, cval), the first `taken` of them handed out
+  int64_t cb = warp * 32;
+  int64_t crow = 0;
+  int cval = 0;
+  if (cb + lane < a.n) {
+    crow = a.rows[cb + lane];
+    cval = a.valid[cb + lane];
   }
-  a.out[i] = p;
-  if (kDiag == 1) a.stats[i] = n_walk;
+  int taken = 0;
+  int64_t i = -1;    // the lane's row index, -1 while it has none
+  int64_t rows = 0;  // its walk's current row
+  int32_t steps = 0;
+  int32_t issued = 0, active = 0;
+  for (;;) {
+    const unsigned idle = __ballot_sync(kFull, i < 0);
+    if (idle != 0 && cb < a.n) {  // hand out the chunk's next rows
+      const int left =
+          static_cast<int>(a.n - cb < 32 ? a.n - cb : 32) - taken;
+      const int want = __popc(idle);
+      const int src = taken + __popc(idle & ((1u << lane) - 1u));
+      const int64_t r = __shfl_sync(kFull, crow, src & 31);
+      const int v = __shfl_sync(kFull, cval, src & 31);
+      if (i < 0 && src < taken + left) {
+        i = cb + src;
+        rows = r;
+        steps = 0;
+        if (v == 0) {
+          a.out[i] = 0;
+          if (timed) a.stats[i] = 0;
+          i = -1;
+        }
+      }
+      taken += want < left ? want : left;
+      if (want > left) {  // an idle lane left over: the queue's next chunk
+        unsigned long long c = 0;
+        if (lane == 0) c = atomicAdd(a.counter, 1ull);
+        c = __shfl_sync(kFull, c, 0);
+        cb = (n_warps + static_cast<int64_t>(c)) * 32;
+        taken = 0;
+        crow = 0;
+        cval = 0;
+        if (cb + lane < a.n) {
+          crow = a.rows[cb + lane];
+          cval = a.valid[cb + lane];
+        }
+      }
+    }
+    bool stepped = false;
+    if (i >= 0) {
+      if ((rows & mask) == 0) {  // a sampled row: the walk's end
+        const int64_t e = rows >> a.log2_intv;
+        if (needs) mark(a.need, a.need_sa + e);
+        a.out[i] = steps + pos_at<Pos>(a.sa_samp, e);
+        if (timed) a.stats[i] = steps;
+        i = -1;
+      } else {
+        rows = rows == a.primary ? 0 : walk_step<kFused, needs>(a, l2, rows);
+        ++steps;
+        stepped = true;
+      }
+    }
+    if (timed) {
+      const unsigned st = __ballot_sync(kFull, stepped);
+      issued += st != 0u;
+      active += __popc(st);
+    }
+    if (__ballot_sync(kFull, i >= 0) == 0u && cb >= a.n) break;
+  }
+  if (timed && lane == 0) {
+    a.wstats[2 * warp] = issued;
+    a.wstats[2 * warp + 1] = active;
+  }
 }
 
-// One launch of seed_ext_kernel (kLocate false) or sa_locate_kernel over
-// n lanes, the instantiation picked by the layout, the position dtype's
-// bytes and the diagnostics asked for (stats: 1, need: 2, else 0).
+// The latency floor of a walk step: one thread follows next = buf[next]
+// (a seeded random cyclic permutation the caller writes) for warm hops,
+// then times hops more on the card's nanosecond timer, each load through
+// the read-only path as walk_step's are.  out[0] = the last index (so no
+// load is dead), out[1] = the timed hops' nanoseconds.
+__global__ void chase_kernel(const int64_t* buf, int64_t start, int warm,
+                             int hops, int64_t* out) {
+  int64_t x = start;
+  for (int h = 0; h < warm; ++h) x = ld(buf + x);
+  uint64_t t0, t1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0) : "l"(x));
+  for (int h = 0; h < hops; ++h) x = ld(buf + x);
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1) : "l"(x));
+  out[0] = x;
+  out[1] = static_cast<int64_t>(t1 - t0);
+}
+
+// The blocks of a launch over n lanes: one for each kThreads lanes
+// (seed_ext), or for sa_locate's persistent grid as many as the card
+// holds at once (its SMs times the blocks of this instantiation an SM
+// holds) and no more than n needs.  0 on an error of the queries.
+template <typename K>
+unsigned blocks_of(K kern, bool persistent, int64_t n) {
+  const int64_t need = (n + kThreads - 1) / kThreads;
+  if (!persistent) return static_cast<unsigned>(need);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                    0) != cudaSuccess) {
+    return 0;
+  }
+  const int64_t held = static_cast<int64_t>(sms) * per_sm;
+  return static_cast<unsigned>(need < held ? need : held);
+}
+
+// One launch of kern over n lanes (blocks_of; sa_locate's queue counter
+// zeroed on the stream first).  Returns a cudaError_t.
+template <typename A, typename K>
+int run(K kern, const A& a, int64_t n, cudaStream_t stream) {
+  constexpr bool kLocate = std::is_same<A, LocArgs>::value;
+  const unsigned grid = blocks_of(kern, kLocate, n);
+  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (kLocate) {
+    const cudaError_t e =
+        cudaMemsetAsync(a.counter, 0, sizeof(unsigned long long), stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kern<<<grid, kThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// seed_ext_kernel (kLocate false) or sa_locate_kernel, the instantiation
+// picked by the layout, the position dtype and the diagnostics asked for
+// (stats: 1, need: 2, else 0).
+template <bool kLocate, bool kFused, int kDiag, typename Pos, typename A>
+int launch_one(const A& a, int64_t n, cudaStream_t stream) {
+  if constexpr (kLocate) {
+    return run(sa_locate_kernel<kFused, Pos, kDiag>, a, n, stream);
+  } else {
+    return run(seed_ext_kernel<kFused, Pos, kDiag>, a, n, stream);
+  }
+}
+
 template <bool kLocate, bool kFused, int kDiag, typename A>
 int launch_pos(const A& a, int64_t n, int pos_bytes, cudaStream_t stream) {
-  const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  if constexpr (kLocate) {
-    if (pos_bytes == 4) {
-      sa_locate_kernel<kFused, int32_t, kDiag>
-          <<<grid, kThreads, 0, stream>>>(a);
-    } else {
-      sa_locate_kernel<kFused, int64_t, kDiag>
-          <<<grid, kThreads, 0, stream>>>(a);
-    }
-  } else {
-    if (pos_bytes == 4) {
-      seed_ext_kernel<kFused, int32_t, kDiag>
-          <<<grid, kThreads, 0, stream>>>(a);
-    } else {
-      seed_ext_kernel<kFused, int64_t, kDiag>
-          <<<grid, kThreads, 0, stream>>>(a);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  return pos_bytes == 4
+             ? launch_one<kLocate, kFused, kDiag, int32_t>(a, n, stream)
+             : launch_one<kLocate, kFused, kDiag, int64_t>(a, n, stream);
 }
 
 template <bool kLocate, typename A>
@@ -503,7 +694,7 @@ bool aligned16(const void* p) {
 // The index part of both entries' arguments, or false if it is not one
 // the kernels take.
 bool make_index(Index& ix, const void* rank_a, const void* rank_b,
-                const void* bwt_words, const void* sa_samp, const void* l2,
+                const void* sa_samp, const void* l2,
                 void* need, long long need_sa, long long seq_len,
                 long long primary, long long n_sa, int sa_intv,
                 int pos_bytes, int fused) {
@@ -515,8 +706,7 @@ bool make_index(Index& ix, const void* rank_a, const void* rank_b,
   int log2_intv = 0;
   while ((1 << log2_intv) < sa_intv) ++log2_intv;
   ix = Index{static_cast<const int64_t*>(rank_a),
-             static_cast<const int64_t*>(rank_b),
-             static_cast<const int64_t*>(bwt_words), sa_samp, l2,
+             static_cast<const int64_t*>(rank_b), sa_samp, l2,
              static_cast<uint32_t*>(need), need_sa, seq_len, primary, n_sa,
              sa_intv, log2_intv};
   return true;
@@ -529,8 +719,8 @@ bool make_index(Index& ix, const void* rank_a, const void* rank_b,
 // the first in the highest bits; _Reads.rw) of L chars and their lens
 // (B,) int64; the index: fused = 1 with rank_a = fm_blocks (nb, 12)
 // int64, or fused = 0 with rank_a = occ_cp (nc, 4) and rank_b =
-// bwt_blocks (nb, 8) int64, each 16-byte aligned; bwt_words and
-// pac_words (n_pac,) int64 (uint32 words); sa_samp (n_sa,) and l2 (5,)
+// bwt_blocks (nb, 8) int64, each 16-byte aligned; pac_words (n_pac,)
+// int64 (uint32 words); sa_samp (n_sa,) and l2 (5,)
 // int32 (pos_bytes 4) or int64 (8); sa_intv a power of two.  Outputs k,
 // l, m, rpos int64 and rflag bool per lane; stats (BS, 7) int32 or null:
 // extension steps, walk steps, matched chars, compare round trips, and
@@ -544,16 +734,16 @@ bool make_index(Index& ix, const void* rank_a, const void* rank_b,
 extern "C" int lf_seed_ext(
     const void* alive0, const void* k0, const void* l0, const void* m0,
     const void* pos_f, const void* b_lane, const void* rw, const void* lens,
-    const void* rank_a, const void* rank_b, const void* bwt_words,
-    const void* sa_samp, const void* l2, const void* pac_words, void* k_out,
+    const void* rank_a, const void* rank_b, const void* sa_samp,
+    const void* l2, const void* pac_words, void* k_out,
     void* l_out, void* m_out, void* rpos_out, void* rflag_out, void* stats,
     void* need, long long need_sa, long long need_pac, long long need_rw,
     long long n_lanes, int L, int W16, int phase1_steps, long long seq_len,
     long long primary, long long n_sa, long long n_pac, int sa_intv,
     int pos_bytes, int fused, void* stream) {
   Index ix;
-  if (!make_index(ix, rank_a, rank_b, bwt_words, sa_samp, l2, need, need_sa,
-                  seq_len, primary, n_sa, sa_intv, pos_bytes, fused) ||
+  if (!make_index(ix, rank_a, rank_b, sa_samp, l2, need, need_sa, seq_len,
+                  primary, n_sa, sa_intv, pos_bytes, fused) ||
       L <= 0 || W16 * 16 < L || phase1_steps <= 0 || n_pac <= 0 ||
       (stats != nullptr && need != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -573,28 +763,49 @@ extern "C" int lf_seed_ext(
 
 // The locate of n rows (int64) where valid (bool) is set, over the index
 // as lf_seed_ext takes it, with sa_intv a power of two above 1: out (n,)
-// int64, each valid row's SA position and 0 for the rest; stats (n,)
-// int32 or null: each lane's walk steps; need (bits) int32 zeros or null
-// (not with stats): the bitmap of the input pieces the walks need,
-// segments at bits 0 (rank rows, as lf_seed_ext's) and need_sa (sa_samp
-// entries).  Returns a cudaError_t (0 on a clean launch).
+// int64, each valid row's SA position and 0 for the rest; counter one
+// uint64 of scratch (the lane queue's, zeroed on the stream here); stats
+// (n,) int32 or null: each row's walk steps, with wstats (4 ceil(n /
+// 128), 2) int32 zeros: each warp's issued walk steps and its lanes' walk
+// steps (the persistent grid's warps write the first rows); need
+// (bits) int32 zeros or null (not with stats):
+// the bitmap of the input pieces the walks need, segments at bits 0
+// (rank rows, as lf_seed_ext's) and need_sa (sa_samp entries).  Returns a
+// cudaError_t (0 on a clean launch).
 extern "C" int lf_sa_locate(
     const void* rows, const void* valid, const void* rank_a,
-    const void* rank_b, const void* bwt_words, const void* sa_samp,
-    const void* l2, void* out, void* stats, void* need, long long need_sa,
+    const void* rank_b, const void* sa_samp, const void* l2, void* out,
+    void* counter, void* stats, void* wstats, void* need, long long need_sa,
     long long n, long long seq_len, long long primary, long long n_sa,
     int sa_intv, int pos_bytes, int fused, void* stream) {
   Index ix;
-  if (!make_index(ix, rank_a, rank_b, bwt_words, sa_samp, l2, need, need_sa,
-                  seq_len, primary, n_sa, sa_intv, pos_bytes, fused) ||
-      sa_intv < 2 || (stats != nullptr && need != nullptr)) {
+  if (!make_index(ix, rank_a, rank_b, sa_samp, l2, need, need_sa, seq_len,
+                  primary, n_sa, sa_intv, pos_bytes, fused) ||
+      sa_intv < 2 || counter == nullptr ||
+      (stats != nullptr && need != nullptr) ||
+      ((stats == nullptr) != (wstats == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n <= 0) return 0;
   const LocArgs a{ix, static_cast<const int64_t*>(rows),
                   static_cast<const uint8_t*>(valid),
                   static_cast<int64_t*>(out), static_cast<int32_t*>(stats),
-                  n};
+                  static_cast<int32_t*>(wstats),
+                  static_cast<unsigned long long*>(counter), n};
   return launch<true>(a, n, fused != 0, pos_bytes,
                       static_cast<cudaStream_t>(stream));
+}
+
+// One thread's pointer chase over buf (int64 indexes into itself): warm
+// hops, then hops timed; out (2,) int64: the last index and the timed
+// hops' nanoseconds.  Returns a cudaError_t (0 on a clean launch).
+extern "C" int lf_chase(const void* buf, long long start, int warm,
+                        int hops, void* out, void* stream) {
+  if (buf == nullptr || out == nullptr || warm < 0 || hops <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  chase_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(buf), start, warm, hops,
+      static_cast<int64_t*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,9 @@ contiguous range found by binary search.
 (src/Chain.cpp:232-310) as a loop over seeds i (vectorised over windows
 and j): reward = chainReward * MIN_ANCHOR_LEN, penalty = 0.1*d +
 chainPenalty*log(d) with d = |distR - distT| (src/Chain.cpp:211-225), in
-float64 like the reference's double dp[].  Ties follow the reference:
+float64 like the reference's double dp[], each product and sum rounded
+on its own and log(max(d, 2)) read from one table of libm's values
+(``log_table``), which the kernel reads too.  Ties follow the reference:
 predecessor = largest j among score ties, chain end = smallest i.
 ``chain_clasp_sop`` (``-a clasp``) is the same loop with clasp's
 sum-of-pairs gap cost and local reset.
@@ -25,6 +27,8 @@ CPU path and the oracle the kernel is held against.
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -308,6 +312,51 @@ def _n_live(ok):
     return int(ok.sum(dim=1).max()) if ok.numel() else 0
 
 
+def log_table_len(cfg) -> int:
+    """Entries of dp-n2's log table: every d a linked pair of a window
+    can produce.  For a linked pair d = |dr - dt| < max(dr, dt); a
+    window of a read of length rl spans rl on q and at most 3 rl - 1 on
+    t ([w rl - rl/2, (w + 2) rl - 1 + rl/2], select_window_seeds), and
+    the engine maps no read longer than seq_max_length, so d < 3 x
+    seq_max_length (750,000 at the default 250,000)."""
+    return 3 * cfg.seq_max_length
+
+
+@functools.lru_cache(maxsize=None)
+def _host_log_table(n: int, fdt: torch.dtype) -> torch.Tensor:
+    """log(max(d, 2)) for d < n, made on the host: float64 from Python's
+    math.log (the C library's log, which the reference calls:
+    src/Chain.cpp:217-225), float32 ("f32" DP, not the default) from
+    torch.log in float32 on the CPU."""
+    if fdt == torch.float64:
+        return torch.tensor([math.log(2.0)] * min(n, 2)
+                            + list(map(math.log, range(2, n))),
+                            dtype=torch.float64)
+    return torch.log(torch.arange(n).clamp(min=2).to(torch.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def log_table(n: int, dev: torch.device, fdt: torch.dtype) -> torch.Tensor:
+    """dp-n2's table of log(max(d, 2)) for d < n in the DP's float type
+    on dev: the host's table (_host_log_table) copied once a (device,
+    type, length).  The plain DP and the kernel read it, so the CPU and
+    the card take one log."""
+    return _host_log_table(n, fdt).to(dev)
+
+
+def dpn2_penalty(d, link, table, penalty):
+    """dp-n2's gap penalty of pairs with integer d (int32 tensor): 0 for
+    d <= 1, else 0.1 d + penalty log(max(d, 2)) (src/Chain.cpp:217-225),
+    each product and sum rounded on its own, as the reference's C
+    doubles are (no fused multiply-add).  The log is the table's entry d
+    (log_table), read for the linked pairs only (link): a linked d past
+    the table is an index error, never another log."""
+    fdt = table.dtype
+    lg = table[torch.where(link, d, 0).long()]
+    return torch.where(d <= 1, torch.zeros((), dtype=fdt, device=d.device),
+                       0.1 * d.to(fdt) + penalty * lg)
+
+
 def chain_dpn2(ws: WindowSeeds, cfg, return_dp: bool = False):
     """The dp-n2 DP over every window at full width; with ``return_dp``
     also its (W, N) dp and prev: (chains, dp, prev)."""
@@ -321,6 +370,7 @@ def chain_dpn2(ws: WindowSeeds, cfg, return_dp: bool = False):
     q_end = q + ln - 1  # qPos_j + len_j - 1
     t_end = t + ln - 1
     neg_inf = torch.tensor(float("-inf"), dtype=fdt, device=dev)
+    table = log_table(log_table_len(cfg), dev, fdt)
 
     dp = torch.full((W, N), float("-inf"), dtype=fdt, device=dev)
     prev = torch.full((W, N), -1, dtype=torch.int64, device=dev)
@@ -329,12 +379,7 @@ def chain_dpn2(ws: WindowSeeds, cfg, return_dp: bool = False):
         dist_t = (t[:, i : i + 1] - t_end).to(torch.int32)
         can = ok & (jidx[None, :] < i) & (dist_r > 0) & (dist_t > 0)
         d = (dist_r - dist_t).abs()
-        pen = torch.where(
-            d <= 1,
-            torch.zeros((), dtype=fdt, device=dev),
-            0.1 * d.to(fdt)
-            + cfg.chain_penalty * torch.log(d.clamp(min=2).to(fdt)),
-        )
+        pen = dpn2_penalty(d, can, table, cfg.chain_penalty)
         val = torch.where(can, dp + reward - pen, neg_inf)
         base = ln[:, i].to(fdt)
         best = val.max(dim=1).values

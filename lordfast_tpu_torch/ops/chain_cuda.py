@@ -4,10 +4,13 @@
 clasp, by cfg.chain_alg) and its backtrack in one launch of
 ``csrc/chain_dp.cu``, built for sm_90a: one warp per window, looping to
 the window's own seed count in tiles of 32 seeds, one shuffle broadcast a
-seed, with dp and prev in shared memory, and dp-n2's log(d) for d < 65536
-from a table this module makes with ``torch.log``.  On a
-CUDA tensor it launches the kernel and raises if the launch fails; on a
-CPU tensor it runs the plain version (``chain.chain_dpn2`` /
+seed, with dp and prev in shared memory, and dp-n2's log(max(d, 2)) from
+the plain version's own table (``chain.log_table``: the C library's log,
+made on the host, one copy a device), which covers every d a window can
+link.  On a CUDA tensor it launches the kernel and raises if the launch
+fails (a linked pair whose d lies past the table stops the kernel with a
+trap, which the next synchronize raises, as the plain version's table
+index raises); on a CPU tensor it runs the plain version (``chain.chain_dpn2`` /
 ``chain.chain_clasp_sop`` at full width).  There is no fallback from the
 first to the second.
 
@@ -21,21 +24,17 @@ it.  Build: ``cuda_build`` (nvcc at first use, ctypes).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from . import cuda_build
-from .chain import ChainBatch, _dp_dtype, dp_function
+from .chain import (ChainBatch, _dp_dtype, dp_function, log_table,
+                    log_table_len)
 from .cuda_build import check_tensor
 
 # widest window the kernel takes: its shared memory holds 33 bytes a slot
 # (135 KB of a block's 227 KB at 4096, one window a block)
 MAX_N = 4096
-# dp-n2's penalty reads log(max(d, 2)) from a table for d < LOG_TABLE
-# (512 KB in float64); the kernel refuses a table of another length than
-# its own kLogTable
-LOG_TABLE = 65536
 
 
 def _fn():
@@ -45,15 +44,6 @@ def _fn():
         f.restype = ci
         f.argtypes = [vp] * 12 + [ci] * 6 + [cd] * 4 + [vp]
     return f
-
-
-@functools.lru_cache(maxsize=None)
-def _log_table(dev, fdt):
-    """log(max(d, 2)) for d < LOG_TABLE in the DP's float type, made once
-    a device and type by torch.log on the device: the plain version's
-    own log, so a table entry has the bits the plain penalty uses."""
-    d = torch.arange(LOG_TABLE, device=dev).clamp(min=2)
-    return torch.log(d.to(fdt))
 
 
 def chain_dp(ws, cfg, want_dp: bool = False):
@@ -98,7 +88,8 @@ def chain_dp(ws, cfg, want_dp: bool = False):
             if want_dp else None)
     if W:
         clasp = cfg.chain_alg == ChainAlg.CLASP
-        table = None if clasp else _log_table(dev, fdt)
+        table = (None if clasp
+                 else log_table(log_table_len(cfg), dev, fdt))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = _fn()(
@@ -108,7 +99,7 @@ def chain_dp(ws, cfg, want_dp: bool = False):
                 dp.data_ptr() if want_dp else None,
                 prev.data_ptr() if want_dp else None,
                 table.data_ptr() if table is not None else None,
-                LOG_TABLE, W, N, t.element_size(), int(fdt == torch.float64),
+                table.shape[0] if table is not None else 0, W, N, t.element_size(), int(fdt == torch.float64),
                 int(clasp), float(cfg.chain_reward * cfg.min_anchor_len),
                 float(cfg.chain_penalty), float(cfg.clasp_lambda),
                 float(cfg.clasp_epsilon), stream)

@@ -23,8 +23,8 @@ extension steps and the occ==1 finish) is one launch of the hand-written
 kernel ``csrc/seed_ext.cu`` (``fm_index_cuda.seed_ext``), one thread per
 lane, and with a sampled SA the locate of the multi-hit slots
 (``sa_lookup``) is one launch of the same library's locate kernel
-(``fm_index_cuda.sa_locate``), one thread per slot; with a full SA the
-locate is one gather.  The plain PyTorch loops here are their plain
+(``fm_index_cuda.sa_locate``), whose lanes take slots from a queue as
+their walks end; with a full SA the locate is one gather.  The plain PyTorch loops here are their plain
 versions, the CPU path, the path of ``plain`` (``MappingEngine(
 plain_loops=True)``) and the oracle.  Where the JAX version bounds its
 lockstep loops with fixed-width compaction (``top_k`` into capped

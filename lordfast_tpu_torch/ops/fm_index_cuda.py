@@ -20,11 +20,14 @@ and what bounds it.
 
 ``sa_locate`` walks a batch of rows to their sampled SA rows (the
 locate of the seeder's multi-hit slots with a sampled SA) in one launch
-of the same library's ``sa_locate_kernel``, one thread per row, each to
-its own end; it replaces the JAX package's ``sa_lookup`` (:267,
-``lax.while_loop`` :303).  Its plain version is ``fm_index.sa_lookup``.
-Both kernels locate through one device function, so their walks cannot
-drift.  Build: ``cuda_build`` (nvcc at first use, ctypes).
+of the same library's ``sa_locate_kernel``: a persistent grid whose
+lanes take rows from a queue (a device counter, zeroed on the stream in
+the launch) as their walks end, each walk step one load of one array
+(the row's rank row, whose word holds its char); it replaces the JAX
+package's ``sa_lookup`` (:267, ``lax.while_loop`` :303).  Its plain
+version is ``fm_index.sa_lookup``.  Both kernels step through one device
+function, so their walks cannot drift.  Build: ``cuda_build`` (nvcc at
+first use, ctypes).
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ def _fn():
     if f.argtypes is None:
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         f.restype = ci
-        f.argtypes = ([vp] * 21 + [cl] * 3 + [cl, ci, ci, ci, cl, cl, cl,
+        f.argtypes = ([vp] * 20 + [cl] * 3 + [cl, ci, ci, ci, cl, cl, cl,
                                                cl, ci, ci, ci] + [vp])
     return f
 
@@ -53,7 +56,7 @@ def _locate_fn():
     if f.argtypes is None:
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         f.restype = ci
-        f.argtypes = [vp] * 10 + [cl] * 5 + [ci] * 3 + [vp]
+        f.argtypes = [vp] * 11 + [cl] * 5 + [ci] * 3 + [vp]
     return f
 
 
@@ -91,8 +94,6 @@ def _index_args(arrs, meta, dev, who):
                         "int32 or int64")
     check_tensor("sa_samp", sa, sa.dtype, (sa.shape[0],), dev)
     check_tensor("L2", l2, sa.dtype, (5,), dev)
-    x = arrs["bwt_words"]
-    check_tensor("bwt_words", x, torch.int64, (x.shape[0],), dev)
     return fused, rank_a, rank_b, sa, l2, intv
 
 
@@ -191,8 +192,7 @@ def seed_ext(arrs, meta, rd, alive0, k0, l0, m0, pos_f, b_lane,
                 m0.data_ptr(), pos_f.data_ptr(), b_lane.data_ptr(),
                 rw.data_ptr(), lens.data_ptr(), rank_a.data_ptr(),
                 rank_b.data_ptr() if rank_b is not None else None,
-                arrs["bwt_words"].data_ptr(), sa.data_ptr(), l2.data_ptr(),
-                arrs["pac_words"].data_ptr(),
+                sa.data_ptr(), l2.data_ptr(), arrs["pac_words"].data_ptr(),
                 *(o.data_ptr() for o in outs), rflag.data_ptr(),
                 stats.data_ptr() if want_stats else None,
                 need.data_ptr() if want_need else None,
@@ -223,10 +223,14 @@ def sa_locate(arrs, meta, rows, valid, want_stats: bool = False,
 
     CUDA tensors launch ``sa_locate_kernel`` on the current stream
     (counted in ``sa_locate.launches``), and with ``want_stats`` also
-    return each lane's walk steps (n,) int32, or with ``want_need`` (not
-    both) a dict of the bytes of the index's arrays the walks need, each
-    piece counted once (rank, sa: ``_need_segments``); CPU tensors run
-    the plain version (neither)."""
+    return each row's walk steps (n,) int32 and each warp's issued walk
+    steps and its lanes' walk steps (4 ceil(n / 128), 2) int32 (the
+    persistent grid's warps, 4 a block of 128 threads, fill the first
+    rows; the rest stay 0), or
+    with ``want_need`` (not both) a dict of the
+    bytes of the index's arrays the walks need, each piece counted once
+    (rank, sa: ``_need_segments``); CPU tensors run the plain version
+    (neither)."""
     if want_stats and want_need:
         raise ValueError("sa_locate: want_stats or want_need, not both")
     if rows.device.type == "cpu":
@@ -247,21 +251,27 @@ def sa_locate(arrs, meta, rows, valid, want_stats: bool = False,
     check_tensor("rows", rows, torch.int64, (n,), dev)
     check_tensor("valid", valid, torch.bool, (n,), dev)
     out = torch.empty(n, dtype=torch.int64, device=dev)
-    stats = (torch.empty(n, dtype=torch.int32, device=dev)
-             if want_stats else None)
+    stats = wstats = None
     need, need_sa = None, 0
     if want_need:
         segs, n_bits = _need_segments(arrs, fused, rank_a, rank_b, sa)
         need = torch.zeros(n_bits // 32, dtype=torch.int32, device=dev)
         need_sa = {name: bit for name, bit, _, _ in segs}["sa"]
     if n:
+        counter = torch.empty(1, dtype=torch.int64, device=dev)
+        if want_stats:
+            stats = torch.empty(n, dtype=torch.int32, device=dev)
+            wstats = torch.zeros((4 * -(-n // 128), 2), dtype=torch.int32,
+                                 device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = _locate_fn()(
                 rows.data_ptr(), valid.data_ptr(), rank_a.data_ptr(),
                 rank_b.data_ptr() if rank_b is not None else None,
-                arrs["bwt_words"].data_ptr(), sa.data_ptr(), l2.data_ptr(),
-                out.data_ptr(), stats.data_ptr() if want_stats else None,
+                sa.data_ptr(), l2.data_ptr(), out.data_ptr(),
+                counter.data_ptr(),
+                stats.data_ptr() if want_stats else None,
+                wstats.data_ptr() if want_stats else None,
                 need.data_ptr() if want_need else None, need_sa, n,
                 meta["seq_len"], meta["primary"], sa.shape[0], intv,
                 sa.element_size(), int(fused), stream)
@@ -269,8 +279,11 @@ def sa_locate(arrs, meta, rows, valid, want_stats: bool = False,
             raise RuntimeError(f"sa_locate: kernel launch failed (cudaError "
                                f"{rc})")
         sa_locate.launches += 1
+    elif want_stats:
+        stats = torch.empty(0, dtype=torch.int32, device=dev)
+        wstats = torch.zeros((0, 2), dtype=torch.int32, device=dev)
     if want_stats:
-        return out, stats
+        return out, stats, wstats
     if want_need:
         return out, _need_bytes(need, segs)
     return out

@@ -10,9 +10,9 @@ each lane's running best over the settled tiles' pairs, the tile's own
 penalties, then one broadcast a seed that every lane settles and folds,
 as the kernel does; it rounds every product and sum on its own (the
 kernel's ``__dmul_rn`` / ``__dadd_rn`` order; numpy does not contract),
-takes the log of the plain version's device (torch's, as the kernel's
-table and CUDA's log are), and finds the best end by the kernel's
-butterfly and walks prev as its lane 0 does.
+reads dp-n2's log from the table the plain version and the kernel read
+(``chain.log_table``: the C library's log), and finds the best end by
+the kernel's butterfly and walks prev as its lane 0 does.
 
 Tolerances: dp and prev bit-equal to the plain version, and every chain
 field too; chains equal to the JAX package's exactly, and its float32
@@ -21,6 +21,8 @@ log and fused multiply-adds may differ in the last bit of the float64
 value (tests/test_torch_chain.py has the same tolerance).  Also: the two
 routes of ``_chain_bucketed`` equal the full-width DP of every window,
 the claim the kernel's dispatch rests on."""
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -46,9 +48,14 @@ K_LANES = 32  # a warp: one window, seeds in tiles of 32
 K_DPN2, K_CLASP = 0, 1
 
 
-def _log_plain(x):
-    """The plain version's log on its device: torch's."""
-    return torch.log(torch.from_numpy(np.ascontiguousarray(x))).numpy()
+def _log_of(d, link, F):
+    """log(max(d, 2)) of the linked pairs' d from dp-n2's table
+    (chain.log_table at the default config's length), as the plain
+    version and the kernel read it; an unlinked pair reads entry 0."""
+    fdt = torch.float64 if F == np.float64 else torch.float32
+    table = tchain.log_table(tchain.log_table_len(TCfg()),
+                             torch.device("cpu"), fdt).numpy()
+    return table[np.where(link, d, 0)]
 
 
 def _wrap32(x):
@@ -70,9 +77,9 @@ def pen_of(qi, ti, qj, tj, lj, cost, F, penalty, lam, eml):
         dd = (dr.view(np.uint32) - dt.view(np.uint32)).view(np.int32)
         d = np.where(dd < 0, (np.uint32(0) - dd.view(np.uint32)).view(
             np.int32), dd)
-        fd = np.where(d > 2, d, 2).astype(F)
-        p = (F(0.1) * d.astype(F)) + (F(penalty) * _log_plain(fd))
-        return np.where(d > 1, p, F(0)).astype(F), (dr > 0) & (dt > 0)
+        link = (dr > 0) & (dt > 0)
+        p = (F(0.1) * d.astype(F)) + (F(penalty) * _log_of(d, link, F))
+        return np.where(d > 1, p, F(0)).astype(F), link
     dy = (qi.view(np.uint32) - qe - np.uint32(1)).view(np.int32)
     dx = _wrap32(ti.view(np.uint64) - te - np.uint64(1))
     fx, fy = dx.astype(F), dy.astype(F)
@@ -152,9 +159,8 @@ def chain_dp_model(q, t, ln, ok, cost, reward, penalty, lam, eps,
     base + x (step 1, the settled tiles' pairs; step 2, the tile's own
     penalties pen[s] and link bits; step 3, one broadcast a seed), the
     best end and one walk of prev.  The kernel reads dp-n2's log(max(d,
-    2)) from the wrapper's table (chain_cuda._log_table: torch.log) for
-    d < 65536 and calls CUDA's log past it; both are torch's log here
-    (_log_plain), as test_log_table_is_the_plain_log holds."""
+    2)) from the plain version's table (chain.log_table, _log_of), as
+    test_log_table_is_the_plain_log holds."""
     W, N = q.shape
     out_q = np.zeros((W, N), np.int32)
     out_t = np.zeros((W, N), np.int64)
@@ -440,24 +446,31 @@ def test_bucketed_equals_full_width_dp(alg, route):
 
 
 def test_log_table_is_the_plain_log():
-    """chain_cuda._log_table, dp-n2's table of log(max(d, 2)) for d <
-    LOG_TABLE, bit-equal to the plain penalty's log of the same d, in
-    both DP dtypes (on the CPU here; the card's table comes from the same
-    torch.log on the card, the plain version's log there)."""
-    d = torch.arange(chain_cuda.LOG_TABLE, dtype=torch.int32)
-    for fdt in (torch.float64, torch.float32):
-        table = chain_cuda._log_table(torch.device("cpu"), fdt)
-        assert table.dtype == fdt and table.shape == d.shape
-        assert torch.equal(table, torch.log(d.clamp(min=2).to(fdt)))
-    assert chain_cuda._log_table(torch.device("cpu"), torch.float64) is \
-        chain_cuda._log_table(torch.device("cpu"), torch.float64)
+    """chain.log_table, dp-n2's table of log(max(d, 2)) that the plain
+    version and the kernel (chain_cuda.chain_dp) both read: 3 x
+    seq_max_length entries, the C library's log (Python's math.log) in
+    float64 and torch's CPU log in float32, made once a (device, type,
+    length)."""
+    cfg = TCfg()
+    n = tchain.log_table_len(cfg)
+    assert n == 3 * cfg.seq_max_length == 750_000
+    table = tchain.log_table(n, torch.device("cpu"), torch.float64)
+    assert table.dtype == torch.float64 and table.shape == (n,)
+    want = [math.log(max(d, 2)) for d in range(n)]
+    assert table.numpy().tolist() == want
+    d = torch.arange(n)
+    t32 = tchain.log_table(n, torch.device("cpu"), torch.float32)
+    assert torch.equal(t32, torch.log(d.clamp(min=2).to(torch.float32)))
+    assert tchain.log_table(n, torch.device("cpu"), torch.float64) is table
 
 
 def _count_pairs(arrays, alg, fsize):
     """chip_smoke.chain_work's counts, pair by pair in Python ints: every
     pair j < i of a window's seeds, its int32 differences and whether it
     links; for a linked pair the float operations, and dp-n2's d and
-    whether its log is a table entry (d < LOG_TABLE) or computed."""
+    the table entries its log reads (every d > 1: the table covers every
+    d a window links), and how many linked d lie at or past 65,536, the
+    length of the table that took only near pairs before."""
     q, t, ln, va = arrays
     cut = lambda x: (x + 2**31) % 2**32 - 2**31
     pairs = linked = ints = fp = far = 0
@@ -483,11 +496,9 @@ def _count_pairs(arrays, alg, fsize):
                 ints += 2
                 dd = cut(dr - dt)
                 d = dd if dd == -2**31 else abs(dd)
+                far += d >= 65_536
                 if d <= 1:
                     fp += 3
-                elif d >= chain_cuda.LOG_TABLE:
-                    fp += 6 + 20
-                    far += 1
                 else:
                     fp += 6
                     table.add(d)
@@ -504,7 +515,8 @@ def test_smoke_chain_work_counts_the_inputs(alg, dtype):
     """chip_smoke.chain_work, which gives chain_dp's bound, equal to a
     count pair by pair: windows at several counts with int32 wraps, and
     one whose second half sits 100,000 further along t, so that dp-n2
-    has linked pairs whose log is past the table."""
+    has linked pairs whose log lies past 65,536 entries (the table's
+    length before it took every d a window can link)."""
     rng = np.random.default_rng(31)
     arrays = chip_smoke.make_windows(rng, 8, 64,
                                      [64, 40, 0, 1, 33, 64, 17, 64],

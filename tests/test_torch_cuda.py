@@ -5,14 +5,16 @@ test per kind of bucket, the warp kernels' lane edges, and ``-a clasp``
 through the engine on the card against the CPU; ``chain_dp`` against
 the plain chaining DP (the float bits of dp, prev and every chain field;
 both costs, both DP dtypes, both position dtypes; seed counts at the
-kernel's 32-seed tile edges with planted exact ties, and 1024 full
-windows of 512 seeds) and ``seed_ext`` against ``_staged_ext`` (every
+kernel's 32-seed tile edges with planted exact ties, 1024 full windows
+of 512 seeds, and dp-n2's penalty at every entry of its log table against
+the C-double formula) and ``seed_ext`` against ``_staged_ext`` (every
 lane's k, l, m, rpos, rflag; full and sampled SA, fused and split rank
 rows; runs of its 16-char compare ending at every offset of a trip, at
 an N, the read's end, the text's start and MAX_ANCHOR_LEN), ``sa_locate``
 against ``sa_lookup`` (every row of a small genome's text and edge lanes
 at sa_intv 2 to 64, both rank layouts, int32 and int64 sa_samp), and the
-dispatch of ``chain_seeds`` and of the seeder to them.  Needs an
+dispatch of ``chain_seeds`` and of the seeder to them; ``sa_locate``'s
+lane queue below and beyond the lanes the card holds at once.  Needs an
 NVIDIA GPU (marker ``cuda``) and skips
 without one.  This file imports neither jax nor lordfast_tpu, so it also
 runs where JAX is not installed:
@@ -352,6 +354,59 @@ def test_cuda_chain_dp_tile_edges(cuda_device, alg, N, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("penalty", [11.4, 100.0])
+def test_cuda_chain_dp_log_table(cuda_device, penalty):
+    # dp-n2's penalty in the kernel at every entry of the log table
+    # (chip_smoke.log_windows: one linked pair of each d = 0 .. 3 x
+    # seq_max_length - 1, 9,170 and 19,143 among them): the dp bits equal
+    # the C-double formula's with the C library's log and the plain
+    # version's on the card; no log is computed on the card
+    cfg = LordfastConfig(max_chain_seeds=2, chain_penalty=penalty)
+    ds = np.arange(chain.log_table_len(cfg))
+    ws = _ws(chip_smoke.log_windows(ds), cuda_device)
+    chip_smoke.check_chain_dp(ws, cfg)
+    _, dp, prev = chain_cuda.chain_dp(ws, cfg, want_dp=True)
+    want = np.array(chip_smoke.log_window_dp(ds, cfg))
+    np.testing.assert_array_equal(dp[:, 1].cpu().numpy().view(np.int64),
+                                  want.view(np.int64))
+    assert bool((prev[:, 1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["last", "past"])
+def test_cuda_chain_dp_log_table_edge(cuda_device, where):
+    # a linked pair at the log table's last entry links; one past it
+    # stops the kernel with a trap, which the synchronize raises (in a
+    # process of its own: a trap ends the process's CUDA context)
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    d = chain.log_table_len(LordfastConfig()) - (where == "last")
+    code = (
+        "import sys; sys.path.insert(0, '.')\n"
+        "import numpy as np, torch, chip_smoke\n"
+        "from lordfast_tpu_torch.config import LordfastConfig\n"
+        "from lordfast_tpu_torch.ops import chain, chain_cuda\n"
+        f"a = chip_smoke.log_windows(np.array([{d}]))\n"
+        "ws = chain.WindowSeeds(*(torch.from_numpy(x).cuda() for x in "
+        "(*a, a[3].sum(-1).astype(np.int32))))\n"
+        "_, dp, _ = chain_cuda.chain_dp(ws, LordfastConfig("
+        "max_chain_seeds=2), want_dp=True)\n"
+        "torch.cuda.synchronize()\n"
+        "print(repr(float(dp[0, 1])))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    if where == "last":
+        assert r.returncode == 0, r.stderr[-2000:]
+        want = chip_smoke.log_window_dp([d], LordfastConfig())[0]
+        assert float(r.stdout.split()[-1]) == want
+    else:
+        assert r.returncode != 0 and "Error" in r.stderr, r.stderr[-2000:]
+
+
+@pytest.mark.cuda
 def test_cuda_chain_dp_full_windows(cuda_device):
     # 1024 windows x 512 slots, every slot a seed, both costs
     out = chip_smoke.phase_full_windows(chip_smoke.INT32_LANES * 1.98e9)
@@ -523,17 +578,20 @@ def test_cuda_loop_wrappers_reject_bad_inputs(cuda_device, genome):
                cuda_device)
     with pytest.raises(ValueError):
         chain_cuda.chain_dp(wide, cfg)
-    # a log table of another length than the kernel's own: refused
+    # dp-n2 without a log table, or with one shorter than 2 entries:
+    # refused; the table's length is the caller's (chain.log_table)
     q, t, ln, ok = ws[:4]
     outs = [torch.empty_like(x) for x in (q, t, ln)] + [
         torch.empty(4, dtype=d, device=cuda_device)
         for d in (torch.int32, torch.float32)]
-    table = chain_cuda._log_table(cuda_device, torch.float64)
-    for n_table, rc in ((chain_cuda.LOG_TABLE - 1, 1),
-                        (chain_cuda.LOG_TABLE, 0)):
+    table = chain.log_table(chain.log_table_len(cfg), cuda_device,
+                            torch.float64)
+    for ptr, n_table, rc in ((table.data_ptr(), 1, 1), (None, 1000, 1),
+                             (table.data_ptr(), 1000, 0),
+                             (table.data_ptr(), table.shape[0], 0)):
         assert chain_cuda._fn()(
             *(x.data_ptr() for x in (q, t, ln, ok, *outs)), None, None,
-            table.data_ptr(), n_table, 4, 64, t.element_size(), 1, 0, 1.0,
+            ptr, n_table, 4, 64, t.element_size(), 1, 0, 1.0,
             1.0, 1.0, 1.0, None) == rc  # 1: cudaErrorInvalidValue
     torch.cuda.synchronize()
     path, reads, lens = genome
@@ -598,6 +656,31 @@ def test_cuda_sa_locate_matches_plain(cuda_device, genome, sa_interval):
     full = torch.from_numpy(sa_full.astype(np.int64))
     v = valid.cpu()
     assert torch.equal(out[v], full[v]) and bool((out[~v] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5_000, 600_000])
+def test_cuda_sa_locate_lane_queue(cuda_device, genome, n):
+    # the lane queue below the lanes the card holds at once (every row in
+    # a warp's first chunk) and above them (most rows from the queue's
+    # counter): random rows of the genome at sa_intv 32 (90% valid) and
+    # the edge lanes, both rank layouts, int32 and int64 sa_samp, the
+    # pipeline's instantiation and the two diagnostic ones, equal to
+    # sa_lookup; each row's steps add up to the warps' lane steps
+    idx, arrs, sa_full = _sampled(genome[0], 32, cuda_device)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(n)
+    rows = torch.randint(0, idx.seq_len + 1, (n,), generator=g,
+                         device=cuda_device)
+    valid = torch.rand(n, generator=g, device=cuda_device) < 0.9
+    rec = dict(arrs=arrs, meta=idx.meta, rows=rows, valid=valid)
+    got = chip_smoke.check_sa_locate(f"queue n={n}", idx, rec, 16.7e12,
+                                     timed=True)
+    assert (32 * got["warps"] < n) == (n > 100_000)
+    out = fm_index_cuda.sa_locate(arrs, idx.meta, rows, valid).cpu()
+    full = torch.from_numpy(sa_full.astype(np.int64))
+    v, r = valid.cpu(), rows.cpu()
+    assert torch.equal(out[v], full[r[v]]) and bool((out[~v] == 0).all())
 
 
 @pytest.mark.cuda

@@ -5,7 +5,10 @@ csrc/seed_ext.cu) against the JAX package's ``sa_lookup``
 on the CPU, the port's engine over a sampled-SA golden index against
 ``golden.sam``, and the smoke's pieces of the sampled path: ``slice_sa``,
 the edge lanes, the routing checks and the JAX package's SAM digests
-(``tests/data/jax_sam_digests.json``).
+(``tests/data/jax_sam_digests.json``); and a numpy model of the kernel
+(csrc/seed_ext.cu, names as there): its walk step against ``bwt_b0`` +
+``occ`` of the port and of the JAX package on every row class, and its
+lane queue against the full SA.
 
 The index is the ``sampled_index`` fixture's genome (seed 31, 30 kb)
 with the full SA, sliced to intervals 2, 4, 16 and 32 as the builder
@@ -271,3 +274,248 @@ def test_check_launches_sampled_routing():
     for bad in (dict(sa_locate=4), dict(sa_lookup=1)):
         with pytest.raises(AssertionError):
             ck("f", _launches(chain_dp=4, seed_ext=4, **bad), {}, need)
+
+
+# A numpy model of csrc/seed_ext.cu's walk step and lane queue, names as
+# there: change the kernel's index arithmetic or schedule here first.
+M32 = np.uint64(0xFFFFFFFF)
+
+
+def _host_index(arrs, layout):
+    """The rank arrays as the kernel reads them: (counts (nb, 4), words
+    (nb, 8)) int64, from fm_blocks or from occ_cp + bwt_blocks."""
+    if layout == "fused":
+        fb = arrs["fm_blocks"].numpy()
+        return fb[:, :4], fb[:, 4:]
+    return arrs["occ_cp"].numpy(), arrs["bwt_blocks"].numpy()
+
+
+def load_at(ix, kp, k):
+    """The kernel's Row of the $-removed position kp for row k: the
+    counts and the word pairs up to the pair of kp's word (the rest
+    zero, as they are not loaded), and off."""
+    cnt, words = ix
+    blk, off = kp >> 7, (kp & 127).astype(np.int64)
+    f = off >> 4
+    w = words[blk].astype(np.uint64) & np.uint64(0xFFFFFFFF)
+    pairs = [(w[:, 2 * p], w[:, 2 * p + 1]) for p in range(4)]
+    pairs = [(np.where(f >= 2 * p, hi, 0), np.where(f >= 2 * p, lo, 0))
+             for p, (hi, lo) in enumerate(pairs)]
+    return {"cnt": cnt[blk], "pairs": pairs, "k": k, "off": off}
+
+
+def match(w, c):
+    """Per-char match bits of BWT words (uint64 arrays of uint32 values)."""
+    hi = np.where((c & 2) != 0, w, w ^ M32)
+    lo = np.where((c & 1) != 0, w, w ^ M32)
+    return (hi >> np.uint64(1)) & lo & np.uint64(0x55555555)
+
+
+def first_chars(n):
+    """The chars 0..n - 1 of a word, the first char highest."""
+    sh = np.clip(32 - 2 * n, 0, 31).astype(np.uint64)
+    return np.where(n >= 16, M32,
+                    np.where(n <= 0, np.uint64(0), (M32 << sh) & M32))
+
+
+def occ(meta, l2, row, c):
+    """occ(k, c) of a loaded row: the block's count plus one masked
+    popcount a word over the chars 0..off; row seq_len its char's
+    total."""
+    n = row["off"] + 1
+    words = [w for p in row["pairs"] for w in p]
+    cnt = sum(np.bitwise_count(match(w, c) & first_chars(n - 16 * i))
+              .astype(np.int64) for i, w in enumerate(words))
+    base = np.take_along_axis(row["cnt"], c[:, None], 1)[:, 0]
+    total = l2[c + 1] - l2[c]
+    return np.where(row["k"] == meta["seq_len"], total, base + cnt)
+
+
+def row_char(row):
+    """The char of the row's own position, from its word."""
+    f, r = row["off"] >> 4, row["off"] & 15
+    hi, lo = np.choose(f >> 1, [p[0] for p in row["pairs"]]), np.choose(
+        f >> 1, [p[1] for p in row["pairs"]])
+    w = np.where(f & 1, lo, hi).astype(np.int64)
+    return (w >> ((15 - r) << 1)) & 3
+
+
+def walk_step(ix, meta, l2, k):
+    """(c, occ(k, c), the next row) of rows k != primary: the row x = k -
+    (k > primary) loaded once, its char from its own word."""
+    x = k - (k > meta["primary"])
+    row = load_at(ix, x, k)
+    c = row_char(row)
+    o = occ(meta, l2, row, c)
+    return c, o, l2[c] + o
+
+
+def _row_classes(meta, n_random, seed):
+    """Rows of every class the step treats apart: primary's neighbours,
+    row seq_len and seq_len - 1, the ends and starts of rank blocks (in
+    the $-removed positions, so on both sides of primary), 1, and
+    n_random random rows; primary itself is the kernel's jump to 0."""
+    seq_len, primary = meta["seq_len"], meta["primary"]
+    blocks = np.arange(0, seq_len, 128)
+    edge = [primary - 1, primary + 1, seq_len, seq_len - 1, 1]
+    for b in blocks[:: max(1, len(blocks) // 64)]:
+        for x in (b - 1, b, b + 1, b + 127):
+            edge += [x, x + 1]  # x itself and past primary's shift
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([edge, rng.integers(1, seq_len + 1, n_random)])
+    rows = rows[(rows >= 1) & (rows <= seq_len) & (rows != primary)]
+    return rows.astype(np.int64)
+
+
+@pytest.fixture(scope="module")
+def golden_port_idx(ref8_idx):
+    return port_index(ref8_idx)
+
+
+@pytest.mark.parametrize("index", ["golden", "sampled"])
+@pytest.mark.parametrize("layout", ["fused", "split"])
+def test_walk_step_model(index, layout, ref8_idx, golden_port_idx,
+                         sampled_index):
+    """walk_step's char and count equal bwt_b0 and occ of the port and
+    of the JAX package on every row class (primary's neighbours, seq_len,
+    block edges on both sides of primary) and on 22,044 seeded random
+    rows (v2's first locate call's lane count), over the golden index and
+    the sampled-SA test genome, in both rank layouts."""
+    jidx = ref8_idx if index == "golden" else sampled_index
+    tidx = golden_port_idx if index == "golden" else port_index(jidx)
+    arrs, meta = tidx.device_arrays("cpu"), tidx.meta
+    if layout == "split":
+        arrs = chip_smoke.split_layout(tidx, arrs)
+    l2 = arrs["L2"].numpy().astype(np.int64)
+    k = _row_classes(meta, 22_044, 7)
+    assert meta["seq_len"] in k and (k == meta["primary"] + 1).any()
+    c, o, nxt = walk_step(_host_index(arrs, layout), meta, l2, k)
+    x = k - (k > meta["primary"])
+    full = tidx.device_arrays("cpu")
+    np.testing.assert_array_equal(
+        c, t2n(tfm.bwt_b0(full, torch.from_numpy(x))))
+    np.testing.assert_array_equal(o, t2n(tfm.occ(
+        arrs, meta, torch.from_numpy(k), torch.from_numpy(c))))
+    jarrs = jidx.device_arrays()
+    np.testing.assert_array_equal(c, np.asarray(jfm.bwt_b0(
+        jarrs, jnp.asarray(x))).astype(np.int64))
+    np.testing.assert_array_equal(o, np.asarray(jfm.occ(
+        jarrs, jidx.meta, jnp.asarray(k), jnp.asarray(c))))
+    np.testing.assert_array_equal(nxt, t2n(tfm._walk_step(
+        arrs, meta, torch.from_numpy(k))))
+
+
+def sa_locate_kernel(ix, meta, l2, sa, rows, valid, n_warps, rng):
+    """The kernel's lane queue, warp by warp in a seeded random order of
+    their loop iterations: warp w starts with chunk w, then takes chunk
+    n_warps + atomicAdd(counter, 1) when an idle lane finds its chunk
+    handed out; each idle lane takes the chunk's next row (rank among the
+    idle lanes), a lane with a row steps or, at a sampled row, writes
+    out[i] and goes idle.  Returns out, each row's steps, the number of
+    writes of each row, and each warp's (issued, active) steps."""
+    n, mask = len(rows), meta["sa_intv"] - 1
+    log2 = meta["sa_intv"].bit_length() - 1
+    out = np.zeros(n, np.int64)
+    stats = np.zeros(n, np.int64)
+    writes = np.zeros(n, np.int64)
+    counter = [0]
+    lane = np.arange(32)
+
+    def chunk(cb):
+        ok = cb + lane < n
+        idx = np.where(ok, cb + lane, 0)
+        return np.where(ok, rows[idx], 0), np.where(ok, valid[idx], False)
+
+    warps = []
+    for w in range(n_warps):
+        crow, cval = chunk(32 * w)
+        warps.append(dict(cb=32 * w, crow=crow, cval=cval, taken=0,
+                          i=np.full(32, -1), rows=np.zeros(32, np.int64),
+                          steps=np.zeros(32, np.int64), issued=0, active=0,
+                          done=False))
+
+    def iteration(s):
+        idle = s["i"] < 0
+        if idle.any() and s["cb"] < n:
+            left = min(n - s["cb"], 32) - s["taken"]
+            want = int(idle.sum())
+            src = s["taken"] + np.cumsum(idle) - idle  # rank among idle
+            take = idle & (src < s["taken"] + left)
+            srcc = src & 31
+            s["i"] = np.where(take, s["cb"] + src, s["i"])
+            s["rows"] = np.where(take, s["crow"][srcc], s["rows"])
+            s["steps"] = np.where(take, 0, s["steps"])
+            bad = take & ~s["cval"][srcc]
+            for j in np.nonzero(bad)[0]:
+                out[s["i"][j]] = 0
+                writes[s["i"][j]] += 1
+            s["i"] = np.where(bad, -1, s["i"])
+            s["taken"] += min(want, left)
+            if want > left:
+                c = counter[0]
+                counter[0] += 1
+                s["cb"] = (n_warps + c) * 32
+                s["taken"] = 0
+                s["crow"], s["cval"] = chunk(s["cb"])
+        busy = s["i"] >= 0
+        end = busy & ((s["rows"] & mask) == 0)
+        for j in np.nonzero(end)[0]:
+            i = s["i"][j]
+            out[i] = s["steps"][j] + sa[s["rows"][j] >> log2]
+            stats[i] = s["steps"][j]
+            writes[i] += 1
+        step = busy & ~end
+        if step.any():
+            r = s["rows"]
+            live = step & (r != meta["primary"])
+            nxt = r.copy()
+            if live.any():
+                nxt[live] = walk_step(ix, meta, l2, r[live])[2]
+            s["rows"] = np.where(step, np.where(r == meta["primary"], 0, nxt),
+                                 r)
+            s["steps"] = s["steps"] + step
+            s["issued"] += 1
+            s["active"] += int(step.sum())
+        s["i"] = np.where(end, -1, s["i"])
+        if not (s["i"] >= 0).any() and s["cb"] >= n:
+            s["done"] = True
+
+    while True:
+        live = [s for s in warps if not s["done"]]
+        if not live:
+            break
+        for j in rng.permutation(len(live))[: max(1, len(live) // 2)]:
+            iteration(live[j])
+    return out, stats, writes, [(s["issued"], s["active"]) for s in warps]
+
+
+@pytest.mark.parametrize("n_warps", [3, 17, 130])
+def test_lane_queue_model(n_warps, full_index):
+    """The lane queue's model at 3 and 17 warps (4,160 rows: most chunks
+    come from the counter, beyond what the warps hold at once) and at 130
+    (every row in a warp's first chunk, the case of v2's calls): every
+    row is written once, by its own index, each valid row's position is
+    the full SA's (so sa_lookup's) and an invalid one's 0, whatever
+    order the warps' iterations run in; the warps' lane steps add up to
+    the rows' steps.  Warp efficiency (lane steps over 32 x issued
+    steps): ~0.86 at 43 chunks a warp, ~0.69 at 7.6 (the last chunk's
+    longest walk), ~0.22 with one chunk a warp (as with one row a
+    thread: a warp ends with its longest walk)."""
+    tidx = chip_smoke.slice_sa(port_index(full_index), 16)
+    arrs, meta = tidx.device_arrays("cpu"), tidx.meta
+    l2 = arrs["L2"].numpy().astype(np.int64)
+    rng = np.random.default_rng(n_warps)
+    n = 4160
+    rows = rng.integers(0, tidx.seq_len + 1, n)
+    rows[:4] = [meta["primary"], meta["seq_len"], 0, 16]
+    valid = rng.random(n) < 0.9
+    out, stats, writes, per_warp = sa_locate_kernel(
+        _host_index(arrs, "fused"), meta, l2, tidx.sa_samp.astype(np.int64),
+        rows, valid, n_warps, rng)
+    assert (writes == 1).all()
+    want = np.where(valid, full_index.sa_samp[rows].astype(np.int64), 0)
+    np.testing.assert_array_equal(out, want)
+    assert sum(a for _, a in per_warp) == stats.sum() > 0
+    eff = stats.sum() / (32 * sum(i for i, _ in per_warp))
+    lo, hi = {3: (0.8, 1.0), 17: (0.6, 1.0), 130: (0.0, 0.3)}[n_warps]
+    assert lo < eff <= hi, eff
