@@ -141,6 +141,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    also maps golden and v2 with no mesh, and phases 3 and 5's warm
    passes), and rank 0's kernel launches, which must equal the
    sub-batches its engine counted;
+   - a sharded pass seeds through csrc/seed_shard.cu's four kernels
+     (shard_bucket, shard_answer, shard_ext_step and, with a sampled SA,
+     shard_walk_step), all of which must launch while the plain sharded
+     loops (fm_index._shard_ext, _shard_walk) are not entered; a
+     plain_loops pass the reverse; each pass's sharded device calls,
+     blocks, redone blocks and host reads are printed, and the reads must
+     be one a block, one a redone block, one sizing each loop and two an
+     exact gather;
+   - v2 over its SA sliced to 32, sharded: at NCCL two passes (== phase
+     5's SAM), each kernel held to its plain version on its first call
+     of the first pass (record_shard, check_shard_kernels: shard_bucket
+     up to its atomics' slot order, the rest bit for bit) and timed, with
+     its bound by bytes (shard_work); a plain_loops pass of the first 64
+     reads; at gloo D = 2 the first 64 reads, the kernels checked on both
+     ranks;
 11. v2 sampled (run right after phase 5): phase 5's config over v2's
    index with the SA sliced to 32, then 16 (``slice_sa``: no second
    build), two passes each and a plain_loops pass, every SAM byte-equal
@@ -160,7 +175,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    chain call of their first pass): the linked pairs with d >= 65,536
    and with a d at which torch.log differs from the C library's log
    (on the host CPU or on the card), and the largest d against the log
-   table's length (``phase_log_counts``).
+   table's length (``phase_log_counts``); and between the two, the 300
+   Mbp index sharded at NCCL D = 1 in this process (phase_g300_mesh: two
+   passes == the replicated SAM, a plain_loops pass of 64 reads).
 
 Phases 4 and 5 run the engine at verbosity 2, which adds the
 ``gpart_*`` counters (launches per bucket and part size) and prints them
@@ -175,8 +192,9 @@ pass must enter both and launch neither kernel).  With a sampled SA
 (phases 11 and 12) sa_locate must launch once a device call (as often
 as seed_ext) and the plain walk (``fm_index.sa_lookup``, counted on
 entry) must not run; a plain_loops pass does the reverse; a full-SA
-pass does neither.  The host seeders of phase 7 and the sharded index
-of phase 10 seed without seed_ext.  Then a line with the
+pass does neither.  The host seeders of phase 7 seed without seed_ext,
+and the sharded index of phase 10 through the shard kernels.  Then a
+line with the
 kernel table (JSON), the nvidia-smi line, and last the contract line
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is available.  The datasets are cached in .smoke_cache/
@@ -185,7 +203,9 @@ made there by three processes of their own (``chip_smoke.py
 --build-bench v1|v2|g300``), started after phase 1; they run on the host
 while the card runs the phases before the one that loads each saved
 index.  The kernel table's ``launches`` is each kernel's count on v2's
-first pass, and sa_locate's on the 300 Mbp genome's.
+first pass, sa_locate's on the 300 Mbp genome's, and the four shard
+kernels' on the first sharded pass of v2 over its SA sliced to 32 at
+NCCL.
 """
 
 from __future__ import annotations
@@ -252,7 +272,8 @@ KERNELS = ("myers_dist", "myers_moves", "affine_extend", "chain_dp",
            "seed_ext", "sa_locate")
 # the loops these three kernels replace, counted on entry (sa_lookup
 # counts its walks only: with a full SA it is one gather, and the
-# pipeline launches no sa_locate)
+# pipeline launches no sa_locate); a sharded index's are SHARD_KERNELS
+# and SHARD_LOOPS (below)
 LOOP_KERNELS = ("chain_dp", "seed_ext", "sa_locate")
 LOOPS = ("_chain_bucketed", "_staged_ext", "sa_lookup")
 # The JAX package's SAMs of v1 and v2 on the CPU, a sha256 a read
@@ -292,7 +313,7 @@ def _wrappers():
     record_loops stand-in to the function it wraps)."""
     from lordfast_tpu_torch.ops import (affine_cuda, chain, chain_cuda,
                                         fm_index, fm_index_cuda,
-                                        gap_dp_cuda)
+                                        fm_shard_cuda, gap_dp_cuda)
 
     fns = {"myers_dist": gap_dp_cuda.myers_dist,
            "myers_moves": gap_dp_cuda.myers_moves,
@@ -302,20 +323,33 @@ def _wrappers():
            "sa_locate": fm_index_cuda.sa_locate,
            "_chain_bucketed": chain._chain_bucketed,
            "_staged_ext": fm_index._staged_ext,
-           "sa_lookup": fm_index.sa_lookup}
+           "sa_lookup": fm_index.sa_lookup,
+           "_shard_ext": fm_index._shard_ext,
+           "_shard_walk": fm_index._shard_walk,
+           **{n: getattr(fm_shard_cuda, n) for n in (
+               "shard_bucket", "shard_answer", "shard_ext_step",
+               "shard_walk_step")}}
     return {k: getattr(f, "__wrapped__", f) for k, f in fns.items()}
 
 
+def _counter(name):
+    return "entries" if name in LOOPS or name.startswith("_") else \
+        "launches"
+
+
 def reset_launches():
-    """Every kernel's launch count and every replaced loop's entry count
-    to 0."""
+    """Every kernel's launch count, every replaced loop's entry count and
+    the sharded loops' counts (fm_index.shard_counts) to 0."""
+    from lordfast_tpu_torch.ops import fm_index
+
     for name, fn in _wrappers().items():
-        setattr(fn, "entries" if name in LOOPS else "launches", 0)
+        setattr(fn, _counter(name), 0)
+    fm_index.shard_counts.update(dict.fromkeys(fm_index.shard_counts, 0))
 
 
 def read_launches() -> dict:
     """{kernel: launches, loop: entries} since reset_launches."""
-    return {name: getattr(fn, "entries" if name in LOOPS else "launches")
+    return {name: getattr(fn, _counter(name))
             for name, fn in _wrappers().items()}
 
 
@@ -462,6 +496,7 @@ def phase_env() -> float:
     check_affine_frames(cuda_build.logs.get("affine_ext", ""))
     check_loop_frames(cuda_build.logs.get("chain_dp", ""),
                       cuda_build.logs.get("seed_ext", ""))
+    check_shard_frames(cuda_build.logs.get("seed_shard", ""))
     t = time.time()
     native._load()
     log(f"[env] native host library built in {time.time() - t:.1f} s")
@@ -560,6 +595,27 @@ def check_loop_frames(chain_log: str, seed_log: str):
         log(f"[env] ptxas {name}: {n} instantiations, "
             + ", ".join(f"{min(r)}-{max(r)}" + (f" (kDiag {d})" if d else "")
                         for d, r in sorted(regs.items()))
+            + " registers, no stack frame, no spill")
+
+
+def check_shard_frames(ptxas_log: str):
+    """seed_shard.cu's kernels in ptxas's report: shard_bucket_kernel and
+    shard_answer_kernel once, shard_ext_step_kernel and
+    shard_walk_step_kernel once a position dtype; none with a stack frame
+    or a spill."""
+    for name, n in (("shard_bucket_kernel", 1), ("shard_answer_kernel", 1),
+                    ("shard_ext_step_kernel", 2),
+                    ("shard_walk_step_kernel", 2)):
+        frames = ptxas_frames(ptxas_log, f"({name})")
+        if len(frames) != n:
+            raise AssertionError(f"ptxas reported {len(frames)} {name} "
+                                 f"instantiations, not {n}")
+        bad = [f for f in frames if any(f[2:])]
+        if bad:
+            raise AssertionError(f"{name} instantiations with a stack frame "
+                                 f"or spills: {bad}")
+        log(f"[env] ptxas {name}: {n} instantiation(s), "
+            + "/".join(str(f[1]) for f in frames)
             + " registers, no stack frame, no spill")
 
 
@@ -1910,21 +1966,26 @@ def map_pass(eng, reads_path, record=None):
 
 
 def check_launches(path, launches, counters, needed, plain=False,
-                   sampled=False):
+                   sampled=False, sharded=False):
     """Each gap and affine kernel's launches equal the sub-batches its
     stages counted, every kernel in ``needed`` launched, and the loops
-    chain_dp, seed_ext and sa_locate replace were not entered (with
-    ``plain``, the engine's plain_loops pass: none of the three kernels
-    launched).  With ``sampled`` (an index with a sampled SA) a pass
-    that launches seed_ext launches sa_locate as often, once a device
-    call; without, a pass neither launches sa_locate nor walks (the
-    full SA's locate is one gather)."""
+    the kernels replace (chain_dp, seed_ext and sa_locate's; a sharded
+    index's, seed_shard.cu's four) were not entered (with ``plain``, the
+    engine's plain_loops pass: none of those kernels launched and, with
+    ``sharded``, the sharded loops entered).  With ``sampled`` (an index
+    with a sampled SA) a pass that launches seed_ext launches sa_locate
+    as often, once a device call; without, a pass neither launches
+    sa_locate nor shard_walk_step nor walks (the full SA's locate is one
+    gather)."""
     stages = {"myers_dist": ("gap_parts", "esc_split_parts"),
               "myers_moves": ("esc_nw_parts",),
               "affine_extend": ("esc_affine_parts",)}
     if not sampled:
-        needed = [k for k in needed if k != "sa_locate"]
-        if launches["sa_locate"] or launches["sa_lookup"]:
+        needed = [k for k in needed if k not in ("sa_locate",
+                                                 "shard_walk_step")]
+        if any(launches.get(k, 0) for k in ("sa_locate", "sa_lookup",
+                                            "shard_walk_step",
+                                            "_shard_walk")):
             raise AssertionError(f"{path}: a full SA, yet a locate walk: "
                                  f"{launches}")
     elif not plain and launches["sa_locate"] != launches["seed_ext"]:
@@ -1941,11 +2002,16 @@ def check_launches(path, launches, counters, needed, plain=False,
         if name in needed and n <= 0:
             raise AssertionError(f"{path}: {name} never launched")
     if plain:
-        if any(launches[k] for k in LOOP_KERNELS):
+        if any(launches.get(k, 0) for k in LOOP_KERNELS + SHARD_KERNELS):
             raise AssertionError(f"{path}: plain loops, yet {launches}")
-    elif any(launches[k] for k in LOOPS):
+        entered = SHARD_LOOPS if sampled else SHARD_LOOPS[:1]
+        if sharded and not all(launches[k] for k in entered):
+            raise AssertionError(f"{path}: plain loops, yet the sharded "
+                                 f"loops were not entered: {launches}")
+    elif any(launches.get(k, 0) for k in LOOPS + SHARD_LOOPS):
         raise AssertionError(f"{path}: an eager loop ran on cuda: "
-                             f"{ {k: launches[k] for k in LOOPS} }")
+                             f"{ {k: launches.get(k, 0) for k in LOOPS} }, "
+                             f"{ {k: launches.get(k, 0) for k in SHARD_LOOPS} }")
 
 
 def _stage_line(eng):
@@ -2192,6 +2258,16 @@ def start_builds(tags=("v1", "v2", "g300")) -> dict:
     return builds
 
 
+def keep_layout(idx):
+    """idx with its host layout (FMIndex.host_arrays: the packed text, the
+    fused rank rows) made once and kept on it, as load_index keeps a
+    device-layout sidecar's: every engine, shard and byte count then
+    reuses it instead of making it again (~10 s at 300 Mbp)."""
+    if idx._host_cache is None:
+        idx._host_cache = idx.host_arrays()
+    return idx
+
+
 def _built(builds, tag):
     """(ref, reads, index) of the bench dataset tag, once its build_bench
     process has ended; its log lines are relayed."""
@@ -2209,10 +2285,10 @@ def _built(builds, tag):
         if line.startswith((f"[{tag}]", "[index]")):
             log(line)
     t = time.time()
-    idx = load_index(CACHE / f"{tag}.lft.npz")
+    idx = keep_layout(load_index(CACHE / f"{tag}.lft.npz"))
     log(f"[{tag}] built in a process of its own alongside the phases "
-        f"before (waited {waited:.1f} s for it); index loaded in "
-        f"{time.time() - t:.1f} s")
+        f"before (waited {waited:.1f} s for it); index loaded and its "
+        f"host layout made in {time.time() - t:.1f} s")
     return (*_paths(tag), idx)
 
 
@@ -2482,7 +2558,9 @@ def phase_g300(builds, row, int_rate) -> tuple:
     lanes at once), each bit-equal to sa_lookup and timed, with its
     latency floor from a pointer chase over the rank arrays (chase_ns);
     their figures go into the kernel table's sa_locate row.  Returns the
-    first pass's launches and its record_loops (every chain call)."""
+    first pass's launches, its record_loops (every chain call) and, for
+    phase_g300_mesh, the SAM, the reads, the index file and the warm
+    pass's seconds."""
     import torch
 
     from lordfast_tpu_torch.config import LordfastConfig
@@ -2536,7 +2614,9 @@ def phase_g300(builds, row, int_rate) -> tuple:
                     **{f"{pre}_{k}": x[k] for k in (
                         "floor_ms", "chase_ns", "lanes", "walk_steps",
                         "longest_walk", "warp_efficiency", "warps")}})
-    return {"g300": runs[0][4], "g300_plain": plain[4]}, caps
+    return {"g300": runs[0][4], "g300_plain": plain[4]}, caps, dict(
+        sam=sam, reads=reads, index=CACHE / "g300.lft.npz", idx=idx,
+        warm_s=runs[1][1])
 
 
 # recorded chain calls of a pass, for phase_log_counts: more than any
@@ -2830,6 +2910,290 @@ def phase_multiprocess():
         f"({t_single:.1f} s in process), @PG aside")
 
 
+# the sharded index's step kernels (csrc/seed_shard.cu) and the plain
+# loops they replace on the card (counted on entry)
+SHARD_KERNELS = ("shard_bucket", "shard_answer", "shard_ext_step",
+                 "shard_walk_step")
+SHARD_LOOPS = ("_shard_ext", "_shard_walk")
+# what each replaces in the JAX package (lordfast_tpu/ops/fm_index.py)
+SHARD_REPLACES = {
+    "shard_bucket": "lordfast_tpu/ops/fm_index.py:76 _row_gather_routed "
+                    "(the buckets :96-121, the overflow flag :111)",
+    "shard_answer": "lordfast_tpu/ops/fm_index.py:76 _row_gather_routed "
+                    "(the owners' answer :122-128) and :56 _row_gather_ag",
+    "shard_ext_step": "lordfast_tpu/ops/fm_index.py:485 ext_loop_flat "
+                      "(lax.while_loop :492, _ext_body :452)",
+    "shard_walk_step": "lordfast_tpu/ops/fm_index.py:267 sa_lookup (walk "
+                       ":281-303, lax.while_loop :303)"}
+
+
+def _clone(x):
+    """x with every tensor in it (lists, tuples, dicts) cloned."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone(v) for v in x)
+    return x
+
+
+class record_shard:
+    """Context manager: the first call of each of fm_shard_cuda's four
+    wrappers made inside it, and of the bucket and answer steps of the SA
+    entries' gather ("shard_bucket ids", "shard_answer sa"), is recorded
+    in ``self.calls[name]`` with its arguments as they were before the
+    call (tensors cloned: the step kernels run in place), and runs as
+    usual (a _Recorder stand-in at each module attribute, which the loops
+    look up at call time)."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def _record(self, name):
+        def record(*args, **kw):
+            tag = name + (" ids" if kw.get("ids") else "") + (
+                " sa" if kw.get("key") else "")
+            if tag not in self.calls:
+                self.calls[tag] = (_clone(args), dict(kw))
+        return record
+
+    def __enter__(self):
+        from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+        self._saved = {n: getattr(K, n) for n in SHARD_KERNELS}
+        for n, f in self._saved.items():
+            setattr(K, n, _Recorder(f, self._record(n)))
+        return self
+
+    def __exit__(self, *exc):
+        from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+        for n, f in self._saved.items():
+            setattr(K, n, f)
+        return False
+
+
+def _bucket_check(args, kw, kernel, plain):
+    """shard_bucket's kernel against its plain version on one call's
+    arguments (live, k, l, meta, rps, D, cap, send, slot, counts, over):
+    the overflow flag and each owner's count equal, each owner's row ids
+    equal as a set (sorted in the bucket; the kernel's slots are its
+    atomics' order), each query's row id through its own slot equal,
+    and, with no overflow, the same queries without a slot.  Returns the
+    number of asked queries."""
+    import torch
+
+    live, k, l, meta, rps, D, cap = args[:7]
+    outs = []
+    for fn in (kernel, plain):
+        send, slot = args[7].clone(), args[8].clone()
+        counts = torch.zeros(D, dtype=torch.int32, device=live.device)
+        over = torch.zeros(1, dtype=torch.int32, device=live.device)
+        fn(live, k, l, meta, rps, D, cap, send, slot, counts, over, **kw)
+        outs.append((send, slot, counts, over))
+    (sk, tk, ck, ok), (sp, tp, cp, op) = outs
+    if not (torch.equal(ok, op) and torch.equal(ck, cp)):
+        raise AssertionError(f"shard_bucket: overflow {ok.tolist()} / "
+                             f"{op.tolist()}, counts {ck.tolist()} / "
+                             f"{cp.tolist()}")
+    via = [torch.where(t >= 0, s[t.long().clamp(min=0)], -1)
+           for s, t in ((sk, tk), (sp, tp))]
+    if not bool(op.any()):
+        if not (torch.equal(via[0], via[1])
+                and torch.equal(sk.view(D, cap).sort(1).values,
+                                sp.view(D, cap).sort(1).values)):
+            raise AssertionError("shard_bucket: kernel != plain")
+    elif int((tk >= 0).sum()) != int((tp >= 0).sum()):
+        raise AssertionError("shard_bucket: kernel and plain gave slots to "
+                             "different numbers of queries")
+    return int(cp.sum())
+
+
+def _row_piece_bytes(k, pos, seq_len, walk=False):
+    """Bytes of its returned rank row that an occ query of rows k at BWT
+    positions pos needs (fm_rank.cuh occ_of_row, row_char): the 16-byte
+    piece that holds c's count and the word pairs up to the pair of the
+    row's word; none for k < 0 or, on an extension, k == seq_len (their
+    occ is 0 or c's total, from L2); a walk's row seq_len counts c's total
+    and needs only the pair that holds x's char."""
+    import torch
+
+    pairs = 16 * (((pos & 127) >> 5) + 1)
+    if walk:
+        return torch.where(k == seq_len, 16, 16 + pairs)
+    return torch.where((k < 0) | (k == seq_len), 0, 16 + pairs)
+
+
+def shard_work(name, args, kw=None) -> float:
+    """Bytes the function of shard kernel ``name`` needs on one recorded
+    call (its arguments ``args``), each input read once and each output
+    written once, counting what this call's lanes need.  The bucket
+    reads every lane's live flag and its live lanes' k (and l) and
+    writes every query's slot, each asked query's row id and the whole
+    send buffer (its empty slots are -1, which the answer reads).  The
+    answer reads every row id and each distinct owned row (96 bytes) and
+    writes the slots of the owned rows (96 bytes each; no step reads the
+    empty ones).  A step reads every lane's flag and, for a live lane,
+    its state and slots, the read word and read length it needs, and of
+    each query's returned row only the pieces occ needs
+    (_row_piece_bytes); it writes a surviving lane's state and the flag
+    of a lane that stops; L2 is read once.  A dead lane, an extension
+    lane whose next char ends it (it needs no row), a query without a
+    slot and the walk's primary row (it steps to 0) read no row.  kw: the
+    call's keywords (the SA entries' gather: a query a row id, its 4- or
+    8-byte entry read and an int64 written)."""
+    import torch
+
+    from lordfast_tpu_torch.ops import fm_index as fm
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    kw = kw or {}
+    if name == "shard_bucket":
+        live, k, l, meta, rps, D, cap, send, slot = args[:9]
+        n_live = int(live.sum())
+        return float(live.numel() + n_live * (16 if l is not None else 8)
+                     + slot.numel() * 4 + send.numel() * 8)
+    if name == "shard_answer":
+        recv, arrs, base, out = args
+        if kw.get("key"):
+            st = arrs[kw["key"]]
+            rps, size, width = st.shape[0], st.element_size(), 8
+        else:
+            rps, size, width = K.rank_stripes(arrs)[1].shape[0], 96, 96
+        loc = recv - base
+        mine = (loc >= 0) & (loc < rps)
+        owned = int(loc[mine].unique().numel())
+        return float(recv.numel() * 8 + owned * size
+                     + int(mine.sum()) * width)
+    if name == "shard_ext_step":
+        state, pos_f, b_lane, rd, arrs, meta, back, slot = args[:8]
+        alive, k, l, m = state
+        n = alive.numel()
+        seq_len, primary = meta["seq_len"], meta["primary"]
+        go = alive & fm.next_char(rd, b_lane, pos_f, m)[0]
+        qc = (pos_f[alive] + m[alive]).clamp(max=rd.L - 1)
+        words = int((b_lane[alive] * rd.W16 + (qc >> 4)).unique().numel())
+        reads = int(b_lane[alive].unique().numel())
+        pieces = 0
+        for kq, s in ((k - 1, slot[:n]), (l, slot[n:])):
+            kk = kq.clamp(0, seq_len - 1)
+            pos = kk - (kk >= primary).long()
+            pieces += int(_row_piece_bytes(kq, pos, seq_len)[
+                go & (s >= 0)].sum())
+        after = _clone(state)
+        K.shard_ext_step_plain(after, pos_f, b_lane, rd, arrs, meta, back,
+                               slot)
+        n_live, n_go, kept = int(alive.sum()), int(go.sum()), int(
+            after[0].sum())
+        # a live lane reads m, pos_f and b_lane; one that steps also k, l
+        # and two slots; a survivor writes k, l, m, a lane that stops its
+        # flag
+        return float(n + n_live * 3 * 8 + n_go * (2 * 8 + 2 * 4) + pieces
+                     + words * 8 + reads * 8 + kept * 3 * 8
+                     + (n_live - kept) + _l2_bytes(arrs))
+    state, arrs, meta, back, slot = args[:5]
+    active, rows, steps = state
+    seq_len, primary = meta["seq_len"], meta["primary"]
+    steps_row = active & (rows != primary)
+    x = rows - (rows > primary).long()
+    pieces = int(_row_piece_bytes(rows, x, seq_len, walk=True)[
+        steps_row & (slot >= 0)].sum())
+    after = _clone(state)
+    K.shard_walk_step_plain(after, arrs, meta, back, slot)
+    n_live, kept = int(active.sum()), int(after[0].sum())
+    # an active row reads and writes its row and steps, and reads its slot
+    # unless it is the primary row; one that stops writes its flag
+    return float(active.numel() + n_live * 4 * 8 + int(steps_row.sum()) * 4
+                 + pieces + (n_live - kept) + _l2_bytes(arrs))
+
+
+def _l2_bytes(arrs) -> int:
+    l2 = arrs["L2"]
+    return l2.numel() * l2.element_size()
+
+
+def check_shard_kernels(rec, timed=False, reps=5) -> dict:
+    """Each of the four step kernels against its plain version on the card,
+    on its first recorded call (record_shard): shard_bucket as
+    _bucket_check says, the others every output bit-equal (the answer's
+    rows; a step's lane state and live count, from two clones of the
+    state as it was before the call).  With ``timed``, each kernel's mean
+    ms over reps launches queued behind a spin (_time_launches; a step
+    kernel gets a fresh clone of the state a launch) and its plain
+    version's (_time_cuda), and its bound by bytes (shard_work).  Returns
+    {name: figures}."""
+    import functools
+    import itertools
+
+    import torch
+
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    missing = [n for n in ("shard_bucket", "shard_answer", "shard_ext_step")
+               if n not in rec.calls]
+    if missing:
+        raise AssertionError(f"shard kernels never called: {missing}")
+    out = {}
+    for tag, (args, kw) in rec.calls.items():
+        name = tag.split()[0]
+        kern = functools.partial(getattr(K, name), **kw)
+        plain = functools.partial(getattr(K, name + "_plain"), **kw)
+        fig = {"max_abs_err": 0}
+        if name == "shard_bucket":
+            if args[6] is None:
+                raise AssertionError("shard_bucket: the first call took the "
+                                     "all-gather route")
+            fig["asked"] = _bucket_check(args, kw, getattr(K, name),
+                                         getattr(K, name + "_plain"))
+            fig["lanes"] = int(args[0].numel())
+            # the outputs, overwritten by every launch (the kernel clears
+            # the send buffer and the counts itself)
+            bufs = [args[7].clone(), args[8].clone(), args[9].clone(),
+                    torch.zeros(1, dtype=torch.int32, device=args[0].device)]
+
+            def call(f):
+                return lambda: f(*args[:7], *bufs)
+        elif name == "shard_answer":
+            recv, arrs, base, dst = args
+            got, want = torch.empty_like(dst), torch.empty_like(dst)
+            kern(recv, arrs, base, got)
+            plain(recv, arrs, base, want)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{tag}: kernel != plain")
+            fig["rows"] = int(recv.numel())
+
+            def call(f):
+                return lambda: f(recv, arrs, base, got)
+        else:
+            n_args = 8 if name == "shard_ext_step" else 5
+            res = []
+            for f in (kern, plain):
+                a = _clone(args)
+                live = torch.zeros(1, dtype=torch.int32, device=a[0][0].device)
+                f(*a[:n_args], live)
+                res.append(list(a[0]) + [live])
+            for x, y in zip(*res):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{name}: kernel != plain")
+            fig["lanes"] = int(args[0][0].numel())
+            fig["live"] = int(args[0][0].sum())
+
+            def call(f, n_args=n_args):
+                # a fresh copy of the state a launch, made before the
+                # timed window (the step runs in place)
+                pre = itertools.cycle([_clone(args) for _ in range(reps + 1)])
+                return lambda: f(*next(pre)[:n_args])
+        if timed:
+            fig["ms"] = _time_launches(call(kern), reps)
+            fig["plain_ms"] = _time_cuda(call(plain), reps)
+            nbytes = shard_work(name, args, kw)
+            fig["bound_ms"], fig["bound_by"] = bound(nbytes, 0, 1.0)
+            fig["bytes"] = nbytes
+        out[tag] = fig
+    return out
+
+
 def _striped_bytes(idx, arrs: dict):
     """(this rank's device bytes of the arrays a sharded index stripes,
     the same arrays' bytes in the replicated layout of
@@ -2854,22 +3218,63 @@ def mesh_rank(spec_path: str) -> int:
     import torch
     import torch.distributed as dist
 
-    from lordfast_tpu_torch.config import LordfastConfig
-    from lordfast_tpu_torch.index.builder import load_index
     from lordfast_tpu_torch.parallel.mesh import make_mesh
-    from lordfast_tpu_torch.pipeline.engine import MappingEngine
 
     spec = json.loads(Path(spec_path).read_text())
     rank = int(os.environ["RANK"])
     torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
     dist.init_process_group(spec["backend"],
                             timeout=timedelta(seconds=spec["timeout_s"]))
-    mesh = make_mesh("cuda")
-    indexes = {}
+    map_runs(spec, make_mesh("cuda"), rank, {}, spec_path)
+    dist.destroy_process_group()
+    return 0
+
+
+def host_read_us(mesh, n=200) -> float:
+    """Mean microseconds of one host read of the sharded loops' flags
+    (fm_index._read_flags: an all_reduce (MAX) of two int32 on the mesh's
+    group, then their read on the host) over n reads after 10 to warm
+    up, every rank of the group at once; fm_index.shard_counts are left
+    as they were."""
+    import torch
+
+    from lordfast_tpu_torch.ops import fm_index
+    from lordfast_tpu_torch.parallel.mesh import mesh_device, mesh_group
+
+    group = mesh_group(mesh)
+    flags = torch.zeros(2, dtype=torch.int32, device=mesh_device(mesh))
+    saved = dict(fm_index.shard_counts)
+    for _ in range(10):
+        fm_index._read_flags(flags, group)
+    t = time.perf_counter()
+    for _ in range(n):
+        fm_index._read_flags(flags, group)
+    dt = time.perf_counter() - t
+    fm_index.shard_counts.update(saved)
+    return dt / n * 1e6
+
+
+def map_runs(spec, mesh, rank, indexes, spec_path):
+    """mesh_rank's runs on this rank: each run's index (loaded into
+    ``indexes`` by path, or found there), its engine on ``mesh`` (or
+    alone for a replicated run), its passes with the launch counts and
+    the sharded loops' counts read after each; appends this rank's JSON
+    line a run to SPEC.<rank>.jsonl."""
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+
+    from lordfast_tpu_torch.config import LordfastConfig
+    from lordfast_tpu_torch.index.builder import load_index
+    from lordfast_tpu_torch.ops import fm_index
+    from lordfast_tpu_torch.pipeline.engine import MappingEngine
+
     for run in spec["runs"]:
         if run["index"] not in indexes:
-            indexes[run["index"]] = load_index(run["index"])
+            indexes[run["index"]] = keep_layout(load_index(run["index"]))
         idx = indexes[run["index"]]
+        t_setup = time.time()
         if run["replicated"]:
             # rank 0 maps alone, with no mesh: the replicated pass in
             # this process; the others go on to the next run's barrier
@@ -2880,26 +3285,44 @@ def mesh_rank(spec_path: str) -> int:
         else:
             eng = MappingEngine(idx, LordfastConfig(**run["cfg"]),
                                 device="cuda", mesh=mesh,
-                                shard_index=run["shard_index"])
+                                shard_index=run["shard_index"],
+                                plain_loops=run.get("plain", False))
         mine, whole = _striped_bytes(idx, eng.arrs)
         rec = {"name": run["name"], "rank": rank,
                "backend": dist.get_backend(), "world": dist.get_world_size(),
-               "device": str(eng.device), "seconds": [],
-               "index_bytes": mine, "replicated_bytes": whole}
+               "device": str(eng.device), "seconds": [], "shard": [],
+               "sampled": idx.sa_intv > 1,
+               "index_bytes": mine, "replicated_bytes": whole,
+               "setup_s": time.time() - t_setup}
         torch.cuda.reset_peak_memory_stats()
         sams = []
-        for _ in range(run["passes"]):
+        shard_rec = None
+        for i in range(run["passes"]):
             out = io.StringIO()
             if not run["replicated"]:
                 dist.barrier()
             reset_launches()
+            ctx = contextlib.nullcontext()
+            if i == 0 and run.get("check_kernels"):
+                ctx = shard_rec = record_shard()
             t = time.time()
-            eng.map_file(run["reads"], out, "chip_smoke")
-            torch.cuda.synchronize()
+            with ctx:
+                eng.map_file(run["reads"], out, "chip_smoke")
+                torch.cuda.synchronize()
             rec["seconds"].append(time.time() - t)
             rec["launches"] = read_launches()
+            rec["shard"].append(dict(fm_index.shard_counts))
+            rec["device_s"] = eng.metrics.timers.get("device", 0.0)
             sams.append(out.getvalue())
         rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        if run["shard_index"] and not run["replicated"]:
+            rec["host_read_us"] = host_read_us(mesh)
+        if shard_rec is not None:
+            # each kernel against its plain version on this rank's first
+            # call of it, timed under NCCL (gloo's collectives copy
+            # through the host; its run is a correctness case)
+            rec["kernels"] = check_shard_kernels(
+                shard_rec, timed=spec["backend"] == "nccl")
         if rank == 0:
             # every pass, the cold one too, must give the same SAM, which
             # the smoke then holds against the replicated one
@@ -2908,17 +3331,18 @@ def mesh_rank(spec_path: str) -> int:
                                      f"SAMs differ")
             Path(run["out"]).write_text(sams[0])
             c = eng.metrics.counters
-            # a sharded index seeds eagerly (collectives between steps)
-            check_launches(run["name"], rec["launches"], c,
-                           ("myers_dist", "chain_dp")
-                           + (() if run["shard_index"] else ("seed_ext",)))
+            plain = run.get("plain", False)
+            sharded = run["shard_index"]
+            needed = ("myers_dist",) + (() if plain else ("chain_dp",) + (
+                SHARD_KERNELS if sharded else ("seed_ext", "sa_locate")))
+            check_launches(run["name"], rec["launches"], c, needed,
+                           plain=plain, sampled=rec["sampled"],
+                           sharded=sharded)
             rec["counters"] = {k: c.get(k, 0) for k in V2_EXPECTED}
             rec["timers"] = {k: eng.metrics.timers.get(k, 0.0)
                              for k in ("device", "gap_dp", "stitch")}
         with open(f"{spec_path}.{rank}.jsonl", "a") as f:
             f.write(json.dumps(rec) + "\n")
-    dist.destroy_process_group()
-    return 0
 
 
 def _mesh_job(d: Path, tag: str, backend: str, world: int, runs: list,
@@ -2949,14 +3373,110 @@ def _mesh_job(d: Path, tag: str, backend: str, world: int, runs: list,
     return recs
 
 
+def _mesh_run(d, name, index, reads, cfg, shard, passes=1,
+              replicated=False, **kw):
+    """One run of a mesh job's spec (mesh_rank): ``kw`` may set "plain"
+    (plain_loops) and "check_kernels" (record_shard on the first pass,
+    then check_shard_kernels)."""
+    return {"name": name, "index": str(index), "reads": str(reads),
+            "cfg": cfg, "shard_index": shard, "passes": passes,
+            "replicated": replicated, "out": str(d / f"{name}.sam"), **kw}
+
+
+def _report_mesh(backend, world, runs, recs, want, replicated_s=None):
+    """Checks and logs a mesh job's runs: each SAM against ``want``
+    ({data: ("records" or "sam", expected)}; a run's data is its name
+    without the last _part), each sharded pass's loop counts (a host
+    read a block, plus one a redone block, one sizing each loop's first
+    block and two for each exact gather) and each rank's kernel checks.
+    Returns ({path: rank 0's launches}, {path: rank 0's kernel
+    figures})."""
+    by_path, kernels = {}, {}
+    for r in runs:
+        name = r["name"]
+        data = name.rsplit("_", 1)[0]
+        kind, expect = want[data]
+        text = Path(r["out"]).read_text()
+        got = sam_records(text) if kind == "records" else text
+        if got != expect:
+            raise AssertionError(f"mesh {backend} D={world} {name}: the "
+                                 f"SAM differs from the replicated one")
+        r0 = recs[0][name]
+        secs = " / ".join(f"{x:.3f}" for x in r0["seconds"])
+        ref = (replicated_s or {}).get(data)
+        log(f"[mesh] {backend} D={world} {name}: SAM equal to the "
+            f"replicated one ({len(sam_records(text))} records); "
+            f"passes {secs} s"
+            + (f" (replicated warm pass in the smoke's process: "
+               f"{ref:.3f} s)" if ref else "")
+            + f"; rank 0 timers of the last pass {r0['timers']}; "
+            f"launches {r0['launches']}")
+        by_path[f"{name}_{backend}{world}"] = r0["launches"]
+        if data == "v2" and r0["counters"] != V2_EXPECTED:
+            raise AssertionError(f"mesh {name}: counters "
+                                 f"{r0['counters']} != {V2_EXPECTED}")
+        if r["replicated"]:
+            continue
+        for rank in range(world):
+            x = recs[rank][name]
+            log(f"[mesh] {backend} D={world} {name} rank {rank} on "
+                f"{x['device']}: engine set up in {x['setup_s']:.2f} s; "
+                f"striped arrays {x['index_bytes']} B "
+                f"of {x['replicated_bytes']} B replicated "
+                f"({x['index_bytes'] / x['replicated_bytes']:.4f}); "
+                f"peak device memory {x['peak_mib']:.0f} MiB")
+            for k, f in x.get("kernels", {}).items():
+                log(f"[mesh] {backend} D={world} {name} rank {rank} {k}: "
+                    f"== plain on its first call ("
+                    + ", ".join(f"{a} {v:.6g}" if isinstance(v, float)
+                                else f"{a} {v}" for a, v in f.items())
+                    + ")")
+            if rank == 0 and x.get("kernels"):
+                kernels[f"{name}_{backend}{world}"] = x["kernels"]
+        if not r["shard_index"]:
+            continue
+        for i, c in enumerate(r0["shard"]):
+            loops = 2 if r0["sampled"] else 1
+            reads = c["calls"] * (loops + 2) + c["blocks"] + c["redone"]
+            if c["host_reads"] != reads or not c["calls"]:
+                raise AssertionError(f"mesh {name}: host reads {c} != "
+                                     f"{reads}")
+            log(f"[mesh] {backend} D={world} {name} pass {i}: "
+                f"{c['calls']} sharded device calls, {c['blocks']} blocks "
+                f"of {c['steps'] // max(c['blocks'] + c['redone'], 1)} "
+                f"steps ({c['steps']} steps), {c['redone']} redone through "
+                f"the all-gather route; host reads "
+                f"{c['host_reads'] / c['calls']:.1f} a call "
+                f"({c['host_reads']}: one a block, one a redone block, "
+                f"one sizing each loop, two an exact gather), "
+                f"{r0['host_read_us']:.1f} us a read; rank 0's device "
+                f"timer {r0['device_s']:.3f} s (last pass), "
+                f"{r0['device_s'] / max(c['blocks'], 1) * 1e3:.3f} ms a "
+                f"block")
+    return by_path, kernels
+
+
+def shard_rows(figs) -> list:
+    """The kernel table's rows of the four shard kernels, from rank 0's
+    check_shard_kernels figures on the main path's first pass."""
+    return [{"name": name, "route": "cuda",
+             "source": "lordfast_tpu_torch/csrc/seed_shard.cu",
+             "replaces": SHARD_REPLACES[name], "launches": 0,
+             "max_abs_err": figs[name]["max_abs_err"],
+             "ms": figs[name]["ms"], "plain_ms": figs[name]["plain_ms"],
+             "bound_ms": figs[name]["bound_ms"],
+             "bound_by": figs[name]["bound_by"], "library_ms": None}
+            for name in SHARD_KERNELS]
+
+
 def phase_mesh(golden, v2):
     """Phase 10: the mesh and the sharded index (see the module
-    docstring).  Returns rank 0's launch counts by path."""
+    docstring).  Returns (rank 0's launch counts by path, rank 0's shard
+    kernel figures by path)."""
     import shutil
 
     import torch
 
-    from lordfast_tpu_torch.config import LordfastConfig
     from lordfast_tpu_torch.index.builder import save_index
 
     d = CACHE / "mesh"
@@ -2965,6 +3485,7 @@ def phase_mesh(golden, v2):
     t = time.time()
     save_index(golden["idx"], d / "golden.lft.npz")
     save_index(v2["idx"], d / "v2.lft.npz")
+    save_index(slice_sa(v2["idx"], 32), d / "v2_32.lft.npz")
     log(f"[mesh] indexes saved for the ranks in {time.time() - t:.1f} s")
     names64 = _subset(v2["reads"], d / "v2_first64.fq",
                       lambda name, i: i < 64)
@@ -2973,69 +3494,94 @@ def phase_mesh(golden, v2):
              if r.split("\t")[0] in names64]
     gcfg, vcfg = GOLDEN_CFG, {}
     D = torch.cuda.device_count()
+    g, v, v32 = (d / "golden.lft.npz", d / "v2.lft.npz",
+                 d / "v2_32.lft.npz")
+    v64 = d / "v2_first64.fq"
 
-    def run(name, index, reads, cfg, shard, passes=1, replicated=False):
-        return {"name": name, "index": str(d / index), "reads": str(reads),
-                "cfg": cfg, "shard_index": shard, "passes": passes,
-                "replicated": replicated, "out": str(d / f"{name}.sam")}
+    def run(*a, **kw):
+        return _mesh_run(d, *a, **kw)
 
     jobs = [
         # the sharded runs first: a rank's peak memory then holds no
         # replicated copy of the index
         ("nccl", D, [
-            run("golden_shard", "golden.lft.npz", DATA / "reads.fq", gcfg,
-                True, 2),
-            run("golden_mesh", "golden.lft.npz", DATA / "reads.fq", gcfg,
-                False, 2),
-            run("golden_repl", "golden.lft.npz", DATA / "reads.fq", gcfg,
-                False, 2, True),
-            run("v2_shard", "v2.lft.npz", v2["reads"], vcfg, True, 2),
-            run("v2_mesh", "v2.lft.npz", v2["reads"], vcfg, False, 2),
-            run("v2_repl", "v2.lft.npz", v2["reads"], vcfg, False, 2, True)]),
+            run("golden_shard", g, DATA / "reads.fq", gcfg, True, 2),
+            run("golden_mesh", g, DATA / "reads.fq", gcfg, False, 2),
+            run("golden_repl", g, DATA / "reads.fq", gcfg, False, 2, True),
+            run("v2_shard", v, v2["reads"], vcfg, True, 2),
+            run("v2_32_shard", v32, v2["reads"], vcfg, True, 2,
+                check_kernels=True),
+            run("v2_64_32_plain", v32, v64, vcfg, True, plain=True),
+            run("v2_mesh", v, v2["reads"], vcfg, False, 2),
+            run("v2_repl", v, v2["reads"], vcfg, False, 2, True)]),
         ("gloo", 2, [
-            run("golden_shard", "golden.lft.npz", DATA / "reads.fq", gcfg,
-                True),
-            run("v2_64_shard", "v2.lft.npz", d / "v2_first64.fq", vcfg,
-                True)]),
+            run("golden_shard", g, DATA / "reads.fq", gcfg, True),
+            run("v2_64_shard", v, v64, vcfg, True),
+            run("v2_64_32_shard", v32, v64, vcfg, True,
+                check_kernels=True)]),
     ]
+    # the SA sliced to 32 gives the full SA's SAM (phase 11)
     want = {"golden": ("records", golden_recs), "v2": ("sam", v2["sam"]),
-            "v2_64": ("records", v2_64)}
+            "v2_32": ("sam", v2["sam"]), "v2_64": ("records", v2_64),
+            "v2_64_32": ("records", v2_64)}
     replicated_s = {"golden": golden["warm_s"], "v2": v2["warm_s"]}
-    by_path = {}
+    by_path, kernels = {}, {}
     for backend, world, runs in jobs:
         recs = _mesh_job(d, backend, backend, world, runs, 600)
-        for r in runs:
-            name = r["name"]
-            data = name.rsplit("_", 1)[0]
-            kind, expect = want[data]
-            text = Path(r["out"]).read_text()
-            got = sam_records(text) if kind == "records" else text
-            if got != expect:
-                raise AssertionError(f"mesh {backend} D={world} {name}: the "
-                                     f"SAM differs from the replicated one")
-            r0 = recs[0][name]
-            secs = " / ".join(f"{x:.3f}" for x in r0["seconds"])
-            ref = replicated_s.get(data)
-            log(f"[mesh] {backend} D={world} {name}: SAM equal to the "
-                f"replicated one ({len(sam_records(text))} records); "
-                f"passes {secs} s"
-                + (f" (replicated warm pass in the smoke's process: "
-                   f"{ref:.3f} s)" if ref else "")
-                + f"; rank 0 timers of the last pass {r0['timers']}; "
-                f"launches {r0['launches']}")
-            by_path[f"{name}_{backend}{world}"] = r0["launches"]
-            if data == "v2" and r0["counters"] != V2_EXPECTED:
-                raise AssertionError(f"mesh {name}: counters "
-                                     f"{r0['counters']} != {V2_EXPECTED}")
-            if r["replicated"]:
-                continue
-            for rank in range(world):
-                x = recs[rank][name]
-                log(f"[mesh] {backend} D={world} {name} rank {rank} on "
-                    f"{x['device']}: striped arrays {x['index_bytes']} B "
-                    f"of {x['replicated_bytes']} B replicated "
-                    f"({x['index_bytes'] / x['replicated_bytes']:.4f}); "
-                    f"peak device memory {x['peak_mib']:.0f} MiB")
+        p, k = _report_mesh(backend, world, runs, recs, want,
+                            replicated_s)
+        by_path.update(p)
+        kernels.update(k)
+    return by_path, kernels
+
+
+def phase_g300_mesh(g300):
+    """The 300 Mbp genome sharded (after phase 12, which built its index
+    and mapped it replicated): MappingEngine(mesh=..., shard_index=True)
+    at NCCL D = 1 in this process (a group of one), two passes of its 512
+    reads, each SAM byte-equal to phase 12's, and a plain_loops pass of
+    its first 64 reads, equal to phase 12's records of them.  Returns
+    the launches by path."""
+    import torch.distributed as dist
+
+    from lordfast_tpu_torch.parallel.mesh import make_mesh
+
+    d = CACHE / "mesh"
+    d.mkdir(parents=True, exist_ok=True)
+    names64 = _subset(g300["reads"], d / "g300_first64.fq",
+                      lambda name, i: i < 64)
+    recs64 = [r for r in sam_records(g300["sam"])
+              if r.split("\t")[0] in names64]
+    runs = [_mesh_run(d, "g300_shard", g300["index"], g300["reads"], {},
+                      True, 2),
+            _mesh_run(d, "g300_64_plain", g300["index"],
+                      d / "g300_first64.fq", {}, True, plain=True)]
+    # one rank, in this process: phase 12's index (its host layout made
+    # already) serves it, where a rank process would load and lay it out
+    # again (~50 s)
+    spec = d / "g300_nccl.json"
+    spec.write_text(json.dumps({"backend": "nccl", "runs": runs}))
+    spec.with_name(spec.name + ".0.jsonl").unlink(missing_ok=True)
+    t = time.time()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh("cuda")
+        dist.barrier()
+        log(f"[mesh] g300: NCCL group of one and its mesh set up in "
+            f"{time.time() - t:.1f} s")
+        map_runs(json.loads(spec.read_text()), mesh, 0,
+                 {str(g300["index"]): g300["idx"]}, str(spec))
+    finally:
+        dist.destroy_process_group()
+    recs = [{r["name"]: r for r in map(json.loads, spec.with_name(
+        spec.name + ".0.jsonl").read_text().splitlines())}]
+    log(f"[mesh] g300: 1 rank on nccl in this process in "
+        f"{time.time() - t:.1f} s")
+    by_path, _ = _report_mesh(
+        "nccl", 1, runs, recs,
+        {"g300": ("sam", g300["sam"]), "g300_64": ("records", recs64)},
+        {"g300": g300["warm_s"]})
     return by_path
 
 
@@ -3093,13 +3639,23 @@ def _phases(mesh_only, int_rate, builds, t0) -> int:
     phase_multiprocess()
     t9 = time.time()
     log(f"[smoke] phases 6-9 done in {t9 - t5:.1f} s")
-    by_path.update(phase_mesh(golden, v2))
+    mesh_paths, shard_figs = phase_mesh(golden, v2)
+    by_path.update(mesh_paths)
     t10 = time.time()
     log(f"[smoke] phase 10 done in {t10 - t9:.1f} s")
-    g300_paths, g300_caps = phase_g300(builds, rows[-1], int_rate)
+    g300_paths, g300_caps, g300 = phase_g300(builds, rows[-1], int_rate)
     by_path.update(g300_paths)
+    t12 = time.time()
+    by_path.update(phase_g300_mesh(g300))
+    log(f"[smoke] 300 Mbp sharded done in {time.time() - t12:.1f} s")
     phase_log_counts({"v1": v1_caps, "v2": v2["caps"], "g300": g300_caps})
     log(f"[smoke] phase 12 (300 Mbp) done in {time.time() - t10:.1f} s")
+    # the shard kernels' main path: v2 over its SA sliced to 32, sharded
+    # at NCCL D = the card count (the walk runs only with a sampled SA)
+    main = f"v2_32_shard_nccl{torch.cuda.device_count()}"
+    rows += shard_rows(shard_figs[main])
+    for name in SHARD_KERNELS:
+        MAIN_PATH[name] = main
     for row in rows:
         # each kernel's main path: v2's, and for sa_locate (sampled SA
         # only) the 300 Mbp genome's, whose default config samples it

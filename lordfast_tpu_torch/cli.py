@@ -100,15 +100,28 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _wait_for_index(ipath, ref, poll_s: float = 1.0) -> None:
+# How long a rank > 0 of --shardIndex waits for rank 0's index: twice
+# the ~70 min a 3.1 Gbp genome's build takes (gbp_build.py).
+INDEX_WAIT_S = 2 * 3600
+
+
+def _wait_for_index(ipath, ref, poll_s: float = 1.0,
+                    timeout_s: float = INDEX_WAIT_S) -> None:
     """Block until the index of ``ref`` can be loaded: its saved file
-    (written whole by rank 0) or the reference-format files."""
+    (written whole by rank 0) or the reference-format files.  Raises
+    TimeoutError naming the file after timeout_s seconds (a rank 0 that
+    failed, with ranks launched by hand)."""
     import time
 
     from .index.bwa_io import bwa_files_present
 
+    t0 = time.monotonic()
     while not (ipath.exists() or bwa_files_present(ref)):
-        time.sleep(poll_s)
+        if time.monotonic() - t0 >= timeout_s:
+            raise TimeoutError(
+                f"waited {timeout_s:g} s for rank 0's index {ipath} (or the "
+                f"reference-format index of {ref}); did rank 0 fail?")
+        time.sleep(min(poll_s, timeout_s))
 
 
 def parse_read_group(rg_line: str):

@@ -8,8 +8,10 @@
 // a replicated index.  The port's plain version is ops/fm_index.py
 // _staged_ext (eager: ~40 launches an extension step, a bool(act.any())
 // a resolve round and a nonzero compaction a stage); it stays the CPU path
-// and the oracle.  The sharded index's lockstep extension stays eager: it
-// makes collective calls between steps, which a kernel cannot make.
+// and the oracle.  A sharded index runs its lockstep extension and walk as
+// one launch of seed_shard.cu's kernels a step, with the collectives
+// between them; both sources count occ and step the walk through
+// fm_rank.cuh.
 //
 // Semantics (must equal _staged_ext's per-lane (k, l, m, rpos, rflag)):
 // a lane is one (read, sample position); the searched pattern is the
@@ -116,11 +118,14 @@
 
 #include <cuda_runtime.h>
 
+#include "fm_rank.cuh"
+
 namespace {
+
+using namespace fm_rank;
 
 constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int64_t kMaxAnchor = 4095;  // ops/fm_index.py MAX_ANCHOR_LEN
 constexpr uint64_t kThrees = 0x6DB6DB6DB6DBull;  // 3 in each 3-bit group
 constexpr uint64_t kMask48 = 0xFFFFFFFFFFFFull;
 
@@ -168,10 +173,6 @@ struct LocArgs : Index {
   int64_t n;
 };
 
-__device__ __forceinline__ int64_t ld(const int64_t* p) {
-  return static_cast<int64_t>(__ldg(reinterpret_cast<const long long*>(p)));
-}
-
 __device__ __forceinline__ uint32_t word32(const int64_t* p) {
   return static_cast<uint32_t>(ld(p));
 }
@@ -182,25 +183,6 @@ __device__ __forceinline__ uint32_t now_ns() {
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return static_cast<uint32_t>(t);
 }
-
-// L2 (the count of chars smaller than c) in registers: five values
-// selected by c, so no array of them goes to local memory
-struct L2 {
-  int64_t v0, v1, v2, v3, v4;
-  __device__ __forceinline__ int64_t operator[](int c) const {
-    return c == 0 ? v0 : c == 1 ? v1 : c == 2 ? v2 : c == 3 ? v3 : v4;
-  }
-};
-
-// One occ query's rank row in registers: the four counts and the BWT
-// word pairs up to the pair of the row's word (the rest are not loaded,
-// zero), with the queried row and its position in the block.
-struct Row {
-  longlong2 cnt01, cnt23;
-  longlong2 w01, w23, w45, w67;
-  int64_t k;  // the queried row: < 0 and == seq_len are special
-  int off;    // the row's char in its block of 128 (word off >> 4)
-};
 
 // The rank row of the $-removed BWT position kp, for the query of row k,
 // all its loads issued together (16 bytes each): one round trip.
@@ -256,49 +238,10 @@ __device__ __forceinline__ void mark_row(const Index& a, int64_t x, int c) {
   for (int pc = 0; pc <= (f >> 1); ++pc) mark(a.need, bit + 2 + pc);
 }
 
-// per-char match bits of a BWT word (low bit of each 2-bit char)
-__device__ __forceinline__ uint32_t match(uint32_t w, int c) {
-  const uint32_t hi = (c & 2) ? w : ~w;
-  const uint32_t lo = (c & 1) ? w : ~w;
-  return (hi >> 1) & lo & 0x55555555u;
-}
-
-// the chars 0..n - 1 of a BWT word (the first char highest)
-__device__ __forceinline__ uint32_t first_chars(int n) {
-  return n >= 16 ? ~0u : (n <= 0 ? 0u : ~0u << (32 - 2 * n));
-}
-
-// occ(k, c) from a loaded row (bwt_occ with the primary-row adjustment):
-// the count of c before the row's block plus, in 32-bit arithmetic on the
-// block offset, the c's among the block's chars 0..off: each word's match
-// bits masked to those chars, one popcount a word (the words past the
-// row's are not loaded, zero, and masked out), all eight independent, in
-// place of a select a word.
+// occ(k, c) from a loaded row (fm_rank.cuh occ_of_row)
 __device__ __forceinline__ int64_t occ(const Index& a, const L2& l2,
                                        const Row& row, int c) {
-  if (row.k < 0) return 0;
-  if (row.k == a.seq_len) return l2[c + 1] - l2[c];
-  const int64_t base = c == 0 ? row.cnt01.x : c == 1 ? row.cnt01.y
-                     : c == 2 ? row.cnt23.x : row.cnt23.y;
-  const int n = row.off + 1;
-  auto masked = [&](int64_t w, int first) {
-    return __popc(match(static_cast<uint32_t>(w), c) &
-                  first_chars(n - first));
-  };
-  const uint32_t cnt = masked(row.w01.x, 0) + masked(row.w01.y, 16) +
-                       masked(row.w23.x, 32) + masked(row.w23.y, 48) +
-                       masked(row.w45.x, 64) + masked(row.w45.y, 80) +
-                       masked(row.w67.x, 96) + masked(row.w67.y, 112);
-  return base + static_cast<int64_t>(cnt);
-}
-
-// the char of a loaded row's own position, from its word
-__device__ __forceinline__ int row_char(const Row& row) {
-  const int f = row.off >> 4;
-  const longlong2 p = f >= 6 ? row.w67 : f >= 4 ? row.w45
-                    : f >= 2 ? row.w23 : row.w01;
-  const uint32_t w = static_cast<uint32_t>((f & 1) ? p.y : p.x);
-  return static_cast<int>((w >> ((15 - (row.off & 15)) << 1)) & 3u);
+  return occ_of_row(a.seq_len, l2, row, c);
 }
 
 // Marks the pieces of x's rank row that a walk step from row k (x = k -
@@ -328,16 +271,6 @@ __device__ __forceinline__ int64_t walk_step(const Index& a, const L2& l2,
   const int c = row_char(row);
   if (kNeed) mark_walk(a, k, x, c);
   return l2[c] + occ(a, l2, row, c);
-}
-
-// element i of an int32 or int64 array of the index's position dtype
-template <typename Pos>
-__device__ __forceinline__ int64_t pos_at(const void* p, int64_t i) {
-  if constexpr (sizeof(Pos) == 8) {
-    return ld(static_cast<const int64_t*>(p) + i);
-  } else {
-    return static_cast<int64_t>(__ldg(static_cast<const int32_t*>(p) + i));
-  }
 }
 
 // The SA position of row k (bwt_sa, lib/bwa/bwt.c:86-96): with the full

@@ -1,13 +1,15 @@
 """Builds the port's CUDA sources (``lordfast_tpu_torch/csrc/*.cu``):
 ``myers.cu`` (the Myers gap DP, ``gap_dp_cuda``), ``affine_ext.cu``
 (ksw_extend2, ``affine_cuda``), ``chain_dp.cu`` (the chaining DP and its
-backtrack, ``chain_cuda``) and ``seed_ext.cu`` (the seeder's staged
-extension and the locate walk of a sampled SA, ``fm_index_cuda``).
+backtrack, ``chain_cuda``), ``seed_ext.cu`` (the seeder's staged
+extension and the locate walk of a sampled SA, ``fm_index_cuda``) and
+``seed_shard.cu`` (the steps of a sharded index's lockstep extension and
+walk, ``fm_shard_cuda``); the last two include ``fm_rank.cuh``.
 
 Each source is compiled by ``nvcc`` for sm_90a into a shared library
 with a plain C interface in ``lordfast_tpu_torch/_build`` at first use
 (a few seconds each), and loaded with ctypes; a library is rebuilt when
-its source is newer.  ``build_all`` starts one nvcc per source at once.
+its source or a header of ``csrc/`` is newer.  ``build_all`` starts one nvcc per source at once.
 A failed build raises with the compiler's output.  Builds and loads of
 one process run under one lock; each nvcc writes to a temporary name
 unique to the call, renamed into place, so concurrent processes are safe.
@@ -29,7 +31,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # the port's kernel sources, by library name (csrc/<name>.cu)
-SOURCES = ("myers", "affine_ext", "chain_dp", "seed_ext")
+SOURCES = ("myers", "affine_ext", "chain_dp", "seed_ext", "seed_shard")
 
 logs: dict = {}   # name -> nvcc/ptxas output of its last build
 _libs: dict = {}
@@ -49,8 +51,11 @@ def lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
-    lib, src = lib_path(name), CSRC_DIR / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    lib = lib_path(name)
+    if not lib.exists():
+        return True
+    srcs = [CSRC_DIR / f"{name}.cu", *CSRC_DIR.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in srcs)
 
 
 def temp_lib_path(name: str) -> Path:

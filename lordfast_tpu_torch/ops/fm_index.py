@@ -36,15 +36,21 @@ the JAX version's.
 Sharded index (``group=``, parallel/sharded_index.py): the row arrays
 ``fm_blocks`` / ``occ_cp`` / ``bwt_blocks`` / ``bwt_words`` / ``sa_samp``
 hold only this rank's stripe, and every row gather goes to the rank that
-owns the row through torch.distributed collectives (``_row_gather``).
-Each collective needs every rank of the group, so under a group the
-seeder takes the JAX version's sharded branches: the plain lockstep
-extension loop (no occ==1 text-compare fast path) and the walk over
-every slot, each loop ending on a group-wide any (``_global_any``), so
-all ranks make the same calls.  The ``nonzero`` compactions above would
-give each rank its own lane set and stay on the ``group=None`` path.
-Neither kernel serves a sharded index: its walk and its extension stay
-eager, since each step makes collective calls, which a kernel cannot.
+owns the row through torch.distributed collectives (``exchange``: the
+JAX version's fixed (D, cap) buckets with equal splits, and its
+all-gather route; the one protocol around both the plain steps here and
+the kernels of ``fm_shard_cuda``).  Each collective needs every rank of
+the group, so under a group the seeder takes the JAX version's sharded
+branches: the plain lockstep extension (no occ==1 text-compare fast path) and the walk
+over every slot, every rank stepping until no lane of any rank is live.
+The loops run in blocks of ``SHARD_BLOCK_STEPS`` steps with one host read
+a block (``_shard_blocks``); a block whose buckets overflowed runs again
+through the all-gather route.  On a CUDA device each step is launches of
+``csrc/seed_shard.cu`` between the collectives (``fm_shard_cuda``
+``shard_ext`` / ``shard_walk``); ``_shard_ext`` and ``_shard_walk`` here
+are their plain versions, the CPU path and the oracle.  The ``nonzero``
+compactions above would give each rank its own lane set and stay on the
+``group=None`` path.
 """
 
 from __future__ import annotations
@@ -75,91 +81,268 @@ def _popcount32(x):
     return ((x * 0x01010101) & M32) >> 24
 
 
-def _row_gather(stripe, rows, group=None):
-    """Row gather from an index array, local or routed to the owners.
+# The steps a sharded lockstep loop runs between two reads of its
+# group-wide flags (_shard_blocks).  A loop runs to the longest lane of any
+# rank (extension: the longest anchor, up to MAX_ANCHOR_LEN; walk: the
+# longest walk, 340 steps on v2 at sa_intv 32 and 459 on a 300 Mbp genome
+# at 32); a block ends with one all_reduce and one host read, and runs up
+# to S - 1 steps after its last lane died, each a few launches and two
+# collectives of a few lanes.  PERF.md gives the card's figures (Sharded
+# seeding loops).
+SHARD_BLOCK_STEPS = 32
 
-    group=None: ``stripe`` is the whole array, a plain gather.  Else
-    ``stripe`` is this rank's stripe of a row-striped array (global row r
-    lives on rank r // rps at local row r % rps, rps = stripe.shape[0]),
-    every rank of ``group`` calls this at the same time, and each query
-    goes to the rank that owns its row: sort this rank's queries by
-    owner, send each owner its rows with ``all_to_all_single``, answer
-    with one local gather, and send the values straight back (JAX
-    ``_row_gather_routed``).  The result has a plain gather's bits.
+# Counts of the sharded loops since the last reset: the seeder's device
+# calls under a group, the blocks run, the blocks run again through the
+# all-gather route, the steps, and the host reads of the loops' flags and
+# of the exact gathers.
+shard_counts = {"calls": 0, "blocks": 0, "redone": 0, "steps": 0,
+                "host_reads": 0}
 
-    JAX's ``all_to_all`` moves fixed (D, cap) buckets, cap =
-    2*ceil(Q/D), so a skewed step overflows a bucket and falls back to
-    its all-gather routing (``_row_gather_ag``); that is the only way JAX
-    reaches it, since its tiny-set test (cap*D >= 2Q + 8D) cannot hold.
-    ``all_to_all_single`` takes split sizes (one exchange of D counts
-    first), so every bucket holds exactly its rows: nothing overflows,
-    and the port has no cap, no fallback and no all-gather routing."""
-    if group is None:
-        return stripe[rows]
-    D, d = dist.get_world_size(group), dist.get_rank(group)
+
+def shard_cap(n_queries, D):
+    """Slots a bucket holds when n_queries are routed over D ranks: the
+    JAX version's 2 ceil(Q / D) rounded up to 8 (``_row_gather_routed``
+    :96-97), and at least 8."""
+    cap = -(-2 * n_queries // D)
+    return max((cap + 7) & ~7, 8)
+
+
+class ShardRoute(NamedTuple):
+    """The row gathers of one block of a sharded loop's steps: the
+    process group, the buckets' slots (shard_cap of the most queries a
+    step of any rank asks at the block's start: lanes only die), or None
+    for the all-gather route (the JAX version's ``_row_gather_ag``), and
+    the block's flags (2,) int32 on the device: the live lanes after its
+    last step and whether a bucket overflowed."""
+
+    group: object
+    cap: object
+    flags: torch.Tensor
+
+
+def _answer(stripe, ids, base):
+    """Rows ids - base of this rank's stripe, zeros where the row is not
+    this rank's (ids of other ranks, -1 for none)."""
     rps = stripe.shape[0]
-    q = rows.reshape(-1).long()
-    owner = (q // rps).clamp(0, D - 1)
-    order = torch.argsort(owner, stable=True)
-    send = q[order].contiguous()
-    counts = torch.bincount(owner, minlength=D)
-    recv_counts = torch.empty_like(counts)
-    dist.all_to_all_single(recv_counts, counts, group=group)
-    sc, rc = counts.tolist(), recv_counts.tolist()
-    recv = q.new_empty(sum(rc))
-    dist.all_to_all_single(recv, send, rc, sc, group=group)
-    loc = recv - d * rps
+    loc = ids - base
     ok = (loc >= 0) & (loc < rps)
     vals = stripe[loc.clamp(0, rps - 1)]
-    vals = torch.where(ok.view(ok.shape + (1,) * (stripe.dim() - 1)), vals,
+    return torch.where(ok.view(ok.shape + (1,) * (stripe.dim() - 1)), vals,
                        torch.zeros((), dtype=vals.dtype, device=vals.device))
-    back = vals.new_empty((q.numel(),) + tuple(stripe.shape[1:]))
-    dist.all_to_all_single(back, vals.contiguous(), sc, rc, group=group)
-    out = torch.empty_like(back)
-    out[order] = back
-    return out.reshape(tuple(rows.shape) + tuple(stripe.shape[1:]))
 
 
-def _global_any(x, group=None) -> bool:
-    """any(x), over every rank of ``group`` when there is one (a MAX
-    all-reduce of a 0/1 flag), so lockstep loops whose bodies make
-    collective calls end together on every rank."""
-    if group is None:
-        return bool(x.any())
-    flag = x.any().to(torch.int32).reshape(1)
-    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
-    return bool(flag.item())
+def bucket(q, ask, rps, D, cap):
+    """The routed buckets of queries q (Q,) int64 (row ids of stripes of
+    rps rows) where ask (Q,) bool is set: (slot, send, counts), each
+    asked query's slot in its owner's bucket of cap, taken in query
+    order, or -1 (not asked, or past the cap); the (D cap,) send buffer
+    of row ids, -1 where empty; each owner's asked queries (D,)."""
+    owner = torch.where(ask, (q // rps).clamp(0, D - 1), D)
+    order = torch.argsort(owner, stable=True)
+    so = owner[order]
+    counts = torch.bincount(owner, minlength=D + 1)
+    rank = torch.arange(q.numel(), device=q.device) - (
+        torch.cumsum(counts, 0) - counts)[so]
+    slot = torch.empty_like(q)
+    slot[order] = torch.where((so < D) & (rank < cap), so * cap + rank, -1)
+    send = q.new_full((D * cap,), -1)
+    send[slot[slot >= 0]] = q[slot >= 0]
+    return slot, send, counts[:D]
 
 
-def occ(arrs, meta, k, c, group=None):
-    """Occ(c, k): count of char c in the $-removed BWT prefix at row k.
+def by_slot(back, slot):
+    """back's row of each slot, zeros for slot -1."""
+    rows = back[slot.long().clamp(min=0)]
+    ok = (slot >= 0).view(slot.shape + (1,) * (back.dim() - 1))
+    return torch.where(ok, rows, torch.zeros((), dtype=rows.dtype,
+                                              device=rows.device))
 
-    Semantics of bwt_occ (lib/bwa/bwt.c:107-129) including the primary-row
-    adjustment; k in [-1, seq_len], c in [0, 3] (int64 tensors, shapes
-    broadcast).  Reads the fused ``fm_blocks`` rank rows when the index
-    has them, else the ``occ_cp``/``bwt_blocks`` pair (l_pac >= 2^32);
-    group: their stripes' process group (_row_gather)."""
-    seq_len = meta["seq_len"]
-    primary = meta["primary"]
-    k, c = torch.broadcast_tensors(k, c)
 
-    is_total = k == seq_len
-    is_none = k < 0
-    kk = k.clamp(0, seq_len - 1)
-    kp = kk - (kk >= primary).long()
+def _empty(bufs, key, shape, dtype, device):
+    """torch.empty(shape), or with ``bufs`` (a dict that a sharded loop
+    keeps over its steps) the tensor made for ``key`` at this shape and
+    dtype the first time, kept there for the next step."""
+    x = None if bufs is None else bufs.get(key)
+    if x is None or x.shape != torch.Size(shape) or x.dtype != dtype:
+        x = torch.empty(shape, dtype=dtype, device=device)
+        if bufs is not None:
+            bufs[key] = x
+    return x
 
-    blk = kp >> 7
-    off = kp & 127
-    cidx = c[..., None]
-    if "fm_blocks" in arrs:
-        # (..., 12): cp(A..T) | 8 words
-        row = _row_gather(arrs["fm_blocks"], blk, group)
-        base = row[..., :4].gather(-1, cidx)[..., 0]
-        w = row[..., 4:]
+
+def exchange(group, bucket_fn, answer_fn, cap, over=None, n_pad=0,
+             bufs=None):
+    """One gather of rows over a row-striped array (global row r on rank
+    r // rps), every rank of the group at the same time, around the
+    caller's two steps (the plain ones here, the seed_shard.cu kernels in
+    fm_shard_cuda):
+
+    - ``bucket_fn(cap, over)`` -> (send, slot): with cap an int, this
+      rank's asked queries in their owners' buckets of cap slots, send
+      (D cap,) row ids (-1 in the empty slots) and each query's slot (-1:
+      not asked, or past its bucket's cap, when over (1,) is raised on the
+      device); with cap None, each query's row id (-1: not asked) in query
+      order and its slot, its index.
+    - ``answer_fn(ids)`` -> this rank's answers to the row ids (zeros
+      where it does not own the row, and for -1).
+
+    cap an int: the JAX version's ``_row_gather_routed``, one
+    ``all_to_all_single`` of the row ids with equal splits, the answer,
+    the answers straight back.  cap None: its ``_row_gather_ag``, every
+    rank's queries (padded with -1 to n_pad) to every rank
+    (``all_gather_into_tensor``), the answer, one ``reduce_scatter_tensor``
+    (SUM): exact, since every row has one owner.  bufs: _empty's.
+    Returns (back, slot): query i's answer is back[slot[i]] (by_slot)."""
+    send, slot = bucket_fn(cap, over)
+    if n_pad > send.numel():
+        send = torch.cat([send, send.new_full((n_pad - send.numel(),), -1)])
+    n_ids = send.numel() * (1 if cap is not None else group.size())
+    ids = _empty(bufs, "ids", (n_ids,), send.dtype, send.device)
+    if cap is not None:
+        dist.all_to_all_single(ids, send, group=group)
     else:
-        base = _row_gather(arrs["occ_cp"], blk, group).gather(
-            -1, cidx)[..., 0]
-        w = _row_gather(arrs["bwt_blocks"], blk, group)  # (..., 8)
+        dist.all_gather_into_tensor(ids, send, group=group)
+    vals = answer_fn(ids)
+    back = _empty(bufs, "back", (send.numel(),) + tuple(vals.shape[1:]),
+                  vals.dtype, vals.device)
+    if cap is not None:
+        dist.all_to_all_single(back, vals, group=group)
+    else:
+        dist.reduce_scatter_tensor(back, vals, op=dist.ReduceOp.SUM,
+                                   group=group)
+    return back, slot
+
+
+def _read_flags(flags, group):
+    """The group-wide MAX of a small int tensor, on the host: one
+    all_reduce and one host read (counted in shard_counts)."""
+    dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=group)
+    shard_counts["host_reads"] += 1
+    return flags.tolist()
+
+
+def exact_gather(group, n, device, bucket_fn, answer_fn):
+    """One exchange that cannot lose a query, the JAX version's
+    ``lax.cond`` over its two routes: the group's largest query count
+    read on the host (the buckets' cap, shard_cap of it), the routed
+    buckets, the overflow flag read on the host, and, when a bucket
+    overflowed, the all-gather route with every rank's n queries padded
+    to the largest count.  Two host reads.  Returns exchange's (back,
+    slot).  The flags are int32, as the bucket kernel's overflow flag."""
+    flags = torch.tensor([n, 0], dtype=torch.int32, device=device)
+    n_max = _read_flags(flags, group)[0]
+    flags.zero_()
+    out = exchange(group, bucket_fn, answer_fn, shard_cap(n_max,
+                                                          group.size()),
+                   flags[1:])
+    if _read_flags(flags, group)[1]:
+        out = exchange(group, bucket_fn, answer_fn, None, n_pad=n_max)
+    return out
+
+
+def _plain_steps(stripe, rows, group, live):
+    """exchange's bucket_fn and answer_fn for rows of this rank's
+    ``stripe``, in plain torch (bucket, _answer): the queries rows
+    (flattened) where ``live`` (broadcast to rows' shape; None: every
+    one) is set."""
+    D, d, rps = group.size(), group.rank(), stripe.shape[0]
+    q = rows.reshape(-1).long()
+    ask = (torch.ones_like(q, dtype=torch.bool) if live is None else
+           torch.broadcast_to(live, rows.shape).reshape(-1))
+
+    def bucket_fn(cap, over):
+        if cap is None:
+            return torch.where(ask, q, -1), torch.arange(q.numel(),
+                                                         device=q.device)
+        slot, send, counts = bucket(q, ask, rps, D, cap)
+        over.copy_(torch.maximum(over, (counts > cap).any().to(over.dtype)))
+        return send, slot
+
+    def answer_fn(ids):
+        return _answer(stripe, ids, d * rps).contiguous()
+
+    return bucket_fn, answer_fn
+
+
+def _row_gather(stripe, rows, group, live=None):
+    """Row gather from this rank's ``stripe`` of a row-striped array
+    (global row r lives on rank r // rps at local row r % rps, rps =
+    stripe.shape[0]): every rank of the group calls this at the same
+    time, and each query goes to the rank that owns its row, in one
+    exact_gather, whose results have a plain gather's bits.  ``live``
+    (broadcast to rows' shape): only those queries are asked; the others
+    get zeros."""
+    back, slot = exact_gather(group, rows.numel(), rows.device,
+                              *_plain_steps(stripe, rows, group, live))
+    return by_slot(back, slot).reshape(tuple(rows.shape)
+                                       + tuple(stripe.shape[1:]))
+
+
+def _route_gather(stripe, rows, route=None, live=None):
+    """Row gather of a step of a sharded loop's block: through ``route``
+    (a ShardRoute; its overflow flag left on the device for the block's
+    end), or a plain gather from the whole array for route None.  A
+    query past its bucket's cap gets zeros (its block is run again)."""
+    if route is None:
+        return stripe[rows]
+    back, slot = exchange(route.group,
+                          *_plain_steps(stripe, rows, route.group, live),
+                          route.cap, route.flags[1:])
+    return by_slot(back, slot).reshape(tuple(rows.shape)
+                                       + tuple(stripe.shape[1:]))
+
+
+def _shard_blocks(step, state, group, per_lane):
+    """A sharded lockstep loop in blocks: ``state`` is a list of lane
+    tensors whose first is the lane's live mask, ``step(state, route,
+    last)`` one step of every lane (a dead lane left as it is) that
+    returns the new state, gathers rows through ``route`` (a ShardRoute),
+    at most ``per_lane`` queries a lane a gather, and, when ``last``,
+    writes the live lanes into route.flags[0].
+
+    One host read sizes the first block (the group's most live lanes);
+    then each block runs SHARD_BLOCK_STEPS steps through the routed
+    buckets (cap from the live lanes at the block's start: lanes only
+    die) and ends with one all_reduce (MAX) of [live lanes, overflow] and
+    one host read.  A block that overflowed runs again from the state
+    saved at its start through the all-gather route, with one more host
+    read.  Exact: a step is a pure function of the lane state, and steps
+    past a lane's end leave it as it is.  The flags are group-wide, so
+    every rank runs the same blocks."""
+    S = SHARD_BLOCK_STEPS
+    flags = torch.zeros(2, dtype=torch.int32, device=state[0].device)
+    flags[0] = state[0].sum()
+    n_live = _read_flags(flags, group)[0]
+
+    def run(st, route):
+        for i in range(S):
+            st = step(st, route, i == S - 1)
+        shard_counts["steps"] += S
+        return st
+
+    while n_live:
+        start = [x.clone() for x in state]
+        flags.zero_()
+        cap = shard_cap(n_live * per_lane, group.size())
+        state = run(state, ShardRoute(group, cap, flags))
+        shard_counts["blocks"] += 1
+        n_live, over = _read_flags(flags, group)
+        if over:
+            shard_counts["redone"] += 1
+            flags.zero_()
+            state = run(start, ShardRoute(group, None, flags))
+            n_live = _read_flags(flags, group)[0]
+    return state
+
+
+def occ_from_rows(arrs, meta, k, c, base, w):
+    """occ(k, c) from the counts ``base`` of c before the block of k's
+    query and that block's 8 BWT words ``w`` (..., 8), the rows gathered
+    for it; k == seq_len counts c's total and k < 0 is 0."""
+    seq_len = meta["seq_len"]
+    kk = k.clamp(0, seq_len - 1)
+    off = (kk - (kk >= meta["primary"]).long()) & 127
+    cidx = c[..., None]
     hi = torch.where((cidx & 2) != 0, w, w ^ M32)
     lo = torch.where((cidx & 1) != 0, w, w ^ M32)
     matched = (hi >> 1) & lo & 0x55555555
@@ -175,32 +358,110 @@ def occ(arrs, meta, k, c, group=None):
     L2 = arrs["L2"].long()
     total = L2[c + 1] - L2[c]
     res = base + cnt
-    res = torch.where(is_total, total, res)
-    return torch.where(is_none, 0, res)
+    res = torch.where(k == seq_len, total, res)
+    return torch.where(k < 0, 0, res)
 
 
-def backward_ext(arrs, meta, k, l, c, group=None):
+def occ(arrs, meta, k, c, route=None, live=None):
+    """Occ(c, k): count of char c in the $-removed BWT prefix at row k.
+
+    Semantics of bwt_occ (lib/bwa/bwt.c:107-129) including the primary-row
+    adjustment; k in [-1, seq_len], c in [0, 3] (int64 tensors, shapes
+    broadcast).  Reads the fused ``fm_blocks`` rank rows when the index
+    has them, else the ``occ_cp``/``bwt_blocks`` pair (l_pac >= 2^32);
+    route, live: a sharded loop's routing of their stripes
+    (_route_gather)."""
+    seq_len = meta["seq_len"]
+    k, c = torch.broadcast_tensors(k, c)
+    kk = k.clamp(0, seq_len - 1)
+    blk = (kk - (kk >= meta["primary"]).long()) >> 7
+    cidx = c[..., None]
+    if "fm_blocks" in arrs:
+        # (..., 12): cp(A..T) | 8 words
+        row = _route_gather(arrs["fm_blocks"], blk, route, live)
+        base = row[..., :4].gather(-1, cidx)[..., 0]
+        w = row[..., 4:]
+    else:
+        base = _route_gather(arrs["occ_cp"], blk, route, live).gather(
+            -1, cidx)[..., 0]
+        w = _route_gather(arrs["bwt_blocks"], blk, route, live)  # (..., 8)
+    return occ_from_rows(arrs, meta, k, c, base, w)
+
+
+def backward_ext(arrs, meta, k, l, c, route=None, live=None):
     """One backward-search step: [k, l] -> interval of c+pattern
     (bwt_count_exact inner step, src/BWT.cpp:255-258).  The two rank
     queries go through one stacked occ call (bwa's bwt_2occ fusion)."""
-    both = occ(arrs, meta, torch.stack([k - 1, l]), c[None], group)
+    both = occ(arrs, meta, torch.stack([k - 1, l]), c[None], route,
+               None if live is None else live[None])
     L2c = arrs["L2"].long()[c]
     return L2c + both[0] + 1, L2c + both[1]
 
 
-def bwt_b0(arrs, k, group=None):
+def bwt_b0(arrs, k, route=None, live=None):
     """BWT char at $-removed position k (bwt_B0, lib/bwa/bwt.h:78)."""
-    w = _row_gather(arrs["bwt_words"], k >> 4, group)
+    w = _route_gather(arrs["bwt_words"], k >> 4, route, live)
     return (w >> (((k ^ -1) & 15) << 1)) & 3
 
 
-def _walk_step(arrs, meta, rows, group=None):
+def _walk_step(arrs, meta, rows, route=None, live=None):
     """One inverse-Psi step (bwt_invPsi, lib/bwa/bwt.c:53-59)."""
     primary = meta["primary"]
     x = rows - (rows > primary).long()
-    ch = bwt_b0(arrs, x, group)
-    nxt = arrs["L2"].long()[ch] + occ(arrs, meta, rows, ch, group)
+    ch = bwt_b0(arrs, x, route, live)
+    nxt = arrs["L2"].long()[ch] + occ(arrs, meta, rows, ch, route, live)
     return torch.where(rows == primary, 0, nxt)
+
+
+def _shard_walk(arrs, meta, rows, active, group):
+    """The locate walk over a sharded index, plain (the JAX version's
+    ``sa_lookup`` walk under an axis): every active row takes one
+    inverse-Psi step a step, its rank and BWT-word lookups routed to
+    their owners for the active rows only, until no row of any rank is
+    active, in blocks (_shard_blocks).  Returns (rows, steps): each row's
+    sampled row and its steps.  Each call adds one to
+    ``_shard_walk.entries``: on the card ``fm_shard_cuda.shard_walk``
+    replaces it."""
+    _shard_walk.entries += 1
+    mask = meta["sa_intv"] - 1
+
+    def step(st, route, last):
+        act, r, n = st
+        r = torch.where(act, _walk_step(arrs, meta, r, route, act), r)
+        n = n + act.long()
+        act = act & ((r & mask) != 0)
+        if last:
+            route.flags[0] = act.sum()
+        return [act, r, n]
+
+    _, rows, steps = _shard_blocks(step, [active, rows, torch.zeros_like(
+        rows)], group, 1)
+    return rows, steps
+
+
+_shard_walk.entries = 0
+
+
+def _sa_gather(arrs, rows, valid, group):
+    """The sampled SA entries of rows where valid, 0 elsewhere, as int64:
+    one exact gather (_row_gather) from the sa_samp stripes."""
+    return _row_gather(arrs["sa_samp"], rows, group, valid).long()
+
+
+def _shard_locate(arrs, meta, rows, valid, group, walk, gather):
+    """SA values of rows (n,) int64 where valid, 0 elsewhere, over a
+    sharded index: with a full SA one exact gather; else ``walk``
+    (_shard_walk, or on the card fm_shard_cuda.shard_walk) to sampled
+    rows, then one exact gather of their entries (``gather``: _sa_gather,
+    or on the card fm_shard_cuda.sa_gather)."""
+    intv = meta["sa_intv"]
+    rows = torch.where(valid, rows.long(), 0)
+    if intv == 1:
+        return torch.where(valid, gather(arrs, rows, valid, group), 0)
+    active = valid & ((rows & (intv - 1)) != 0)
+    rows, steps = walk(arrs, meta, rows, active, group)
+    ent = gather(arrs, rows >> (int(intv).bit_length() - 1), valid, group)
+    return torch.where(valid, steps + ent, 0)
 
 
 def sa_lookup(arrs, meta, rows, valid, group=None):
@@ -217,32 +478,27 @@ def sa_lookup(arrs, meta, rows, valid, group=None):
     sa_locate lines): v2's first locate call, 22,044 lanes, a mean of
     31.2 steps, p99 146, the longest 340; a 300 Mbp random genome's,
     147,386 lanes, 31.0, 146 and 459.  So ~60% of the lanes survive the
-    first intv/2 steps.  Under a sharded index (group) every lane walks
-    until no lane of any rank is active, as JAX's does.  Each walk
-    (sa_intv > 1) adds one to ``sa_lookup.entries``: on the card, the
-    locate kernel (``fm_index_cuda.sa_locate``) replaces it."""
+    first intv/2 steps.  Under a sharded index (group) the walk is
+    _shard_walk's (_shard_locate).  Each walk (sa_intv > 1) adds one to
+    ``sa_lookup.entries``: on the card, the locate kernels
+    (``fm_index_cuda.sa_locate``, ``fm_shard_cuda.shard_walk``) replace
+    it."""
     rows = rows.long()
     intv = meta["sa_intv"]
     sa = arrs["sa_samp"]
+    if intv > 1:
+        sa_lookup.entries += 1
+    if group is not None:
+        return _shard_locate(arrs, meta, rows, valid, group, _shard_walk,
+                             _sa_gather)
     if intv == 1:
-        r = torch.where(valid, rows, 0)
-        if group is None:
-            r = r.clamp(0, sa.shape[0] - 1)
-        return torch.where(valid, _row_gather(sa, r, group).long(), 0)
-    sa_lookup.entries += 1
+        r = torch.where(valid, rows, 0).clamp(0, sa.shape[0] - 1)
+        return torch.where(valid, sa[r].long(), 0)
     mask = intv - 1
     log2_intv = int(intv).bit_length() - 1
     rows = torch.where(valid, rows, 0)
     steps = torch.zeros_like(rows)
     active = valid & ((rows & mask) != 0)
-    if group is not None:
-        while _global_any(active, group):
-            rows = torch.where(active, _walk_step(arrs, meta, rows, group),
-                               rows)
-            steps = steps + active.long()
-            active = active & ((rows & mask) != 0)
-        out = steps + _row_gather(sa, rows >> log2_intv, group).long()
-        return torch.where(valid, out, 0)
     for _ in range(intv // 2):
         rows = torch.where(active, _walk_step(arrs, meta, rows), rows)
         steps = steps + active.long()
@@ -313,27 +569,65 @@ class _Reads:
         return (self.rw[b, qc >> 4] >> (3 * (15 - (qc & 15)))) & 7
 
 
-def _ext_steps(arrs, meta, rd, alive, k, l, m, posf, bf, n_steps,
-               group=None):
-    """n_steps lockstep greedy-extension steps (None: until no lane of
-    any rank in ``group`` is alive, JAX's ``ext_loop_flat``): each lane
-    consumes the complement of its next read char as one
-    backward-extension step and dies at the first step that fails."""
-    lens = rd.lens[bf]
-    step = 0
-    while (step < n_steps if n_steps is not None
-           else _global_any(alive, group)):
-        step += 1
-        q = posf + m  # next read position to consume
-        c = rd.char(bf, q)
-        ok_char = (q < lens) & (c < 4)
-        cc = torch.where(ok_char, 3 - c, 0)  # complemented
-        nk, nl = backward_ext(arrs, meta, k, l, cc, group)
-        alive = alive & ok_char & (nk <= nl) & (m < MAX_ANCHOR_LEN)
-        k = torch.where(alive, nk, k)
-        l = torch.where(alive, nl, l)
-        m = m + alive.long()
+def next_char(rd, bf, posf, m):
+    """(ok_char, cc) of each lane's next read position posf + m: whether
+    its char is an ACGT inside the read, and the char's complement (0
+    where not)."""
+    q = posf + m
+    c = rd.char(bf, q)
+    ok_char = (q < rd.lens[bf]) & (c < 4)
+    return ok_char, torch.where(ok_char, 3 - c, 0)
+
+
+def advance(alive, k, l, m, ok_char, nk, nl):
+    """A greedy-extension step's lanes: an alive lane with an ACGT char,
+    a non-empty interval [nk, nl] and m < MAX_ANCHOR_LEN takes it; every
+    other lane dies, or stays dead, with k, l, m as they were."""
+    alive = alive & ok_char & (nk <= nl) & (m < MAX_ANCHOR_LEN)
+    return (alive, torch.where(alive, nk, k), torch.where(alive, nl, l),
+            m + alive.long())
+
+
+def _ext_step(arrs, meta, rd, alive, k, l, m, posf, bf, route=None):
+    """One lockstep greedy-extension step: each alive lane consumes the
+    complement of its next read char as one backward-extension step and
+    dies at the first step that fails (a dead lane is left as it is);
+    route: a sharded loop's routing (ShardRoute), for the alive lanes'
+    queries."""
+    ok_char, cc = next_char(rd, bf, posf, m)
+    nk, nl = backward_ext(arrs, meta, k, l, cc, route,
+                          None if route is None else alive)
+    return advance(alive, k, l, m, ok_char, nk, nl)
+
+
+def _ext_steps(arrs, meta, rd, alive, k, l, m, posf, bf, n_steps):
+    """n_steps lockstep greedy-extension steps (_ext_step)."""
+    for _ in range(n_steps):
+        alive, k, l, m = _ext_step(arrs, meta, rd, alive, k, l, m, posf, bf)
     return alive, k, l, m
+
+
+def _shard_ext(arrs, meta, rd, alive, k, l, m, posf, bf, group):
+    """The lockstep extension over a sharded index, plain (the JAX
+    version's ``ext_loop_flat`` under an axis): _ext_step until no lane
+    of any rank is alive, the alive lanes' rank lookups routed to their
+    owners, in blocks (_shard_blocks).  Returns the final (k, l, m).
+    Each call adds one to ``_shard_ext.entries``: on the card
+    ``fm_shard_cuda.shard_ext`` replaces it."""
+    _shard_ext.entries += 1
+
+    def step(st, route, last):
+        st = _ext_step(arrs, meta, rd, *st, posf, bf, route)
+        if last:
+            route.flags[0] = st[0].sum()
+        return list(st)
+
+    # a step stacks each lane's two rank queries (backward_ext)
+    _, k, l, m = _shard_blocks(step, [alive, k, l, m], group, 2)
+    return k, l, m
+
+
+_shard_ext.entries = 0
 
 
 def _resolve_rounds(arrs, meta, rd, k, m, posf, bf):
@@ -435,7 +729,9 @@ def _seed_anchors_impl(arrs, reads, read_lens, pos, meta, sampling_count,
     (the smoke's and the tests' comparison pass); with a sampled SA, the
     locate of the slots the extension did not resolve runs in the
     sa_locate kernel on a CUDA device, in sa_lookup on the CPU or with
-    ``plain``."""
+    ``plain``.  Under a group the lockstep extension and walk run on
+    seed_shard.cu's kernels on a CUDA device (fm_shard_cuda), in
+    _shard_ext and _shard_walk on the CPU or with ``plain``."""
     dev = reads.device
     pdt = torch_pos_dtype(meta)
     B, L = reads.shape
@@ -481,8 +777,13 @@ def _seed_anchors_impl(arrs, reads, read_lens, pos, meta, sampling_count,
             arrs, meta, rd, alive0, k0, l0, m0, pos_f, b_lane, phase1_steps
         )
     else:
-        _, kf, lf, mf = _ext_steps(arrs, meta, rd, alive0, k0, l0, m0,
-                                   pos_f, b_lane, None, group)
+        shard_counts["calls"] += 1
+        kernels = dev.type == "cuda" and not plain
+        if kernels:
+            from . import fm_shard_cuda
+        ext = fm_shard_cuda.shard_ext if kernels else _shard_ext
+        kf, lf, mf = ext(arrs, meta, rd, alive0, k0, l0, m0, pos_f, b_lane,
+                         group)
         rposf = torch.zeros_like(kf)
         rflagf = torch.zeros_like(alive0)
     kf, lf, mf = kf.view(B, S), lf.view(B, S), mf.view(B, S)
@@ -538,6 +839,10 @@ def _seed_anchors_impl(arrs, reads, read_lens, pos, meta, sampling_count,
             p_occ[sel] = sa_locate(arrs, meta, rows_sel, walk[sel])
         else:
             p_occ[sel] = sa_lookup(arrs, meta, rows_sel, walk[sel])
+    elif kernels:
+        p_occ = _shard_locate(arrs, meta, row.reshape(-1), walk, group,
+                              fm_shard_cuda.shard_walk,
+                              fm_shard_cuda.sa_gather)
     else:
         p_occ = sa_lookup(arrs, meta, row.reshape(-1), walk, group)
     p_occ = torch.where(res_f, rposf.gather(1, sidx), p_occ.view(B, MS))

@@ -9,8 +9,10 @@ round trip against the reads' 3-bit words (``fm_index._Reads.rw``).  On
 a CUDA tensor it launches the kernel and raises if the launch fails; on
 a CPU tensor it runs the plain version (``fm_index._staged_ext``).
 There is no fallback from the first to the second.  A replicated index
-only: the sharded index's lockstep extension (``fm_index._ext_steps``
-under a group) makes collective calls between steps and stays eager.
+only: a sharded index's lockstep extension and walk make collective
+calls between steps, so each step is launches of ``csrc/seed_shard.cu``
+between the collectives (``fm_shard_cuda``); both sources count occ and
+step the walk through ``csrc/fm_rank.cuh``.
 
 The kernel replaces the JAX package's device loops of
 ``lordfast_tpu/ops/fm_index.py`` ``_seed_anchors_impl`` (:387):

@@ -1,0 +1,472 @@
+"""The sharded index's seeding loops on the card: the hand-written kernels
+of ``csrc/seed_shard.cu``, their wrappers and the loops that drive them.
+
+Under a sharded index (parallel/sharded_index.py) the seeder's lockstep
+extension and its locate walk route every rank-row lookup to the rank
+that owns the row.  ``shard_ext`` and ``shard_walk`` run them as the JAX
+package compiles them (``lordfast_tpu/ops/fm_index.py`` ``ext_loop_flat``
+:485 and ``sa_lookup``'s walk :281, through ``_row_gather_routed`` :76),
+in fm_index's block schedule (``_shard_blocks``: SHARD_BLOCK_STEPS steps
+a block, one all_reduce and one host read a block, an overflowed block
+run again through the all-gather route) and its routing protocol
+(``exchange``, ``exact_gather``: the collectives, the caps and the
+fallback, which the plain steps there use too).  A step is:
+
+- ``shard_bucket``: each live lane's queries to its owner's bucket of the
+  (D, cap) send buffer (or, on the all-gather route, to its own slot);
+- ``all_to_all_single`` of the row ids, equal splits (all-gather route:
+  ``all_gather_into_tensor``);
+- ``shard_answer``: the received rows answered from this rank's stripe;
+- ``all_to_all_single`` of the rows back (``reduce_scatter_tensor``, SUM);
+- ``shard_ext_step`` or ``shard_walk_step``: the lanes' step from the
+  rows their queries got back, in place.
+
+``sa_gather`` is the locate's one exact gather of sampled SA entries a
+call (and a full SA's locate) on the same bucket and answer kernels.
+This module supplies only the launches (``_kernel_steps``).
+
+Each wrapper launches its kernel on a CUDA tensor (counted in its
+``launches``) and raises if the launch fails; on a CPU tensor it runs its
+plain version (``*_plain`` here), which the smoke and the tests hold the
+kernel to.  There is no fallback from the first to the second.  The plain
+loops over the same block schedule are fm_index ``_shard_ext`` and
+``_shard_walk``; on a CUDA device they run only under ``plain_loops``.
+Build: ``cuda_build`` (nvcc at first use, ctypes).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_build
+from . import fm_index as fm
+from .cuda_build import check_tensor
+
+# the values of a rank row: the counts of A, C, G, T, then 8 BWT words
+ROW = 12
+
+
+def _fn(name, argtypes):
+    f = getattr(cuda_build.load("seed_shard"), name)
+    if f.argtypes is None:
+        f.restype = ctypes.c_int
+        f.argtypes = argtypes
+    return f
+
+
+_VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check_launch(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
+
+
+def _cuda_device(name, x):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return x.device
+
+
+def rank_stripes(arrs):
+    """(fused, rank_a, rank_b) of this rank's rank-row stripes: fm_blocks
+    (rps, 12), or occ_cp (rps, 4) with bwt_blocks (rps, 8), int64; the
+    pair must have the same rows, so a block has one owner in both."""
+    if "fm_blocks" in arrs:
+        return True, arrs["fm_blocks"], None
+    cp, bb = arrs["occ_cp"], arrs["bwt_blocks"]
+    if cp.shape[0] != bb.shape[0]:
+        raise ValueError(f"occ_cp's stripe has {cp.shape[0]} rows, "
+                         f"bwt_blocks's {bb.shape[0]}")
+    return False, cp, bb
+
+
+# ---- the plain versions (the CPU path; the smoke's reference) ----
+
+def _query_blocks(live, k, l, meta, ids=False):
+    """(the rank-row block of each query (Q,) int64, whether it is asked
+    (Q,) bool) of a step: an extension's rows k - 1 then l of every lane
+    (occ's clamp and primary shift), a walk's row of x = k - (k >
+    primary); a dead lane and the walk's primary row ask for nothing.
+    With ids: the rows k themselves, where live."""
+    if ids:
+        return k, live
+    seq_len, primary = meta["seq_len"], meta["primary"]
+    if l is not None:
+        kq = torch.cat([k - 1, l])
+        kk = kq.clamp(0, seq_len - 1)
+        return (kk - (kk >= primary).long()) >> 7, torch.cat([live, live])
+    return (k - (k > primary).long()) >> 7, live & (k != primary)
+
+
+def shard_bucket_plain(live, k, l, meta, rps, D, cap, send, slot, counts,
+                       over, ids=False):
+    """shard_bucket's plain version: the queries take their bucket's
+    slots in query order (fm_index.bucket; the kernel's order is its
+    atomics')."""
+    blk, ask = _query_blocks(live, k, l, meta, ids)
+    if cap is None:
+        send.copy_(torch.where(ask, blk, -1))
+        slot.copy_(torch.arange(blk.numel(), device=blk.device))
+        return
+    s, sent, n = fm.bucket(blk, ask, rps, D, cap)
+    send.copy_(sent)
+    slot.copy_(s)
+    counts.copy_(n)
+    over.copy_(torch.maximum(over, (n > cap).any().to(over.dtype)))
+
+
+def shard_answer_plain(recv, arrs, base, out, key=None):
+    """shard_answer's plain version."""
+    if key is not None:
+        out.copy_(fm._answer(arrs[key], recv, base))
+        return
+    fused, rank_a, rank_b = rank_stripes(arrs)
+    if fused:
+        out.copy_(fm._answer(rank_a, recv, base))
+    else:
+        out.copy_(torch.cat([fm._answer(rank_a, recv, base),
+                             fm._answer(rank_b, recv, base)], 1))
+
+
+def shard_ext_step_plain(state, pos_f, b_lane, rd, arrs, meta, back, slot,
+                         live=None):
+    """shard_ext_step's plain version (fm_index._ext_step's arithmetic,
+    from the rows returned by slot)."""
+    n = state[0].numel()
+    ok_char, cc = fm.next_char(rd, b_lane, pos_f, state[3])
+    occs = []
+    for kq, rows in ((state[1] - 1, fm.by_slot(back, slot[:n])),
+                     (state[2], fm.by_slot(back, slot[n:]))):
+        base = rows[:, :4].gather(1, cc[:, None])[:, 0]
+        occs.append(fm.occ_from_rows(arrs, meta, kq, cc, base, rows[:, 4:]))
+    L2c = arrs["L2"].long()[cc]
+    new = fm.advance(*state, ok_char, L2c + occs[0] + 1, L2c + occs[1])
+    for x, v in zip(state, new):
+        x.copy_(v)
+    if live is not None:
+        live.add_(new[0].sum().to(live.dtype))
+
+
+def shard_walk_step_plain(state, arrs, meta, back, slot, live=None):
+    """shard_walk_step's plain version (fm_index._walk_step's arithmetic,
+    the char from the word of x's own rank row)."""
+    active, rows, steps = state
+    primary = meta["primary"]
+    x = rows - (rows > primary).long()
+    row = fm.by_slot(back, slot)
+    w = row[:, 4:].gather(1, ((x & 127) >> 4)[:, None])[:, 0]
+    ch = (w >> (((x ^ -1) & 15) << 1)) & 3
+    base = row[:, :4].gather(1, ch[:, None])[:, 0]
+    nxt = arrs["L2"].long()[ch] + fm.occ_from_rows(arrs, meta, rows, ch,
+                                                   base, row[:, 4:])
+    nxt = torch.where(rows == primary, 0, nxt)
+    a = active.clone()
+    rows.copy_(torch.where(a, nxt, rows))
+    steps.add_(a.long())
+    active.copy_(a & ((rows & (meta["sa_intv"] - 1)) != 0))
+    if live is not None:
+        live.add_(active.sum().to(live.dtype))
+
+
+# ---- the wrappers ----
+
+def shard_bucket(live, k, l, meta, rps, D, cap, send, slot, counts=None,
+                 over=None, ids=False):
+    """The bucket step of n lanes: live (n,) bool, k (n,) int64 and, for
+    an extension, l (n,) int64 (2 n queries: k - 1, then l) or None for a
+    walk (n queries); with ``ids`` (l and meta None) the n queries are
+    the row ids k themselves.  Routed (cap an int): send (D cap,) int64
+    gets the row ids (-1 in the empty slots), slot (Q,) int32 each
+    query's slot or -1, counts (D,) int32 each owner's asked queries, and
+    over (1,) int32 is raised to 1 when a bucket overflowed.  All-gather
+    route (cap None): send (Q,) gets each query's row id or -1, slot its
+    index.  rps: the stripes' rows a rank; D: the ranks."""
+    n = live.shape[0]
+    Q = 2 * n if l is not None else n
+    routed = cap is not None
+    if live.device.type == "cpu":
+        return shard_bucket_plain(live, k, l, meta, rps, D, cap, send, slot,
+                                  counts, over, ids)
+    if ids and l is not None:
+        raise ValueError("shard_bucket: row ids take no l")
+    dev = _cuda_device("shard_bucket", live)
+    check_tensor("live", live, torch.bool, (n,), dev)
+    check_tensor("k", k, torch.int64, (n,), dev)
+    if l is not None:
+        check_tensor("l", l, torch.int64, (n,), dev)
+    check_tensor("send", send, torch.int64, (D * cap if routed else Q,), dev)
+    check_tensor("slot", slot, torch.int32, (Q,), dev)
+    if routed:
+        check_tensor("counts", counts, torch.int32, (D,), dev)
+        check_tensor("over", over, torch.int32, (1,), dev)
+    with torch.cuda.device(dev):
+        rc = _fn("lf_shard_bucket", [_VP] * 7 + [_CL] * 5 + [_CI] * 3 + [_VP])(
+            live.data_ptr(), k.data_ptr(), _ptr(l), send.data_ptr(),
+            slot.data_ptr(), _ptr(counts if routed else None),
+            _ptr(over if routed else None), n,
+            0 if ids else meta["seq_len"], 0 if ids else meta["primary"],
+            rps, cap if routed else 0, D, int(not routed), int(ids),
+            _stream(dev))
+    _check_launch("shard_bucket", rc)
+    shard_bucket.launches += 1
+
+
+shard_bucket.launches = 0
+
+
+def shard_answer(recv, arrs, base, out, key=None):
+    """The answer step: recv (n,) int64 row ids (-1 for none); this rank's
+    rank stripes (rank_stripes) with their first global row base; out (n,
+    12) int64 gets each owned row's counts and words, zeros for the rest.
+    With ``key`` ("sa_samp"): the entries of that 1-D stripe (int32 or
+    int64) into out (n,) int64, 0 for the rest."""
+    if recv.device.type == "cpu":
+        return shard_answer_plain(recv, arrs, base, out, key)
+    dev = _cuda_device("shard_answer", recv)
+    n = recv.shape[0]
+    check_tensor("recv", recv, torch.int64, (n,), dev)
+    if key is not None:
+        st = arrs[key]
+        if st.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"shard_answer: {key} dtype {st.dtype}")
+        check_tensor(key, st, st.dtype, (st.shape[0],), dev)
+        check_tensor("out", out, torch.int64, (n,), dev)
+        _launch_answer(dev, recv, st, None, out, n, st.shape[0], base, 0, 1,
+                       st.element_size())
+        return
+    fused, rank_a, rank_b = rank_stripes(arrs)
+    check_tensor("out", out, torch.int64, (n, ROW), dev)
+    check_tensor("rank_a", rank_a, torch.int64,
+                 (rank_a.shape[0], ROW if fused else 4), dev)
+    if not fused:
+        check_tensor("rank_b", rank_b, torch.int64, (rank_a.shape[0], 8),
+                     dev)
+    for name, x in (("rank_a", rank_a), ("rank_b", rank_b), ("out", out)):
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError(f"shard_answer: {name} is not 16-byte aligned")
+    _launch_answer(dev, recv, rank_a, rank_b, out, n, rank_a.shape[0], base,
+                   int(fused), ROW, 8)
+
+
+def _launch_answer(dev, recv, rank_a, rank_b, out, n, rps, base, fused,
+                   width, elem_bytes):
+    with torch.cuda.device(dev):
+        rc = _fn("lf_shard_answer", [_VP] * 4 + [_CL] * 3 + [_CI] * 3
+                 + [_VP])(
+            recv.data_ptr(), rank_a.data_ptr(), _ptr(rank_b),
+            out.data_ptr(), n, rps, base, fused, width, elem_bytes,
+            _stream(dev))
+    _check_launch("shard_answer", rc)
+    shard_answer.launches += 1
+
+
+shard_answer.launches = 0
+
+
+def _check_step(name, back, slot, Q, dev):
+    check_tensor("back", back, torch.int64, (back.shape[0], ROW), dev)
+    check_tensor("slot", slot, torch.int32, (Q,), dev)
+    if back.data_ptr() % 16:
+        raise ValueError(f"{name}: back is not 16-byte aligned")
+
+
+def _l2(arrs, dev):
+    l2 = arrs["L2"]
+    if l2.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"L2 dtype {l2.dtype}, expected int32 or int64")
+    check_tensor("L2", l2, l2.dtype, (5,), dev)
+    return l2
+
+
+def shard_ext_step(state, pos_f, b_lane, rd, arrs, meta, back, slot,
+                   live=None):
+    """One extension step of n lanes in place: state [alive (n,) bool, k,
+    l, m (n,) int64]; pos_f, b_lane (n,) int64; rd the read batch
+    (fm_index._Reads); back (slots, 12) int64 and slot (2 n,) int32 from
+    the bucket step; live (1,) int32 or None: the lanes alive after the
+    step are added to it."""
+    alive, k, l, m = state
+    if alive.device.type == "cpu":
+        return shard_ext_step_plain(state, pos_f, b_lane, rd, arrs, meta,
+                                    back, slot, live)
+    dev = _cuda_device("shard_ext_step", alive)
+    n = alive.shape[0]
+    check_tensor("alive", alive, torch.bool, (n,), dev)
+    for name, x in (("k", k), ("l", l), ("m", m), ("pos_f", pos_f),
+                    ("b_lane", b_lane)):
+        check_tensor(name, x, torch.int64, (n,), dev)
+    B, W16 = rd.rw.shape
+    check_tensor("rw", rd.rw, torch.int64, (B, W16), dev)
+    check_tensor("lens", rd.lens, torch.int64, (B,), dev)
+    _check_step("shard_ext_step", back, slot, 2 * n, dev)
+    if live is not None:
+        check_tensor("live", live, torch.int32, (1,), dev)
+    l2 = _l2(arrs, dev)
+    with torch.cuda.device(dev):
+        rc = _fn("lf_shard_ext_step",
+                 [_VP] * 12 + [_CL] * 3 + [_CI] * 3 + [_VP])(
+            alive.data_ptr(), k.data_ptr(), l.data_ptr(), m.data_ptr(),
+            pos_f.data_ptr(), b_lane.data_ptr(), rd.rw.data_ptr(),
+            rd.lens.data_ptr(), l2.data_ptr(), back.data_ptr(),
+            slot.data_ptr(), _ptr(live), n, meta["seq_len"],
+            meta["primary"], rd.L, W16, l2.element_size(), _stream(dev))
+    _check_launch("shard_ext_step", rc)
+    shard_ext_step.launches += 1
+
+
+shard_ext_step.launches = 0
+
+
+def shard_walk_step(state, arrs, meta, back, slot, live=None):
+    """One walk step of n rows in place: state [active (n,) bool, rows,
+    steps (n,) int64]; back and slot (n,) int32 from the bucket step;
+    live as shard_ext_step's.  The index's sa_intv is a power of two
+    above 1."""
+    active, rows, steps = state
+    if active.device.type == "cpu":
+        return shard_walk_step_plain(state, arrs, meta, back, slot, live)
+    dev = _cuda_device("shard_walk_step", active)
+    n = active.shape[0]
+    check_tensor("active", active, torch.bool, (n,), dev)
+    check_tensor("rows", rows, torch.int64, (n,), dev)
+    check_tensor("steps", steps, torch.int64, (n,), dev)
+    _check_step("shard_walk_step", back, slot, n, dev)
+    if live is not None:
+        check_tensor("live", live, torch.int32, (1,), dev)
+    l2 = _l2(arrs, dev)
+    with torch.cuda.device(dev):
+        rc = _fn("lf_shard_walk_step", [_VP] * 7 + [_CL] * 3 + [_CI] * 2
+                 + [_VP])(
+            active.data_ptr(), rows.data_ptr(), steps.data_ptr(),
+            l2.data_ptr(), back.data_ptr(), slot.data_ptr(), _ptr(live), n,
+            meta["seq_len"], meta["primary"], meta["sa_intv"],
+            l2.element_size(), _stream(dev))
+    _check_launch("shard_walk_step", rc)
+    shard_walk_step.launches += 1
+
+
+shard_walk_step.launches = 0
+
+
+# ---- the loops ----
+
+def _kernel_steps(arrs, meta, live, k, l, group, key=None, bufs=None):
+    """fm_index.exchange's bucket_fn and answer_fn on the kernels, for one
+    step's queries: n lanes' (live, k, l) as shard_bucket takes them
+    (key None), or with key "sa_samp" the row ids k where live, answered
+    from the sa_samp stripe; their buffers from fm_index._empty (bufs).
+    The wrappers are looked up at call time."""
+    from . import fm_shard_cuda as K
+
+    D, d, dev = group.size(), group.rank(), live.device
+    st = arrs[key] if key else rank_stripes(arrs)[1]
+    rps, n = st.shape[0], live.shape[0]
+    Q = 2 * n if l is not None else n
+    i32, i64 = torch.int32, torch.int64
+    ids = key is not None
+
+    def bucket_fn(cap, over):
+        slot = fm._empty(bufs, "slot", (Q,), i32, dev)
+        if cap is None:
+            send = fm._empty(bufs, "send", (Q,), i64, dev)
+            K.shard_bucket(live, k, l, meta, rps, D, None, send, slot,
+                           ids=ids)
+        else:
+            send = fm._empty(bufs, "send", (D * cap,), i64, dev)
+            K.shard_bucket(live, k, l, meta, rps, D, cap, send, slot,
+                           fm._empty(bufs, "counts", (D,), i32, dev), over,
+                           ids=ids)
+        return send, slot
+
+    def answer_fn(recv):
+        out = fm._empty(bufs, "vals", (recv.numel(),) + (
+            () if ids else (ROW,)), i64, dev)
+        K.shard_answer(recv, arrs, d * rps, out,
+                       **({"key": key} if ids else {}))
+        return out
+
+    return bucket_fn, answer_fn
+
+
+def _route_rows(arrs, meta, live, k, l, route, bufs):
+    """One step's lookups through route (fm_index.ShardRoute): the lanes'
+    queries bucketed (shard_bucket), sent to their owners, answered
+    (shard_answer) and sent back (fm_index.exchange), in the loop's
+    buffers ``bufs``.  Returns (back (slots, 12) int64, slot (Q,)
+    int32): query i's row is back[slot[i]]."""
+    return fm.exchange(route.group, *_kernel_steps(
+        arrs, meta, live, k, l, route.group, bufs=bufs), route.cap,
+        route.flags[1:], bufs=bufs)
+
+
+def shard_ext(arrs, meta, rd, alive, k, l, m, pos_f, b_lane, group):
+    """fm_index._shard_ext on the kernels: the lockstep extension of every
+    lane over a sharded index until no lane of any rank is alive, in
+    _shard_blocks' blocks; a step is shard_bucket, shard_answer and
+    shard_ext_step between the collectives.  The same arguments and
+    results: (k, l, m) of each lane, int64."""
+    from . import fm_shard_cuda as K
+
+    bufs = {}
+
+    def step(st, route, last):
+        back, slot = _route_rows(arrs, meta, st[0], st[1], st[2], route,
+                                 bufs)
+        K.shard_ext_step(st, pos_f, b_lane, rd, arrs, meta, back, slot,
+                         route.flags[:1] if last else None)
+        return st
+
+    state = [alive.clone(), k.clone(), l.clone(), m.clone()]
+    # a step stacks each lane's two rank queries (k - 1 and l)
+    _, k, l, m = fm._shard_blocks(step, state, group, 2)
+    return k, l, m
+
+
+def shard_walk(arrs, meta, rows, active, group):
+    """fm_index._shard_walk on the kernels: each active row's walk to a
+    sampled row over a sharded index until no row of any rank is active,
+    in _shard_blocks' blocks; a step is shard_bucket, shard_answer and
+    shard_walk_step between the collectives.  The same arguments and
+    results: (rows, steps) of each row, int64."""
+    from . import fm_shard_cuda as K
+
+    intv = meta["sa_intv"]
+    if intv < 2 or intv & (intv - 1):
+        raise ValueError(f"shard_walk: sa_intv {intv} is not a power of "
+                         "two above 1")
+
+    bufs = {}
+
+    def step(st, route, last):
+        back, slot = _route_rows(arrs, meta, st[0], st[1], None, route,
+                                 bufs)
+        K.shard_walk_step(st, arrs, meta, back, slot,
+                          route.flags[:1] if last else None)
+        return st
+
+    state = [active.clone(), rows.clone(), torch.zeros_like(rows)]
+    _, rows, steps = fm._shard_blocks(step, state, group, 1)
+    return rows, steps
+
+
+def sa_gather(arrs, rows, valid, group):
+    """The sampled SA entries of rows (n,) int64 where valid (n,) bool is
+    set, 0 elsewhere, as int64, from the sa_samp stripes of a sharded
+    index: fm_index._row_gather's exact gather (fm_index.exact_gather)
+    on the kernels: shard_bucket on the row ids, shard_answer on the
+    sa_samp stripe."""
+    back, slot = fm.exact_gather(group, rows.shape[0], rows.device,
+                                 *_kernel_steps(arrs, None, valid, rows,
+                                                None, group, "sa_samp"))
+    return fm.by_slot(back, slot)

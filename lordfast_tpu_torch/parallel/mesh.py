@@ -125,7 +125,7 @@ def _unpack_chains(rows, N, t_dtype):
 
 
 def post_seed_stage_sharded(arrs, seeds, reads, lens, cfg, group,
-                            page=None):
+                            page=None, plain: bool = False):
     """post_seed_stage with the batch's rows split over ``group``: every
     rank passes its B_r rows (rank r holds rows [r B_r, (r+1) B_r) of
     the batch) and calls this at the same time.
@@ -137,7 +137,8 @@ def post_seed_stage_sharded(arrs, seeds, reads, lens, cfg, group,
     all_to_all_single with split sizes sends the chains to rank 0, which
     puts them in window order.  Returns (seeds, chains, host_out) on rank
     0, for the whole batch; (seeds, chains, None) elsewhere, for the
-    rank's own rows and windows."""
+    rank's own rows and windows.  plain: chain through the plain DP on
+    a CUDA device too (device_stage.device_pipeline's)."""
     dev = reads.device
     D, d = group.size(), group.rank()
     Br = reads.shape[0]
@@ -160,7 +161,7 @@ def post_seed_stage_sharded(arrs, seeds, reads, lens, cfg, group,
             n_needed=cw.n_needed)
         ws = chain_ops.select_window_seeds(seeds, cw_mine, lens, arrs, cfg)
     with named_range("lf_chain", dev):
-        chains = chain_ops.chain_seeds(ws, cfg)
+        chains = chain_ops.chain_seeds(ws, cfg, plain)
     counts = torch.bincount(owner, minlength=D).tolist()
     packed = _pack_chains(chains).contiguous()
     recv = packed.new_empty((sum(counts) if d == 0 else 0, packed.shape[1]))
@@ -180,10 +181,11 @@ def post_seed_stage_sharded(arrs, seeds, reads, lens, cfg, group,
                                          chains_g, cfg)
 
 
-def _mesh_stage(meta, cfg, group, seed_group):
+def _mesh_stage(meta, cfg, group, seed_group, plain: bool = False):
     """The device stage on every rank's rows: seeding (its lookups routed
     over seed_group when the index is striped), then
-    post_seed_stage_sharded over group."""
+    post_seed_stage_sharded over group.  plain: the loops' plain
+    versions on a CUDA device too (device_stage.device_pipeline's)."""
 
     def fn(arrs, reads, lens, pos, page=None):
         name = "lf_seed" if seed_group is None else "lf_seed_sharded"
@@ -192,18 +194,19 @@ def _mesh_stage(meta, cfg, group, seed_group):
                 arrs, reads, lens, pos, meta,
                 cfg.sampling_count, cfg.min_anchor_len, cfg.max_ref_hits,
                 cfg.max_seeds_per_read, cfg.seed_phase1_steps,
-                group=seed_group,
+                group=seed_group, plain=plain,
             )
         return post_seed_stage_sharded(arrs, seeds, reads, lens, cfg, group,
-                                       page)
+                                       page, plain)
 
     return fn
 
 
-def sharded_pipeline(idx, cfg, mesh):
+def sharded_pipeline(idx, cfg, mesh, plain: bool = False):
     """The device stage with the read axis split over the mesh and the
     whole index on every rank: fn(reads, lens, pos, page=None) on this
-    rank's rows (see post_seed_stage_sharded for what it returns)."""
+    rank's rows (see post_seed_stage_sharded for what it returns).
+    plain: as _mesh_stage's."""
     arrs = idx.device_arrays(mesh_device(mesh))
-    fn = _mesh_stage(idx.meta, cfg, mesh_group(mesh), None)
+    fn = _mesh_stage(idx.meta, cfg, mesh_group(mesh), None, plain)
     return functools.partial(fn, arrs)

@@ -14,9 +14,16 @@ lib/bwa/bwt.c:107-166 unchanged):
 
 One process per device: each rank holds its stripe, seeds its rows of
 the read batch, and exchanges row ids and answers with torch.distributed
-collectives on the mesh's group (ops/fm_index.py ``_row_gather``).  The
-stripes keep the layout of ``FMIndex.device_arrays`` (uint32 words as
-int64 tensors), so the routed values are int64.
+collectives on the mesh's group: the JAX version's routing, fixed (D,
+cap) buckets with equal splits and its all-gather route for a step that
+overflows them (ops/fm_index.py ``exchange``).  The seeder's lockstep
+extension and locate walk run in blocks of steps with one host read a
+block; on a card each step is launches of ``csrc/seed_shard.cu``'s
+kernels between the collectives (ops/fm_shard_cuda.py), on the CPU and
+under ``plain_loops`` the plain loops (fm_index ``_shard_ext``,
+``_shard_walk``).  The stripes keep the layout of
+``FMIndex.device_arrays`` (uint32 words as int64 tensors), so the routed
+values are int64.
 
 Small arrays stay whole on every rank: L2, contig tables, the 4^k k-mer
 cache and ``pac_words`` (the gap-DP reference fetches are strided slices,
@@ -42,13 +49,20 @@ def shard_index_arrays(idx, mesh) -> dict:
     the mesh size D and cut to this rank's stripe of rps = padded / D
     rows: global row r lives on rank r // rps at local row r % rps.  The
     padding rows are never asked for.  Every other array is whole.  The
-    dtypes are FMIndex.device_arrays'."""
+    dtypes are FMIndex.device_arrays'.  occ_cp is cut to bwt_blocks'
+    rows first: its last row (the totals) is never asked for by a rank
+    query (a block is at most (seq_len - 1) >> 7), and with the same rows
+    both arrays give a block the same owner, so one routed query answers
+    both (fm_shard_cuda.shard_answer)."""
     group = mesh_group(mesh)
     D, d = group.size(), group.rank()
     device = mesh_device(mesh)
+    host = idx.host_arrays()
     arrs = {}
-    for k, v in idx.host_arrays().items():
+    for k, v in host.items():
         v = np.asarray(v)
+        if k == "occ_cp":
+            v = v[: len(host["bwt_blocks"])]
         if k in _SHARDED_KEYS:
             rps = -(-v.shape[0] // D)
             part = v[d * rps : (d + 1) * rps]
@@ -59,7 +73,7 @@ def shard_index_arrays(idx, mesh) -> dict:
     return arrs
 
 
-def sharded_index_pipeline(idx, cfg, mesh, arrs=None):
+def sharded_index_pipeline(idx, cfg, mesh, arrs=None, plain: bool = False):
     """The device stage with the index striped over the mesh.
 
     Returns (fn, arrs): fn(arrs, reads, lens, pos, page=None) runs on
@@ -73,8 +87,9 @@ def sharded_index_pipeline(idx, cfg, mesh, arrs=None):
     JAX's ``paged`` jit signature has no counterpart.
 
     arrs: this rank's stripes from an earlier call, reused instead of a
-    second copy (the engine's overflow-retry pipelines)."""
+    second copy (the engine's overflow-retry pipelines).  plain: the
+    loops' plain versions on a CUDA device too (mesh._mesh_stage's)."""
     if arrs is None:
         arrs = shard_index_arrays(idx, mesh)
     group = mesh_group(mesh)
-    return _mesh_stage(idx.meta, cfg, group, group), arrs
+    return _mesh_stage(idx.meta, cfg, group, group, plain), arrs

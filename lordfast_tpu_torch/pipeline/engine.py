@@ -108,15 +108,13 @@ class MappingEngine:
         loops through their plain PyTorch versions on a CUDA device too,
         instead of the seed_ext and chain_dp kernels: the same SAM,
         slower.  For the smoke's and the tests' kernel-against-plain
-        passes; on the CPU the loops are always the plain versions.  Not
-        with a mesh."""
+        passes; on the CPU the loops are always the plain versions.  With a
+        mesh, on every rank (the sharded index's loops too)."""
         self.idx = idx
         self.cfg = (cfg or LordfastConfig()).validate()
         self.meta = idx.meta
         if shard_index and mesh is None:
             raise ValueError("shard_index requires a mesh")
-        if plain_loops and mesh is not None:
-            raise ValueError("plain_loops is for one device, not a mesh")
         self._plain_loops = plain_loops
         self._mesh = mesh
         self._shard_index = shard_index
@@ -343,17 +341,19 @@ class MappingEngine:
         if cfg.seeder != "extend-whole":
             seeds = self._host_seeds(reads.cpu().numpy(), lens_np)
             return mesh_ops.post_seed_stage_sharded(
-                self.arrs, seeds, reads, lens, cfg, self._group, page)
+                self.arrs, seeds, reads, lens, cfg, self._group, page,
+                self._plain_loops)
         if key not in self._mesh_fns:
             if self._shard_index:
                 from ..parallel.sharded_index import sharded_index_pipeline
 
                 fn, _ = sharded_index_pipeline(self.idx, cfg, self._mesh,
-                                               arrs=self.arrs)
+                                               arrs=self.arrs,
+                                               plain=self._plain_loops)
                 self._mesh_fns[key] = functools.partial(fn, self.arrs)
             else:
                 self._mesh_fns[key] = mesh_ops.sharded_pipeline(
-                    self.idx, cfg, self._mesh)
+                    self.idx, cfg, self._mesh, self._plain_loops)
         pos = fm_ops.sample_positions_host(lens_np, cfg.sampling_count)
         return self._mesh_fns[key](reads, lens,
                                    torch.from_numpy(pos).to(self.device),

@@ -14,7 +14,12 @@ an N, the read's end, the text's start and MAX_ANCHOR_LEN), ``sa_locate``
 against ``sa_lookup`` (every row of a small genome's text and edge lanes
 at sa_intv 2 to 64, both rank layouts, int32 and int64 sa_samp), and the
 dispatch of ``chain_seeds`` and of the seeder to them; ``sa_locate``'s
-lane queue below and beyond the lanes the card holds at once.  Needs an
+lane queue below and beyond the lanes the card holds at once; the
+sharded seeder on ``csrc/seed_shard.cu``'s kernels over a group of one
+(NCCL) against its plain loops and the replicated seeder (every seed;
+each kernel against its plain version on its first call, both layouts,
+the SA full and at 32), and through the all-gather route with every
+bucket's cap forced to 8.  Needs an
 NVIDIA GPU (marker ``cuda``) and skips
 without one.  This file imports neither jax nor lordfast_tpu, so it also
 runs where JAX is not installed:
@@ -744,3 +749,90 @@ def test_cuda_sa_locate_rejects_bad_inputs(cuda_device, genome):
     assert fm_index_cuda.sa_locate.launches == before
     empty = fm_index_cuda.sa_locate(arrs, meta, rows[:0], valid[:0])
     assert empty.shape == (0,) and fm_index_cuda.sa_locate.launches == before
+
+
+def _shard_case(genome, sa_interval, layout, device):
+    """The genome's index sliced to sa_interval, sharded over a group of
+    one (a mesh of this process on the card; its stripes are the whole
+    arrays, occ_cp cut to bwt_blocks' rows) in the rank layout asked
+    for, beside its replicated arrays; and the seeder's arguments but the
+    arrays for the genome's reads (anchors from 8 chars, so a sampled SA
+    has multi-hit slots to walk)."""
+    from lordfast_tpu_torch.parallel.mesh import make_mesh, mesh_group
+    from lordfast_tpu_torch.parallel.sharded_index import shard_index_arrays
+
+    path, reads, lens = genome
+    idx, repl, _ = _sampled(path, sa_interval, device)
+    mesh = make_mesh("cuda")
+    arrs = shard_index_arrays(idx, mesh)
+    if layout == "split":
+        repl = chip_smoke.split_layout(idx, repl)
+        arrs = dict(chip_smoke.split_layout(idx, arrs))
+        arrs["occ_cp"] = arrs["occ_cp"][: arrs["bwt_blocks"].shape[0]]
+    cfg = LordfastConfig(kmer_cache_k=6, sampling_count=200,
+                         min_anchor_len=8)
+    r = torch.from_numpy(reads).to(device)
+    n = torch.from_numpy(lens).to(device)
+    pos = torch.from_numpy(fm_index.sample_positions_host(
+        lens, cfg.sampling_count)).to(device)
+    rest = (r, n, pos, idx.meta, cfg.sampling_count, cfg.min_anchor_len,
+            cfg.max_ref_hits, cfg.max_seeds_per_read, cfg.seed_phase1_steps)
+    return idx, arrs, repl, rest, mesh_group(mesh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sa_interval,layout", [
+    (1, "fused"), (1, "split"), (32, "fused"), (32, "split")])
+def test_cuda_shard_loops_match_plain(cuda_device, genome, sa_interval,
+                                      layout):
+    # the sharded seeder on seed_shard.cu's kernels (NCCL, one rank) ==
+    # its plain loops == the replicated seeder; each kernel == its plain
+    # version on its first call (chip_smoke.check_shard_kernels); the
+    # kernels launch and the plain loops are not entered, and the reverse
+    # under plain=True
+    idx, arrs, repl, rest, group = _shard_case(genome, sa_interval, layout,
+                                               cuda_device)
+    sampled = sa_interval > 1
+    chip_smoke.reset_launches()
+    with chip_smoke.record_shard() as rec:
+        got = fm_index._seed_anchors_impl(arrs, *rest, group=group)
+    counts = chip_smoke.read_launches()
+    assert all(counts[k] > 0 for k in chip_smoke.SHARD_KERNELS[:3])
+    assert (counts["shard_walk_step"] > 0) == sampled
+    assert not any(counts[k] for k in chip_smoke.SHARD_LOOPS + (
+        "seed_ext", "sa_locate", "sa_lookup"))
+    c = dict(fm_index.shard_counts)
+    assert c["calls"] == 1 and c["redone"] == 0
+    assert c["host_reads"] == c["blocks"] + (4 if sampled else 3)
+    figs = chip_smoke.check_shard_kernels(rec)
+    assert set(figs) == set(chip_smoke.SHARD_KERNELS[: 4 if sampled else 3]
+                            + ("shard_bucket ids", "shard_answer sa"))
+    chip_smoke.reset_launches()
+    want = fm_index._seed_anchors_impl(arrs, *rest, group=group, plain=True)
+    counts = chip_smoke.read_launches()
+    assert not any(counts[k] for k in chip_smoke.SHARD_KERNELS)
+    assert counts["_shard_ext"] == 1 and counts["_shard_walk"] == sampled
+    repl_seeds = fm_index._seed_anchors_impl(repl, *rest)
+    for name in fm_index.SeedBatch._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert torch.equal(getattr(got, name),
+                           getattr(repl_seeds, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sa_interval", [1, 32])
+def test_cuda_shard_loops_all_gather_route(cuda_device, genome, sa_interval,
+                                           monkeypatch):
+    # every bucket's cap forced to 8: each routed block overflows and runs
+    # again through the all-gather route (all_gather_into_tensor and
+    # reduce_scatter_tensor under NCCL), with the same seeds
+    idx, arrs, repl, rest, group = _shard_case(genome, sa_interval, "fused",
+                                               cuda_device)
+    want = fm_index._seed_anchors_impl(repl, *rest)
+    monkeypatch.setattr(fm_index, "shard_cap", lambda n, D: 8)
+    chip_smoke.reset_launches()
+    got = fm_index._seed_anchors_impl(arrs, *rest, group=group)
+    c = dict(fm_index.shard_counts)
+    assert c["redone"] > 0, c
+    for name in fm_index.SeedBatch._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name

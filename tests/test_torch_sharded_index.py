@@ -12,8 +12,10 @@ the seeds and the whole host payload of sharded_index_pipeline at D = 2
 and 8 in both index layouts (fused fm_blocks with the full SA, and
 occ_cp + bwt_blocks with the SA sampled at 32, so locate walks), on a
 batch whose last three rows are padding (lens 0), as a short last batch
-has; the engine's SAM under shard_index=True; a failing rank failing
-every rank.
+has, at the source's steps a block and at 1 and 7; the engine's SAM
+under shard_index=True; a failing rank failing every rank; a rank > 0
+of the CLI's --shardIndex that waits for rank 0's index gives up after
+its time limit, naming the file.
 """
 
 import dataclasses
@@ -79,14 +81,22 @@ def case(small_index, tmp_path_factory):
 _RAN = {}
 
 
+# the block sizes the schedule is also run at, each in one layout
+# (test_block_schedule_matches_jax); the source's is SHARD_BLOCK_STEPS
+BLOCK_RUNS = [(1, "fused"), (7, "split")]
+
+
 def _port_ranks(case, D):
-    """The port's sharded pipeline in both layouts at D ranks (one
-    launch per D, shared by the layouts' tests)."""
+    """The port's sharded pipeline in both layouts at D ranks, and at the
+    block sizes of BLOCK_RUNS (one launch per D, shared by the tests)."""
     d = case[0]
     if D not in _RAN:
         runs = [{"name": f"{name}_{D}", "index": f, "split_layout": split,
                  "shard_index": True}
                 for name, (f, _, split) in LAYOUTS.items()]
+        runs += [{"name": f"{name}_S{S}_{D}", "index": LAYOUTS[name][0],
+                  "split_layout": LAYOUTS[name][2], "shard_index": True,
+                  "S": S} for S, name in BLOCK_RUNS]
         res, dt = run_ranks("pipeline", d, D, timeout=120,
                             args={"cfg": CFG, "runs": runs})
         for rank, (rc, err) in enumerate(res):
@@ -98,13 +108,26 @@ def _port_ranks(case, D):
 @pytest.mark.parametrize("D", [2, 8])
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
 def test_sharded_index_pipeline_matches_jax(case, layout, D):
+    _check_against_jax(case, layout, D, f"{layout}_{D}")
+
+
+@pytest.mark.parametrize("D", [2, 8])
+@pytest.mark.parametrize("S,layout", BLOCK_RUNS)
+def test_block_schedule_matches_jax(case, S, layout, D):
+    """The sharded loops at S steps a block between reads of their flags
+    (fm_index.SHARD_BLOCK_STEPS; 1: a read every step) give JAX's seeds
+    and host payload too."""
+    _check_against_jax(case, layout, D, f"{layout}_S{S}_{D}")
+
+
+def _check_against_jax(case, layout, D, name):
     d, jidx, (reads, lens, pos) = case
     d = _port_ranks(case, D)
     idx = jidx[LAYOUTS[layout][1]]
     fn, arrs = sharded_index_pipeline(idx, JCfg(**CFG),
                                       make_mesh(jax.devices()[:D]))
     seeds, _, host = jax.device_get(fn(arrs, reads, lens, pos))
-    outs = [np.load(d / f"out{r}_{layout}_{D}.npz") for r in range(D)]
+    outs = [np.load(d / f"out{r}_{name}.npz") for r in range(D)]
     for k, v in seeds._asdict().items():
         got = np.concatenate([o[f"seeds_{k}"] for o in outs])
         np.testing.assert_array_equal(got, np.asarray(v), err_msg=k)
@@ -205,3 +228,16 @@ def test_failing_rank_fails_every_rank(small_index, tmp_path, where):
         assert "rank 0 of the mesh failed" in errs[1]
     else:
         assert "injected failure" in errs[1]
+
+
+def test_index_wait_times_out(tmp_path):
+    """cli._wait_for_index: a rank launched by hand whose rank 0 never
+    writes the index raises after its limit, naming the file."""
+    from lordfast_tpu_torch.cli import _wait_for_index
+
+    ipath = tmp_path / "ref.fa.lft.npz"
+    with pytest.raises(TimeoutError, match="ref.fa.lft.npz"):
+        _wait_for_index(ipath, tmp_path / "ref.fa", poll_s=0.05,
+                        timeout_s=0.3)
+    ipath.write_bytes(b"")
+    _wait_for_index(ipath, tmp_path / "ref.fa", poll_s=0.05, timeout_s=0.3)

@@ -160,28 +160,203 @@ def job_routing(d):
         np.savez(d / f"out{r}_{name}.npz", **out)
 
 
+def job_routes(d):
+    """Each rank gathers rows of striped arrays (full_<name>.npy) on every
+    route of fm_index's gathers: the exact gather (_row_gather: routed,
+    the all-gather route after an overflow), the all-gather route alone
+    and the routed buckets alone at cap shard_cap(n) (_route_gather; its
+    overflow flag as this rank left it) and the exact gather of the live queries only (a
+    seeded half); writes rows, results and flags to
+    out<rank>_<name>.npz.  Cases: (name, n, "uniform" or "skew": every
+    row on owner 0)."""
+    import numpy as np
+    import torch
+
+    from lordfast_tpu_torch.ops import fm_index as fm
+
+    _, group, args = _setup(d)
+    D, r = group.size(), group.rank()
+    for name in args["arrays"]:
+        full = np.load(d / f"full_{name}.npy")
+        rps = -(-full.shape[0] // D)
+        part = np.zeros((rps,) + full.shape[1:], full.dtype)
+        mine = full[r * rps : (r + 1) * rps]
+        part[: len(mine)] = mine
+        stripe = torch.from_numpy(part)
+        out = {}
+        for case, n, kind in args["cases"]:
+            rng = np.random.default_rng([args["seed"], r, n])
+            hi = min(rps, full.shape[0]) if kind == "skew" else full.shape[0]
+            rows = torch.from_numpy(rng.integers(0, hi, n))
+            live = torch.from_numpy(rng.random(n) < 0.5)
+            flags = torch.zeros(2, dtype=torch.int32)
+            routed = fm._route_gather(stripe, rows, fm.ShardRoute(
+                group, fm.shard_cap(n, D), flags))
+            ag = fm._route_gather(stripe, rows, fm.ShardRoute(
+                group, None, torch.zeros(2, dtype=torch.int32)))
+            out.update({f"{case}_rows": rows.numpy(), f"{case}_live":
+                        live.numpy(), f"{case}_routed": routed.numpy(),
+                        f"{case}_over": flags[1].numpy(),
+                        f"{case}_ag": ag.numpy(),
+                        f"{case}_exact": fm._row_gather(stripe, rows,
+                                                        group).numpy(),
+                        f"{case}_masked": fm._row_gather(
+                            stripe, rows, group, live).numpy()})
+        np.savez(d / f"out{r}_{name}.npz", **out)
+
+
+def _rank_rows(d, D, r):
+    """This rank's rows of batch.npz (reads, lens, pos) as tensors."""
+    import numpy as np
+    import torch
+
+    b = np.load(d / "batch.npz")
+    Br = b["reads"].shape[0] // D
+    rows = slice(r * Br, (r + 1) * Br)
+    return [torch.from_numpy(np.ascontiguousarray(b[k][rows]))
+            for k in ("reads", "lens", "pos")]
+
+
+def _kernel_route(fm, K):
+    """Point fm_index's sharded loops and SA entries' gather at
+    fm_shard_cuda's (shard_ext, shard_walk, sa_gather: the block schedule
+    and the exact gather over the four wrappers)."""
+    fm._shard_ext, fm._shard_walk = K.shard_ext, K.shard_walk
+    fm._sa_gather = K.sa_gather
+
+
+def job_shard_model(d):
+    """The sharded seeding of this rank's rows of batch.npz through the
+    plain loops (fm_index._shard_ext / _shard_walk), through the kernels'
+    loops over the wrappers' plain versions and over the numpy model of
+    seed_shard.cu
+    (torch_shard_model, the buckets' slots in a random order), at the
+    source's block size and with every bucket's cap forced to 8 (every
+    routed block overflows and runs again); then, for a run with "edge",
+    the extension of chip_smoke.edge_reads' lanes both ways (at "edge_S"
+    steps a block) and over the replicated index.  Writes every result
+    and the loops' counts to out<rank>_<run name>.npz for each run
+    ({"name", "index", "split_layout", "edge"})."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    import torch_shard_model as model
+    from lordfast_tpu_torch.config import LordfastConfig
+    from lordfast_tpu_torch.ops import fm_index as fm
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+    from lordfast_tpu_torch.parallel.sharded_index import shard_index_arrays
+
+    mesh, group, args = _setup(d)
+    D, r = group.size(), group.rank()
+    cfg = LordfastConfig(**args["cfg"])
+    reads, lens, pos = _rank_rows(d, D, r)
+    plain = (fm._shard_ext, fm._shard_walk, fm._sa_gather)
+    cap = fm.shard_cap
+
+    def seed(arrs, meta):
+        fm.shard_counts.update(dict.fromkeys(fm.shard_counts, 0))
+        sb = fm._seed_anchors_impl(
+            arrs, reads, lens, pos, meta, cfg.sampling_count,
+            cfg.min_anchor_len, cfg.max_ref_hits, cfg.max_seeds_per_read,
+            cfg.seed_phase1_steps, group=group)
+        return sb, dict(fm.shard_counts)
+
+    for run in args["runs"]:
+        idx = _index(d, run)
+        meta = idx.meta
+        arrs = shard_index_arrays(idx, mesh)
+        out = {}
+        fm._shard_ext, fm._shard_walk, fm._sa_gather = plain
+        got, counts = seed(arrs, meta)
+        out.update({f"plain_{k}": v.numpy()
+                    for k, v in got._asdict().items()})
+        out["plain_counts"] = np.array(list(counts.values()))
+        # the kernels' loops over the wrappers' own plain versions (the
+        # CPU path of fm_shard_cuda), then over the model
+        _kernel_route(fm, K)
+        with chip_smoke.record_shard() as rec:
+            got, counts = seed(arrs, meta)
+        out.update({f"wrap_{k}": v.numpy()
+                    for k, v in got._asdict().items()})
+        out["wrap_counts"] = np.array(list(counts.values()))
+        # the smoke's checks of the kernels against their plain versions
+        # (here both are the plain ones) and its bytes bound, on the CPU
+        figs = chip_smoke.check_shard_kernels(rec)
+        out["checked"] = np.array(sorted(figs))
+        out["work"] = np.array([chip_smoke.shard_work(
+            n.split()[0], *rec.calls[n]) for n in sorted(figs)])
+        saved = model.install(K, np.random.default_rng([7, r]))
+        for tag, c in (("model", cap), ("over", lambda n, D: 8)):
+            fm.shard_cap = c
+            got, counts = seed(arrs, meta)
+            out.update({f"{tag}_{k}": v.numpy()
+                        for k, v in got._asdict().items()})
+            out[f"{tag}_counts"] = np.array(list(counts.values()))
+        fm.shard_cap = cap
+        fm._shard_ext, fm._shard_walk, fm._sa_gather = plain
+        (K.shard_bucket, K.shard_answer, K.shard_ext_step,
+         K.shard_walk_step) = saved
+        out["counts_keys"] = np.array(list(fm.shard_counts))
+        if not run.get("edge"):
+            np.savez(d / f"out{r}_{run['name']}.npz", **out)
+            continue
+        full = idx.device_arrays("cpu")
+        rd, lanes = _edge_lanes(chip_smoke, full, meta)
+        S = fm.SHARD_BLOCK_STEPS
+        fm.SHARD_BLOCK_STEPS = args["edge_S"]
+        for tag, fn in (("edge_plain", plain[0]), ("edge_model",
+                                                   K.shard_ext)):
+            fm.shard_counts.update(dict.fromkeys(fm.shard_counts, 0))
+            res = fn(arrs, meta, rd, *lanes, group)
+            out.update({f"{tag}_{k}": v.numpy()
+                        for k, v in zip("klm", res)})
+            out[f"{tag}_counts"] = np.array(list(fm.shard_counts.values()))
+        fm.SHARD_BLOCK_STEPS = S
+        a, k, l, m = lanes[:4]
+        while bool(a.any()):
+            a, k, l, m = fm._ext_step(full, meta, rd, a, k, l, m, *lanes[4:])
+        out.update({"edge_repl_k": k.numpy(), "edge_repl_l": l.numpy(),
+                    "edge_repl_m": m.numpy()})
+        np.savez(d / f"out{r}_{run['name']}.npz", **out)
+
+
+def _edge_lanes(chip_smoke, full, meta):
+    """chip_smoke.edge_reads' reads and lanes (one lane a read, over the
+    whole interval) as an fm_index._Reads and int64 / bool tensors."""
+    import numpy as np
+    import torch
+
+    from lordfast_tpu_torch.ops import fm_index as fm
+
+    text = chip_smoke.text_of(full, meta)
+    reads, lens, _, _, lanes = chip_smoke.edge_reads(
+        np.random.default_rng(5), text, meta["seq_len"])
+    rd = fm._Reads(torch.from_numpy(reads), torch.from_numpy(lens))
+    return rd, [torch.from_numpy(x) for x in lanes]
+
+
 def job_pipeline(d):
     """The device stage on this rank's rows of batch.npz, once for each
     of the job's runs ({"name", "index", "split_layout", "shard_index"}:
-    the sharded or the replicated index); writes this rank's seeds and,
-    on rank 0, the host payload to out<rank>_<name>.npz."""
+    the sharded or the replicated index, and "S", the sharded loops'
+    steps a block, else the source's); writes this rank's seeds and, on
+    rank 0, the host payload to out<rank>_<name>.npz."""
     import numpy as np
-    import torch
 
     from lordfast_tpu_torch.config import LordfastConfig
     from lordfast_tpu_torch.parallel.mesh import sharded_pipeline
     from lordfast_tpu_torch.parallel.sharded_index import (
         sharded_index_pipeline)
 
+    from lordfast_tpu_torch.ops import fm_index as fm
+
     mesh, group, args = _setup(d)
     D, r = group.size(), group.rank()
     cfg = LordfastConfig(**args["cfg"])
-    b = np.load(d / "batch.npz")
-    Br = b["reads"].shape[0] // D
-    rows = slice(r * Br, (r + 1) * Br)
-    inp = [torch.from_numpy(np.ascontiguousarray(b[k][rows]))
-           for k in ("reads", "lens", "pos")]
+    inp = _rank_rows(d, D, r)
     for run in args["runs"]:
+        fm.SHARD_BLOCK_STEPS = run.get("S", fm.SHARD_BLOCK_STEPS)
         idx = _index(d, run)
         if run["shard_index"]:
             fn, arrs = sharded_index_pipeline(idx, cfg, mesh)

@@ -1,0 +1,216 @@
+"""A numpy model of ``lordfast_tpu_torch/csrc/seed_shard.cu``'s kernels
+(names as in the source), for the CPU tests of the sharded index's loops.
+
+Each model computes what its kernel computes, thread by thread as numpy
+arrays: ``shard_bucket_kernel`` takes its buckets' slots in the order its
+threads' atomicAdds land, which the model draws at random; the step
+models read the returned rows by slot (a zero row for slot -1) and count
+occ and step the walk as ``fm_rank.cuh`` does, with 32-bit words, the
+words past the row's masked out and the row's char from its own word.
+``install`` puts them in place of the ``fm_shard_cuda`` wrappers (the
+loops look the wrappers up at call time), so ``fm_shard_cuda.shard_ext``
+and ``shard_walk`` run their block schedule over the models on the CPU.
+This module imports neither jax nor lordfast_tpu.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+M32 = np.uint64(0xFFFFFFFF)
+MAX_ANCHOR = 4095
+
+
+def occ_pos(seq_len, primary, k):
+    kk = np.clip(k, 0, seq_len - 1)
+    return kk - (kk >= primary)
+
+
+def shard_bucket_kernel(rng, live, k, l, seq_len, primary, rps, D, cap,
+                        all_gather, ids=False):
+    """(send, slot, counts, over) of one launch; the threads' atomics in
+    the random order rng draws."""
+    ext = l is not None
+    n = len(live)
+    lane = np.concatenate([np.arange(n), np.arange(n)]) if ext else \
+        np.arange(n)
+    if ids:
+        blk, ask = k, live
+    elif ext:
+        kq = np.concatenate([k - 1, l])
+        blk = occ_pos(seq_len, primary, kq) >> 7
+        ask = live[lane]
+    else:
+        blk = (k - (k > primary)) >> 7
+        ask = live & (k != primary)
+    Q = len(lane)
+    if all_gather:
+        return np.where(ask, blk, -1), np.arange(Q), None, 0
+    owner = np.minimum(blk // rps, D - 1)
+    counts = np.zeros(D, np.int64)
+    rank = np.full(Q, -1, np.int64)
+    for i in rng.permutation(Q):  # the atomics' order
+        if ask[i]:
+            rank[i] = counts[owner[i]]
+            counts[owner[i]] += 1
+    ok = ask & (rank < cap)
+    slot = np.where(ok, owner * cap + rank, -1)
+    send = np.full(D * cap, -1, np.int64)
+    send[slot[ok]] = blk[ok]
+    return send, slot, counts, int((ask & (rank >= cap)).any())
+
+
+def shard_answer_kernel(recv, rank_a, rank_b, rps, base, fused, width=12):
+    """Each received row id's row (width 12) or entry (width 1: rank_a the
+    1-D sa_samp stripe) as int64, zeros where this rank does not own it."""
+    loc = recv - base
+    ok = (loc >= 0) & (loc < rps)
+    rows = np.clip(loc, 0, rps - 1)
+    if width == 1:
+        return np.where(ok, rank_a[rows].astype(np.int64), 0)
+    vals = rank_a[rows] if fused else np.concatenate(
+        [rank_a[rows], rank_b[rows]], 1)
+    return np.where(ok[:, None], vals, 0)
+
+
+def row_at(back, slot):
+    rows = back[np.maximum(slot, 0)]
+    return np.where((slot >= 0)[:, None], rows, 0)
+
+
+def first_chars(n):
+    n = np.asarray(n, np.int64)
+    sh = np.clip(32 - 2 * n, 0, 32).astype(np.uint64)
+    full = (M32 << sh) & M32
+    return np.where(n >= 16, M32, np.where(n <= 0, np.uint64(0), full))
+
+
+def popc(x):
+    """Population count of uint32 values held in uint64."""
+    x = x.astype(np.uint64)
+    x = x - ((x >> np.uint64(1)) & np.uint64(0x55555555))
+    x = (x & np.uint64(0x33333333)) + ((x >> np.uint64(2))
+                                       & np.uint64(0x33333333))
+    x = (x + (x >> np.uint64(4))) & np.uint64(0x0F0F0F0F)
+    return (((x * np.uint64(0x01010101)) & M32)
+            >> np.uint64(24)).astype(np.int64)
+
+
+def occ_of_row(seq_len, l2, row, k, pos, c):
+    """occ from rows (n, 12) for queries of rows k at positions pos."""
+    off = pos & 127
+    nch = off + 1
+    w = row[:, 4:].astype(np.uint64) & M32
+    cu = c.astype(np.uint64)[:, None]
+    hi = np.where((cu & np.uint64(2)) != 0, w, ~w & M32)
+    lo = np.where((cu & np.uint64(1)) != 0, w, ~w & M32)
+    matched = (hi >> np.uint64(1)) & lo & np.uint64(0x55555555)
+    first = np.arange(8) * 16
+    cnt = popc(matched & first_chars(nch[:, None] - first)).sum(1)
+    base = row[np.arange(len(c)), c]
+    res = base + cnt
+    res = np.where(k == seq_len, l2[c + 1] - l2[c], res)
+    return np.where(k < 0, 0, res)
+
+
+def row_char(row, pos):
+    off = pos & 127
+    w = row[np.arange(len(pos)), 4 + (off >> 4)].astype(np.uint64) & M32
+    return ((w >> ((15 - (off & 15)) * 2).astype(np.uint64))
+            & np.uint64(3)).astype(np.int64)
+
+
+def shard_ext_step_kernel(alive, k, l, m, pos_f, b_lane, rw, lens, L, l2,
+                          back, slot, seq_len, primary):
+    """The lanes' (alive, k, l, m) after one step, and the live count."""
+    n = len(alive)
+    q = pos_f + m
+    qc = np.minimum(q, L - 1)
+    word = rw[b_lane, qc >> 4].astype(np.uint64)
+    c = ((word >> (3 * (15 - (qc & 15))).astype(np.uint64))
+         & np.uint64(7)).astype(np.int64)
+    ok_char = (q < lens[b_lane]) & (c < 4)
+    cc = np.where(ok_char, 3 - c, 0)
+    pk, pl = occ_pos(seq_len, primary, k - 1), occ_pos(seq_len, primary, l)
+    nk = l2[cc] + occ_of_row(seq_len, l2, row_at(back, slot[:n]), k - 1, pk,
+                             cc) + 1
+    nl = l2[cc] + occ_of_row(seq_len, l2, row_at(back, slot[n:]), l, pl, cc)
+    a = alive & ok_char & (nk <= nl) & (m < MAX_ANCHOR)
+    return (a, np.where(a, nk, k), np.where(a, nl, l), m + a,
+            int(a.sum()))
+
+
+def shard_walk_step_kernel(active, rows, steps, l2, back, slot, seq_len,
+                           primary, intv):
+    x = rows - (rows > primary)
+    row = row_at(back, slot)
+    ch = row_char(row, x)
+    nxt = l2[ch] + occ_of_row(seq_len, l2, row, rows, x, ch)
+    nxt = np.where(rows == primary, 0, nxt)
+    r = np.where(active, nxt, rows)
+    act = active & ((r & (intv - 1)) != 0)
+    return act, r, steps + active, int(act.sum())
+
+
+def install(K, rng):
+    """Put the models in place of fm_shard_cuda's (module K) four wrappers,
+    with the wrappers' signatures; returns the wrappers they replaced."""
+    import torch
+
+    saved = (K.shard_bucket, K.shard_answer, K.shard_ext_step,
+             K.shard_walk_step)
+    T = torch.from_numpy
+
+    def bucket(live, k, l, meta, rps, D, cap, send, slot, counts=None,
+               over=None, ids=False):
+        # the kernel's argument types (fm_shard_cuda.shard_bucket checks
+        # them on the card)
+        assert send.dtype == torch.int64 and slot.dtype == torch.int32
+        assert cap is None or (counts.dtype == over.dtype == torch.int32)
+        out = shard_bucket_kernel(
+            rng, live.numpy(), k.numpy(), None if l is None else l.numpy(),
+            0 if ids else meta["seq_len"], 0 if ids else meta["primary"],
+            rps, D, cap or 0, cap is None, ids)
+        send.copy_(T(out[0]))
+        slot.copy_(T(out[1]))
+        if cap is not None:
+            counts.copy_(T(out[2]))
+            over.copy_(torch.maximum(over, torch.tensor([out[3]],
+                                                        dtype=over.dtype)))
+
+    def answer(recv, arrs, base, out, key=None):
+        if key is not None:
+            st = arrs[key].numpy()
+            out.copy_(T(shard_answer_kernel(recv.numpy(), st, None,
+                                            len(st), base, True, 1)))
+            return
+        fused, a, b = K.rank_stripes(arrs)
+        out.copy_(T(shard_answer_kernel(recv.numpy(), a.numpy(),
+                                        None if b is None else b.numpy(),
+                                        a.shape[0], base, fused)))
+
+    def ext_step(state, pos_f, b_lane, rd, arrs, meta, back, slot,
+                 live=None):
+        res = shard_ext_step_kernel(
+            *(x.numpy() for x in state), pos_f.numpy(), b_lane.numpy(),
+            rd.rw.numpy(), rd.lens.numpy(), rd.L, arrs["L2"].long().numpy(),
+            back.numpy(), slot.numpy().astype(np.int64), meta["seq_len"],
+            meta["primary"])
+        for x, v in zip(state, res):
+            x.copy_(T(np.asarray(v)))
+        if live is not None:
+            live += res[4]
+
+    def walk_step(state, arrs, meta, back, slot, live=None):
+        res = shard_walk_step_kernel(
+            *(x.numpy() for x in state), arrs["L2"].long().numpy(),
+            back.numpy(), slot.numpy().astype(np.int64), meta["seq_len"],
+            meta["primary"], meta["sa_intv"])
+        for x, v in zip(state, res):
+            x.copy_(T(np.asarray(v)))
+        if live is not None:
+            live += res[3]
+
+    K.shard_bucket, K.shard_answer = bucket, answer
+    K.shard_ext_step, K.shard_walk_step = ext_step, walk_step
+    return saved
