@@ -7,8 +7,8 @@
 ``--against DIR``: the loop kernels of this checkout against those of
 the checkout at DIR, timed in turns, see ``compare_loops``: chain_dp and
 seed_ext at v2's call, chain_dp on full windows, sa_locate at v2's call
-over its SA sliced to 32, at the 300 Mbp genome's and on its 1,048,576
-rows.)
+over its SA sliced to 32, at the 300 Mbp and 1.2 Gbp genomes' and on
+their 1,048,576 rows.)
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. environment: torch/CUDA versions, the card's name, power limit and
@@ -161,23 +161,49 @@ Phases, in order; any failure raises and the script exits non-zero:
    build), two passes each and a plain_loops pass, every SAM byte-equal
    to phase 5's full-SA SAM, with the warm pass's seconds and device
    timer beside phase 5's;
-12. 300 Mbp (run last): a seeded random genome of 300,000,000 bases,
-   indexed with the port's builder at LordfastConfig(), which samples
-   its SA at 32 (a third ``--build-bench`` process, started with the
-   other two; its seconds and peak RSS), 512 reads of
+12. 300 Mbp (run while the 1.2 Gbp build goes on): a seeded random
+   genome of 300,000,000 bases, indexed with the port's builder at
+   LordfastConfig(), which samples its SA at 32 and keeps int32
+   positions (a ``--build-bench g300`` process, started with v1's and
+   v2's; its seconds and peak RSS), 512 reads of
    ``bench.gen_gbp_reads``: two passes (the SAM repeats, >= 95% mapped),
    a plain_loops pass and the first 16 reads on the CPU (the same
    records), and sa_locate on its first locate call and on 1,048,576
    seeded rows with every edge row (more than the card holds lanes at
    once: the lane queue's case), each bit-equal, timed, with its bound
    and its latency floor (a pointer chase over the index's 1.26 GB of
-   rank rows); then dp-n2's log on v1, v2 and the 300 Mbp genome (every
-   chain call of their first pass): the linked pairs with d >= 65,536
-   and with a d at which torch.log differs from the C library's log
-   (on the host CPU or on the card), and the largest d against the log
-   table's length (``phase_log_counts``); and between the two, the 300
-   Mbp index sharded at NCCL D = 1 in this process (phase_g300_mesh: two
-   passes == the replicated SAM, a plain_loops pass of 64 reads).
+   rank rows); then the 300 Mbp index sharded at NCCL D = 1 in this
+   process (phase_g300_mesh: two passes == the replicated SAM, a
+   plain_loops pass of 64 reads);
+13. 1.2 Gbp (run last): a seeded random genome of 1,200,000,000 bases
+   in one contig, indexed with the port's builder at LordfastConfig(),
+   which gives it int64 positions (seq_len 2.4e9 >= 2**31 - 1) and
+   samples its SA at 32 (a ``--build-bench g1200`` process started
+   before phase 1, or, when the host has less RAM available than the
+   builds take at their peaks, once v1's and v2's have ended; its
+   seconds by stage and its peak RSS), 512 reads of
+   ``bench.gen_gbp_reads``: the index's and the card's position arrays
+   int64; two passes (the SAM repeats, >= 95%
+   mapped), the truth check (each read's primary record on the strand
+   and span that gbp_origins replays from the generator's RNG, for >=
+   95% of all reads and of the >= 40 forward reads located at text
+   positions >= 2**31), a plain_loops pass and the first 16 reads on the
+   CPU (the same records); the first seed_ext, sa_locate and chain_dp
+   calls, their inputs int64 and holding positions >= 2**31 (chain_dp's
+   windows, forward coordinates below l_pac, are also moved by 2**32),
+   each bit-equal to its plain version and timed with its bound
+   (check_int64_loops; sa_locate with its latency floor from a pointer
+   chase over the rank rows), and sa_locate on 1,048,576 seeded rows with
+   every edge row (more than the card holds lanes at once: the lane
+   queue's case); the high reads (58) sharded at NCCL D = 1 in this
+   process (phase_g1200_mesh, the Pos = int64_t instances of
+   seed_shard.cu: a pass with each kernel held to its plain version on
+   its first call, and a plain_loops pass, each == the replicated
+   records); then dp-n2's log on v1, v2 and the two random genomes
+   (every chain call of their first pass): the linked pairs with d >=
+   65,536 and with a d at which torch.log differs from the C library's
+   log (on the host CPU or on the card), and the largest d against the
+   log table's length (``phase_log_counts``).
 
 Phases 4 and 5 run the engine at verbosity 2, which adds the
 ``gpart_*`` counters (launches per bucket and part size) and prints them
@@ -189,7 +215,7 @@ kernel a path needs that did not launch there is a failure, and so is a
 gap or affine kernel's count that differs from the sub-batches the
 engine counted, and an entry into either loop on cuda (a plain_loops
 pass must enter both and launch neither kernel).  With a sampled SA
-(phases 11 and 12) sa_locate must launch once a device call (as often
+(phases 11-13) sa_locate must launch once a device call (as often
 as seed_ext) and the plain walk (``fm_index.sa_lookup``, counted on
 entry) must not run; a plain_loops pass does the reverse; a full-SA
 pass does neither.  The host seeders of phase 7 seed without seed_ext,
@@ -198,21 +224,25 @@ line with the
 kernel table (JSON), the nvidia-smi line, and last the contract line
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA device is available.  The datasets are cached in .smoke_cache/
-(gitignored).  The v1, v2 and 300 Mbp datasets and their indexes are
-made there by three processes of their own (``chip_smoke.py
---build-bench v1|v2|g300``), started after phase 1; they run on the host
-while the card runs the phases before the one that loads each saved
-index.  The kernel table's ``launches`` is each kernel's count on v2's
-first pass, sa_locate's on the 300 Mbp genome's, and the four shard
-kernels' on the first sharded pass of v2 over its SA sliced to 32 at
-NCCL.
+(gitignored).  The v1, v2, 300 Mbp and 1.2 Gbp datasets and their
+indexes are made there by four processes of their own (``chip_smoke.py
+--build-bench v1|v2|g300|g1200``), g1200's first and the others after
+phase 1; they run on the host while the card runs the phases before the
+one that loads each saved index.  The kernel table's ``launches`` is
+each kernel's count on v2's first pass, sa_locate's on the 1.2 Gbp
+genome's, and its seed_ext, sa_locate and chain_dp rows carry their
+g1200_* times at 64 bits (sa_locate also its g300_* times); the four
+shard kernels' on the first sharded pass of v2 over its SA sliced to 32
+at NCCL.
 """
 
 from __future__ import annotations
 
+import gc
 import io
 import json
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -288,8 +318,25 @@ KNOWN_DIVERGENT: dict = {}
 # bench.gen_gbp_reads.
 G300_BP = 300_000_000
 G300_SEED = 300
+# The 1.2 Gbp phase: a seeded random genome of G1200_BP bases in one
+# contig, past the size at which text positions need 64 bits (seq_len >=
+# 2**31 - 1, i.e. l_pac >= 1,073,741,824), with 512 reads of
+# bench.gen_gbp_reads.  The forward reads drawn below 2 l_pac - 2**31
+# (~252.5 Mbp) are located at text positions >= 2**31 (high_reads).  Cut
+# from the Gbp bench's 3.1 Gbp genome (gbp_build.py, ~120 GB peak RSS)
+# by the card host's RAM (101.0 GiB).
+G1200_BP = 1_200_000_000
+G1200_SEED = 1200
+# the random genomes by tag: (bases, seed)
+GENOMES = {"g300": (G300_BP, G300_SEED), "g1200": (G1200_BP, G1200_SEED)}
+# how long after its start _built waits for each build process to end
+# (g1200's took 744.7 s on an idle host), and the host RAM each build
+# takes at its peak (its log's peak RSS, PERF.md section 6), for
+# g1200_staggered
+BUILD_WAIT_S = {"v1": 900, "v2": 900, "g300": 900, "g1200": 1000}
+BUILD_PEAK_GIB = {"g1200": 46.0, "g300": 13.6, "v1": 8.6, "v2": 8.6}
 # the pass whose launches the kernel table reports (v2's otherwise)
-MAIN_PATH = {"sa_locate": "g300"}
+MAIN_PATH = {"sa_locate": "g1200"}
 
 
 def log(msg):
@@ -1515,8 +1562,9 @@ def locate_work(rec, need) -> float:
 
 # check_sa_locate's beyond-residency case: more rows than the card holds
 # lanes at once (132 SMs x 2048 threads = 270,336), drawn over the rows
-# of the 300 Mbp index, so the lane queue hands most of them out as walks
-# end; and the pointer chase that gives a walk step's latency floor
+# of the 300 Mbp and 1.2 Gbp indexes, so the lane queue hands most of
+# them out as walks end; and the pointer chase that gives a walk step's
+# latency floor
 BEYOND_ROWS = 1 << 20
 BEYOND_SEED = 20261021
 CHASE_WARM, CHASE_HOPS, CHASE_SEED = 2_000, 50_000, 20261020
@@ -1536,7 +1584,7 @@ def chase_ns(nbytes: int) -> float:
     hops, then CHASE_HOPS timed on the card's timer).  A walk step's
     load depends on the previous step's, so this is its floor: an
     L2-sized buffer (v2's index, 42 MB of rank rows) hits L2 mostly, a
-    1.26 GB one (the 300 Mbp index) goes to HBM, with TLB misses."""
+    1.8 GB one (the 1.2 Gbp index) goes to HBM, with TLB misses."""
     import ctypes
 
     import torch
@@ -1798,10 +1846,11 @@ def compare_loops(other: Path, reps: int = 5) -> int:
     checkout's engine over .smoke_cache's v2 dataset (made by a smoke
     run, or here), the full windows, and for sa_locate the first locate
     call of a pass over v2's index with the SA sliced to 32, that of a
-    pass over the 300 Mbp genome (when a smoke run has left its index in
-    .smoke_cache) and its BEYOND_ROWS rows (beyond_rows); each
-    checkout's kernel is held bit-equal to the plain version, then timed
-    with _time_launches in turns A B B A (A this checkout).  Each
+    pass over the 300 Mbp and 1.2 Gbp genomes (each whose index a smoke
+    run has left in .smoke_cache) and their BEYOND_ROWS rows
+    (beyond_rows); each checkout's kernel is held bit-equal to the plain
+    version, then timed with _time_launches in turns A B B A (A this
+    checkout).  Each
     wrapper is called as its checkout's signature asks (seed_ext took
     (B, L) uint8 reads and int32 lengths before it took an
     fm_index._Reads).  One JSON line per case, then the card's name and
@@ -1874,17 +1923,18 @@ def compare_loops(other: Path, reps: int = 5) -> int:
             "other": seed_call(o_fm.seed_ext)}))
     locs = {"v2 sa_intv 32 call": (slice_sa(eng.idx, 32), reads_path)}
     del eng
-    if (CACHE / "g300.lft.npz").exists():
-        locs["300 Mbp call"] = (load_index(CACHE / "g300.lft.npz"),
-                                _paths("g300")[1])
+    for tag, name in (("g300", "300 Mbp"), ("g1200", "1.2 Gbp")):
+        if (CACHE / f"{tag}.lft.npz").exists():
+            locs[f"{name} call"] = (load_index(CACHE / f"{tag}.lft.npz"),
+                                    _paths(tag)[1])
     for label, (idx, path) in locs.items():
         e = MappingEngine(idx, LordfastConfig(), device="cuda")
         with record_loops() as rec:
             e.map_file(path, io.StringIO(), "chip_smoke")
         calls = {label: rec.locate[0]}
-        if label == "300 Mbp call":
+        if not label.startswith("v2"):
             rows, valid = beyond_rows(idx.meta)
-            calls["300 Mbp beyond residency"] = dict(
+            calls[label.replace("call", "beyond residency")] = dict(
                 arrs=e.arrs, meta=idx.meta, rows=rows, valid=valid)
         for name, c in calls.items():
             args = (c["arrs"], c["meta"], c["rows"], c["valid"])
@@ -2140,9 +2190,10 @@ def check_split_paths(eng, idx, n=40):
 
 
 def _paths(tag: str):
-    """(reference, reads) of the dataset tag (v1, v2 or g300) in
+    """(reference, reads) of the dataset tag (v1, v2, g300 or g1200) in
     .smoke_cache/."""
-    pre = {"v1": "v1_bench", "v2": "bench", "g300": "g300"}[tag]
+    pre = {"v1": "v1_bench", "v2": "bench", "g300": "g300",
+           "g1200": "g1200"}[tag]
     return CACHE / f"{pre}_ref.fa", CACHE / f"{pre}_reads.fq"
 
 
@@ -2180,25 +2231,26 @@ def _index(ref, tag):
     from lordfast_tpu_torch.index.builder import build_index
 
     t = time.time()
-    idx = build_index(ref, LordfastConfig(), verbose=tag == "g300")
+    idx = build_index(ref, LordfastConfig(), verbose=tag in GENOMES)
     log(f"[{tag}] index built in {time.time() - t:.1f} s (l_pac "
         f"{idx.l_pac}, sa_intv {idx.sa_intv}, kcache k={idx.kcache_k})")
     return idx
 
 
-def _g300_genome(ref: Path):
-    """A seeded random genome of G300_BP bases, one contig, written as
-    FASTA lines of 100 bases."""
+def _random_genome(ref: Path, tag: str):
+    """The random genome tag of GENOMES, seeded, one contig named tag,
+    written as FASTA lines of 100 bases."""
     import numpy as np
 
-    rng = np.random.default_rng(G300_SEED)
+    bp, seed = GENOMES[tag]
+    rng = np.random.default_rng(seed)
     lut = np.frombuffer(b"ACGT", np.uint8)
     tmp = ref.with_suffix(".part")
     step = 10_000_000
     with open(tmp, "wb") as f:
-        f.write(b">g300\n")
-        for s0 in range(0, G300_BP, step):
-            n = min(step, G300_BP - s0)
+        f.write(f">{tag}\n".encode())
+        for s0 in range(0, bp, step):
+            n = min(step, bp - s0)
             lines = np.full((n // 100, 101), ord("\n"), np.uint8)
             lines[:, :100] = lut[rng.integers(0, 4, n)].reshape(-1, 100)
             f.write(lines.tobytes())
@@ -2209,42 +2261,44 @@ def build_bench(tag: str) -> int:
     """Generate the dataset ``tag`` into .smoke_cache/ and save its index
     there as ``{tag}.lft.npz``: the process that start_builds starts
     (``chip_smoke.py --build-bench TAG``).  v1 and v2: the bench's
-    datasets.  g300: the G300_BP random genome, its index at
-    LordfastConfig() (which samples the SA at 32), then 512 reads of
-    bench.gen_gbp_reads; logs the seconds and the process's peak RSS."""
-    import resource
-
+    datasets.  g300 and g1200: the random genome (GENOMES), its index at
+    LordfastConfig() (the SA sampled at 32; int64 positions at 1.2 Gbp),
+    then 512 reads of bench.gen_gbp_reads; logs each step's seconds (the
+    builder's own lines give its stages') and the process's peak RSS."""
     import bench
     from lordfast_tpu_torch.index.builder import save_index
 
     t = time.time()
-    if tag == "g300":
+    if tag in GENOMES:
         CACHE.mkdir(exist_ok=True)
         ref, reads = _paths(tag)
         if not ref.exists():
-            _g300_genome(ref)
-        log(f"[g300] genome of {G300_BP} bp written in "
+            _random_genome(ref, tag)
+        log(f"[{tag}] genome of {GENOMES[tag][0]} bp written in "
             f"{time.time() - t:.1f} s")
     else:
         ref, _ = _dataset(easy=tag == "v1")
     idx = _index(ref, tag)
+    t_save = time.time()
     tmp = CACHE / f"{tag}.part.npz"
     save_index(idx, tmp)
     os.replace(tmp, CACHE / f"{tag}.lft.npz")
-    if tag == "g300":
+    t_reads = time.time()
+    if tag in GENOMES:
         bench.gen_gbp_reads(idx, reads)
-        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
-        log(f"[g300] genome, index, its file and 512 reads in "
-            f"{time.time() - t:.1f} s; the build process's peak RSS "
-            f"{rss:.2f} GiB")
+    log(f"[{tag}] index saved in {t_reads - t_save:.1f} s, reads in "
+        f"{time.time() - t_reads:.1f} s; all in {time.time() - t:.1f} s; "
+        f"the build process's peak RSS "
+        f"{_peak_rss_gib(resource.RUSAGE_SELF):.2f} GiB")
     return 0
 
 
-def start_builds(tags=("v1", "v2", "g300")) -> dict:
+def start_builds(tags) -> dict:
     """One process for each dataset of tags, started together, that
     generates it and builds and saves its index (build_bench) on the
-    host while phases 2 and 3 run (g300's through phase 10); {tag:
-    (process, its output file)}.  The processes see no card."""
+    host while the card runs the phases before the one that loads it;
+    {tag: (process, its output file, its start time)}.  The processes
+    see no card."""
     CACHE.mkdir(exist_ok=True)
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
     builds = {}
@@ -2254,15 +2308,41 @@ def start_builds(tags=("v1", "v2", "g300")) -> dict:
             builds[tag] = (subprocess.Popen(
                 [sys.executable, str(ROOT / "chip_smoke.py"), "--build-bench",
                  tag], cwd=ROOT, env=env, stdout=f,
-                stderr=subprocess.STDOUT), out)
+                stderr=subprocess.STDOUT), out, time.time())
     return builds
+
+
+def _peak_rss_gib(who) -> float:
+    return resource.getrusage(who).ru_maxrss / 2**20
+
+
+def mem_available_gib() -> float:
+    for line in open("/proc/meminfo"):
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) / 2**20
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def g1200_staggered() -> bool:
+    """Whether the g1200 build must wait for v1's and v2's: the host has
+    less RAM available than the four builds take at their peaks
+    (BUILD_PEAK_GIB).  Staggered, _phases starts it once phase_v2 has
+    waited for both."""
+    avail = mem_available_gib()
+    need = sum(BUILD_PEAK_GIB.values())
+    log(f"[smoke] MemAvailable {avail:.1f} GiB before the builds; their "
+        f"peaks take {need:.1f} GiB ({BUILD_PEAK_GIB}): "
+        + ("g1200's build starts once v1's and v2's have ended"
+           if avail < need else "g1200's build starts first, now"))
+    return avail < need
 
 
 def keep_layout(idx):
     """idx with its host layout (FMIndex.host_arrays: the packed text, the
     fused rank rows) made once and kept on it, as load_index keeps a
     device-layout sidecar's: every engine, shard and byte count then
-    reuses it instead of making it again (~10 s at 300 Mbp)."""
+    reuses it instead of making it again (~10 s at 300 Mbp, ~40 s at
+    1.2 Gbp)."""
     if idx._host_cache is None:
         idx._host_cache = idx.host_arrays()
     return idx
@@ -2273,9 +2353,10 @@ def _built(builds, tag):
     process has ended; its log lines are relayed."""
     from lordfast_tpu_torch.index.builder import load_index
 
-    proc, out = builds[tag]
     t = time.time()
-    rc = proc.wait(timeout=900)
+    proc, out, started = builds[tag]
+    rc = proc.wait(timeout=max(BUILD_WAIT_S[tag] - (time.time() - started),
+                               1))
     waited = time.time() - t
     text = out.read_text()
     if rc != 0:
@@ -2288,8 +2369,80 @@ def _built(builds, tag):
     idx = keep_layout(load_index(CACHE / f"{tag}.lft.npz"))
     log(f"[{tag}] built in a process of its own alongside the phases "
         f"before (waited {waited:.1f} s for it); index loaded and its "
-        f"host layout made in {time.time() - t:.1f} s")
+        f"host layout made in {time.time() - t:.1f} s; MemAvailable "
+        f"{mem_available_gib():.1f} GiB")
     return (*_paths(tag), idx)
+
+
+# bench.gen_gbp_reads' RNG seed (bench.py), for gbp_origins
+GBP_READS_SEED = 4242
+# The truth check's floors: the share of reads on their drawn origin,
+# and the least number of reads whose located text positions lie at or
+# above 2**31 (high_reads)
+MIN_ORIGIN_FRAC = 0.95
+MIN_HIGH_READS = 40
+
+
+def gbp_origins(idx, n: int = 512) -> list:
+    """(start, length, reverse) of each of the first n reads that
+    bench.gen_gbp_reads writes for idx, by replaying its RNG stream draw
+    for draw: the length, the start, the strand, then bench._noise's
+    draws, which depend on the fragment's length alone (a fragment of
+    that length stands in for it).  Reads nothing of the index but
+    l_pac, so it shares no code with the mapper it checks."""
+    import numpy as np
+
+    import bench
+
+    rng = np.random.default_rng(GBP_READS_SEED)
+    out = []
+    for _ in range(n):
+        ln = int(rng.integers(2000, 20000))
+        st = int(rng.integers(0, idx.l_pac - ln))
+        rev = bool(rng.random() < 0.5)
+        bench._noise(rng, "A" * ln)
+        out.append((st, ln, rev))
+    return out
+
+
+def high_reads(origins, l_pac: int) -> list:
+    """Indices of the reads whose located text positions lie at or above
+    2**31.  The seeding searches the reverse complement of each anchor,
+    so a forward read's anchor at forward position x is located at
+    2 l_pac - x - len in the text's upper half (a reverse read's below
+    l_pac; tests/test_torch_pos64.py shows it): forward reads with
+    start + length <= 2 l_pac - 2**31."""
+    return [i for i, (st, ln, rev) in enumerate(origins)
+            if not rev and st + ln <= 2 * l_pac - 2**31]
+
+
+def _ref_span(cigar: str) -> int:
+    import re
+
+    return sum(int(n) for n, op in re.findall(r"(\d+)([MDN=X])", cigar))
+
+
+def origin_check(sam: str, origins, offsets: dict) -> dict:
+    """{read index: True when read g<i>'s primary record (flag without
+    0x4, 0x100, 0x800) has the read's drawn strand and its aligned
+    reference span [POS, POS + the CIGAR's reference length) overlaps
+    the drawn [start, start + length)} for every read of origins; a read
+    with no primary record is False.  offsets: {contig name: its forward
+    offset}."""
+    ok = dict.fromkeys(range(len(origins)), False)
+    for line in sam_records(sam):
+        f = line.split("\t")
+        flag = int(f[1])
+        if flag & 0x904 or not f[0].startswith("g"):
+            continue
+        i = int(f[0][1:])
+        if i not in ok:
+            continue
+        st, ln, rev = origins[i]
+        beg = offsets[f[2]] + int(f[3]) - 1
+        end = beg + _ref_span(f[5])
+        ok[i] = bool(flag & 0x10) == rev and beg < st + ln and st < end
+    return ok
 
 
 def _cpu_subset(idx, sam, reads, dst, keep, tag, cfg=None, **kw):
@@ -2547,29 +2700,31 @@ def phase_v2_sampled(v2) -> tuple:
     return by_path, caps
 
 
-def phase_g300(builds, row, int_rate) -> tuple:
+def phase_g300(builds, rows, int_rate) -> tuple:
     """The G300_BP genome (its index built by a build_bench process since
-    phase 1): LordfastConfig() must have sampled its SA at 32; two
-    passes of its 512 reads on the card (the SAM repeats, at least 95%
-    mapped, sa_locate launched once a device call and no walk entered),
-    a plain_loops pass (the same SAM), the first 16 reads on the CPU
-    (the same records), and sa_locate on the first pass's first locate
-    call and on BEYOND_ROWS rows (beyond_rows: more than the card holds
-    lanes at once), each bit-equal to sa_lookup and timed, with its
-    latency floor from a pointer chase over the rank arrays (chase_ns);
-    their figures go into the kernel table's sa_locate row.  Returns the
-    first pass's launches, its record_loops (every chain call) and, for
-    phase_g300_mesh, the SAM, the reads, the index file and the warm
-    pass's seconds."""
+    phase 1): LordfastConfig() must have sampled its SA at 32 and kept
+    int32 positions; two passes of its 512 reads on the card (the SAM
+    repeats, at least 95% mapped, sa_locate launched once a device call
+    and no walk entered), a plain_loops pass (the same SAM), the first
+    16 reads on the CPU (the same records), and sa_locate on the first
+    pass's first locate call and on BEYOND_ROWS rows (beyond_rows: more
+    than the card holds lanes at once), each bit-equal to sa_lookup and
+    timed, with its latency floor from a pointer chase over the rank
+    arrays (chase_ns); their figures go into the kernel table's
+    sa_locate row (rows).  Returns the first pass's launches, its
+    record_loops (its chain calls only) and, for phase_g300_mesh, the
+    SAM, the reads, the index file and the warm pass's seconds."""
+    import numpy as np
     import torch
 
     from lordfast_tpu_torch.config import LordfastConfig
     from lordfast_tpu_torch.pipeline.engine import MappingEngine
 
     _, reads, idx = _built(builds, "g300")
-    if idx.sa_intv != 32:
+    if idx.sa_intv != 32 or idx.pos_dtype is not np.int32:
         raise AssertionError(f"g300: LordfastConfig() chose sa_intv "
-                             f"{idx.sa_intv}, not 32")
+                             f"{idx.sa_intv} and {idx.pos_dtype}, not 32 "
+                             "and int32")
     cfg = LordfastConfig(verbosity=2)
     torch.cuda.reset_peak_memory_stats()
     t = time.time()
@@ -2603,20 +2758,257 @@ def phase_g300(builds, row, int_rate) -> tuple:
         f"arrays): {ns:.1f} ns a dependent load")
     g = check_sa_locate("g300", idx, caps.locate[0], int_rate, timed=True,
                         chase=ns)
-    rows, valid = beyond_rows(idx.meta)
+    r, valid = beyond_rows(idx.meta)
     b = check_sa_locate("g300 beyond residency", idx, dict(
-        arrs=eng.arrs, meta=idx.meta, rows=rows, valid=valid), int_rate,
+        arrs=eng.arrs, meta=idx.meta, rows=r, valid=valid), int_rate,
         timed=True, chase=ns, layouts=False)
-    for pre, x in (("g300", g), ("beyond", b)):
+    row = next(r for r in rows if r["name"] == "sa_locate")
+    for pre, x in (("g300", g), ("g300_beyond", b)):
         row.update({f"{pre}_ms": x["ms"], f"{pre}_plain_ms": x["plain_ms"],
                     f"{pre}_bound_ms": x["bound"][0],
                     f"{pre}_bound_by": x["bound"][1],
                     **{f"{pre}_{k}": x[k] for k in (
                         "floor_ms", "chase_ns", "lanes", "walk_steps",
                         "longest_walk", "warp_efficiency", "warps")}})
+    # the seed and locate records hold the index's arrays on the card:
+    # dropped, so that phase 13's peak device memory counts its own
+    # (phase_log_counts reads the chain calls only)
+    caps.seed.clear()
+    caps.locate.clear()
     return {"g300": runs[0][4], "g300_plain": plain[4]}, caps, dict(
         sam=sam, reads=reads, index=CACHE / "g300.lft.npz", idx=idx,
         warm_s=runs[1][1])
+
+
+def _int64_high(kernel: str, tensors: dict):
+    """Each of tensors is int64 and holds a value >= 2**31: a kernel's
+    recorded inputs on the 1.2 Gbp index."""
+    import torch
+
+    for name, x in tensors.items():
+        if x.dtype != torch.int64:
+            raise AssertionError(f"g1200 {kernel}: {name} is {x.dtype}, "
+                                 "not int64")
+        if not x.numel() or int(x.max()) < 2**31:
+            raise AssertionError(f"g1200 {kernel}: no {name} >= 2**31")
+
+
+def check_int64_loops(idx, caps, int_rate, chase) -> dict:
+    """The first recorded seed_ext, sa_locate and chain_dp calls of the
+    1.2 Gbp genome's first pass (caps: record_loops), each bit-equal to
+    its plain version on the card and timed against it, with its bound
+    from the call's inputs (seed_work, locate_work, chain_work) and, for
+    sa_locate, its latency floor (chase: ns a dependent load).  seed_ext's
+    and sa_locate's inputs must be int64 and hold positions >= 2**31 (SA
+    rows, sampled SA values, L2), and so must the text positions they
+    locate.  Returns {kernel: its figures}."""
+    from lordfast_tpu_torch.ops import fm_index
+
+    figs = {}
+    rec = caps.seed[0]
+    alive0, k0, l0 = rec["lanes"][:3]
+    _int64_high("seed_ext", {"sa_samp": rec["arrs"]["sa_samp"],
+                             "L2": rec["arrs"]["L2"], "k": k0[alive0],
+                             "l": l0[alive0]})
+    stats, need = check_seed_ext(rec)
+    args = (rec["arrs"], rec["meta"], rec["rd"], *rec["lanes"],
+            rec["phase1_steps"])
+    out = _wrappers()["seed_ext"](*args)
+    _int64_high("seed_ext", {"rpos of the lanes the compare resolved":
+                             out[3][out[4]]})
+    ms = _time_launches(lambda: _wrappers()["seed_ext"](*args), 5)
+    plain_ms = _time_cuda(lambda: fm_index._staged_ext(*args), 1)
+    b = bound(seed_work(rec, need), 0, int_rate)
+    figs["seed_ext"] = dict(ms=ms, plain_ms=plain_ms, bound=b)
+    log(_seed_line("g1200 (int64)", rec, stats, need)
+        + f" | kernel {ms:.3f} ms | plain (_staged_ext) {plain_ms:.1f} ms"
+        f" | bound {b[0]:.5f} ms ({b[1]}), kernel {ms / b[0]:.1f}x")
+
+    rec = caps.locate[0]
+    _int64_high("sa_locate", {"sa_samp": rec["arrs"]["sa_samp"],
+                              "rows": rec["rows"][rec["valid"]]})
+    pos = _wrappers()["sa_locate"](rec["arrs"], rec["meta"], rec["rows"],
+                                   rec["valid"])
+    _int64_high("sa_locate", {"located positions": pos[rec["valid"]]})
+    figs["sa_locate"] = check_sa_locate("g1200 (int64)", idx, rec, int_rate,
+                                        timed=True, chase=chase)
+    figs["chain_dp"] = check_chain_moved(*caps.chain[0], int_rate)
+    return figs
+
+
+def check_chain_moved(ws, cfg, int_rate) -> dict:
+    """chain_dp at 64 bits on recorded windows ws: int64 t_pos, but the
+    seeds are forward coordinates, below l_pac < 2**31 at 1.2 Gbp, so
+    the kernel is held to its plain version on ws and on ws moved by
+    2**32, whose chains must be ws's moved (the DP reads differences
+    only); timed on ws against its plain version, with its bound
+    (chain_work).  Returns its figures."""
+    import torch
+
+    from lordfast_tpu_torch.ops import chain
+
+    if ws.t_pos.dtype != torch.int64:
+        raise AssertionError(f"g1200 chain_dp: t_pos is {ws.t_pos.dtype}")
+    up = ws._replace(t_pos=torch.where(ws.valid, ws.t_pos + 2**32,
+                                       ws.t_pos))
+    _int64_high("chain_dp", {"t_pos moved by 2**32": up.t_pos})
+    check_chain_dp(ws, cfg)
+    check_chain_dp(up, cfg)
+    got, moved = (_wrappers()["chain_dp"](x, cfg) for x in (ws, up))
+    N = got.t_pos.shape[-1]
+    link = torch.arange(N, device=got.t_pos.device) < got.chain_len[
+        ..., None]
+    other = [f for f in chain.ChainBatch._fields if f != "t_pos"
+             if not bool((getattr(got, f) == getattr(moved, f)).all())]
+    if other or not bool((torch.where(link, got.t_pos + 2**32, got.t_pos)
+                          == moved.t_pos).all()):
+        raise AssertionError(f"g1200 chain_dp: the windows moved by 2**32 "
+                             f"chain otherwise ({other or 't_pos'})")
+    work = chain_work(ws, cfg)
+    b = chain_bound(work, int_rate)
+    ms = _time_launches(lambda: _wrappers()["chain_dp"](ws, cfg), 5)
+    plain_ms = _time_cuda(
+        lambda: chain._chain_bucketed(ws, cfg, chain.dp_function(cfg)), 1)
+    counts = ws.valid.reshape(-1, N).sum(-1)
+    log(f"[loops] chain_dp g1200 (int64): {counts.numel()} windows x {N} "
+        f"slots ({int((counts > 0).sum())} with seeds, {_chain_counts(work)},"
+        f" t_pos up to {int(ws.t_pos.max())}): dp, prev and chains "
+        f"bit-equal to the plain version, and on the windows moved by 2**32"
+        f" (t_pos up to {int(up.t_pos.max())}) too, their chains the first "
+        f"ones moved | kernel {ms:.3f} ms | plain (_chain_bucketed) "
+        f"{plain_ms:.1f} ms | bound {b[0]:.5f} ms ({b[1]}), kernel "
+        f"{ms / b[0]:.1f}x")
+    return dict(ms=ms, plain_ms=plain_ms, bound=b)
+
+
+def truth_check(idx, sam) -> dict:
+    """The reads of sam (bench.gen_gbp_reads' g<i>) against the origins
+    their generator drew (gbp_origins, origin_check): at least
+    MIN_ORIGIN_FRAC of all reads on their origin, at least MIN_HIGH_READS
+    high reads (high_reads: located text positions >= 2**31) and
+    MIN_ORIGIN_FRAC of them on their origin.  Returns the origins, the
+    high reads and the counts."""
+    origins = gbp_origins(idx)
+    ok = origin_check(sam, origins, {
+        n: int(o) for n, o in zip(idx.contig_names, idx.contig_offsets)})
+    high = high_reads(origins, idx.l_pac)
+    n_ok, h_ok = sum(ok.values()), sum(ok[i] for i in high)
+    line = (f"{n_ok} of {len(origins)} reads on their drawn origin (strand "
+            f"and reference span), {h_ok} of the {len(high)} whose located "
+            f"text positions lie at or above 2**31")
+    if n_ok < MIN_ORIGIN_FRAC * len(origins):
+        raise AssertionError(f"g1200 truth check: {line}; off: "
+                             f"{[i for i, v in ok.items() if not v][:20]}")
+    if len(high) < MIN_HIGH_READS or h_ok < MIN_ORIGIN_FRAC * len(high):
+        raise AssertionError(f"g1200 truth check: {line} (at least "
+                             f"{MIN_HIGH_READS} high reads needed)")
+    log(f"[g1200] truth check: {line}")
+    return dict(origins=origins, high=high, n_ok=n_ok, high_ok=h_ok)
+
+
+def phase_g1200(builds, rows, int_rate) -> tuple:
+    """The G1200_BP genome, its index built by a build_bench process
+    started before phase 1: LordfastConfig() must have given it int64
+    positions (seq_len >= 2**31 - 1) and a SA sampled at 32, and the
+    engine's position arrays on the card must be int64.  Two passes of
+    its 512 reads on the card (the SAM repeats, at least 95% mapped,
+    sa_locate launched once a device call, no walk entered), the truth
+    check (truth_check), a plain_loops pass (the same SAM), the first 16
+    reads on the CPU (the same records), the first recorded seed_ext,
+    sa_locate and chain_dp calls at 64 bits (check_int64_loops), and
+    sa_locate on BEYOND_ROWS rows (beyond_rows: more than the card holds
+    lanes at once), bit-equal and timed, with its latency floor from a
+    pointer chase over the rank arrays (chase_ns).  The figures go into
+    rows (the kernel table) by kernel.  Returns the first pass's
+    launches, its record_loops (every chain call) and, for
+    phase_g1200_mesh, the SAM, the reads, the index file, the high
+    reads and the warm pass's seconds."""
+    import numpy as np
+    import torch
+
+    from lordfast_tpu_torch.config import LordfastConfig
+    from lordfast_tpu_torch.ops import fm_index
+    from lordfast_tpu_torch.pipeline.engine import MappingEngine
+
+    _, reads, idx = _built(builds, "g1200")
+    if (idx.seq_len < 2**31 - 1 or idx.pos_dtype is not np.int64
+            or fm_index.torch_pos_dtype(idx.meta) != torch.int64
+            or idx.sa_intv != 32):
+        raise AssertionError(f"g1200: seq_len {idx.seq_len}, pos_dtype "
+                             f"{idx.pos_dtype}, sa_intv {idx.sa_intv}; "
+                             "LordfastConfig() must give int64 and 32")
+    cfg = LordfastConfig(verbosity=2)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    eng = MappingEngine(idx, cfg, device="cuda")
+    pos = {k: eng.arrs[k].dtype for k in (
+        "sa_samp", "kcache_beg", "kcache_end", "L2", "contig_offsets",
+        "contig_ends")}
+    if any(d != torch.int64 for d in pos.values()):
+        raise AssertionError(f"g1200: position arrays on the card {pos}")
+    nbytes = sum(x.numel() * x.element_size() for x in eng.arrs.values())
+    log(f"[g1200] engine set up in {time.time() - t:.2f} s: {nbytes} bytes "
+        f"of index arrays on the card (l_pac {idx.l_pac}, seq_len "
+        f"{idx.seq_len}, sa_intv {idx.sa_intv}; sa_samp, k-mer cache, L2 and"
+        f" contig table int64 on the card)")
+    caps = record_loops(LOG_COUNT_CALLS)
+    runs = []
+    for label in ("first pass", "second pass"):
+        runs.append(map_pass(eng, reads, caps if not runs else None))
+        _report("g1200", label, eng, runs[-1])
+        check_launches("g1200", runs[-1][4], eng.metrics.counters,
+                       ("myers_dist", *LOOP_KERNELS), sampled=True)
+    sam, _, n_reads, n_mapped, _ = runs[0]
+    if runs[1][0] != sam:
+        raise AssertionError("g1200: the two passes differ")
+    if n_mapped < MIN_MAPPED_FRAC * n_reads:
+        raise AssertionError(f"g1200: only {n_mapped} of {n_reads} mapped")
+    fig = {"index_bytes": nbytes, "cold_s": runs[0][1],
+           "warm_s": runs[1][1], "device_s": eng.metrics.timers["device"],
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+    log(f"[g1200] {n_mapped} of {n_reads} reads mapped, both passes' SAM "
+        f"byte-equal; cold pass {fig['cold_s']:.3f} s, warm pass "
+        f"{fig['warm_s']:.3f} s (device {fig['device_s']:.3f} s); peak "
+        f"device memory {fig['peak_mib']:.0f} MiB")
+    truth = truth_check(idx, sam)
+    plain = plain_pass("g1200", MappingEngine(idx, cfg, device="cuda",
+                                              plain_loops=True),
+                       reads, sam, runs[1][1])
+    _cpu_subset(idx, sam, reads, CACHE / "g1200_first16.fq",
+                lambda name, i: i < 16, "g1200")
+    ns = chase_ns(rank_bytes(eng.arrs))
+    log(f"[g1200] pointer chase over {rank_bytes(eng.arrs)} bytes (the "
+        f"rank arrays): {ns:.1f} ns a dependent load")
+    figs = check_int64_loops(idx, caps, int_rate, ns)
+    r, valid = beyond_rows(idx.meta)
+    b = check_sa_locate("g1200 beyond residency", idx, dict(
+        arrs=eng.arrs, meta=idx.meta, rows=r, valid=valid), int_rate,
+        timed=True, chase=ns, layouts=False)
+    fig.update(mapped=n_mapped, on_origin=truth["n_ok"],
+               high=len(truth["high"]), high_on_origin=truth["high_ok"],
+               **{f"{k}_{x}": v[x] if x != "bound" else v[x][0]
+                  for k, v in figs.items() for x in ("ms", "bound")},
+               sa_locate_floor_ms=figs["sa_locate"]["floor_ms"],
+               beyond_ms=b["ms"], beyond_bound=b["bound"][0],
+               beyond_floor_ms=b["floor_ms"])
+    log(f"[g1200] figures ({nvidia_smi_line()}): {json.dumps(fig)}")
+    by_name = {row["name"]: row for row in rows}
+    for name, x in figs.items():
+        by_name[name].update({"g1200_ms": x["ms"],
+                              "g1200_plain_ms": x["plain_ms"],
+                              "g1200_bound_ms": x["bound"][0],
+                              "g1200_bound_by": x["bound"][1]})
+    for pre, x in (("g1200", figs["sa_locate"]), ("g1200_beyond", b)):
+        by_name["sa_locate"].update({
+            f"{pre}_ms": x["ms"], f"{pre}_plain_ms": x["plain_ms"],
+            f"{pre}_bound_ms": x["bound"][0],
+            f"{pre}_bound_by": x["bound"][1],
+            **{f"{pre}_{k}": x[k] for k in (
+                "floor_ms", "chase_ns", "lanes", "walk_steps",
+                "longest_walk", "warp_efficiency", "warps")}})
+    return {"g1200": runs[0][4], "g1200_plain": plain[4]}, caps, dict(
+        sam=sam, reads=reads, index=CACHE / "g1200.lft.npz", idx=idx,
+        warm_s=runs[1][1], high=truth["high"])
 
 
 # recorded chain calls of a pass, for phase_log_counts: more than any
@@ -2641,10 +3033,10 @@ def torch_log_misses(n: int):
 
 def phase_log_counts(caps):
     """dp-n2's log on the datasets (caps: record_loops of the first pass
-    of v1, v2 and the 300 Mbp genome, every chain call): how many linked
-    pairs have d >= 65,536 (past the table of torch.log values the port
-    read before it read one table of the C library's log for every d a
-    window links) and how many a d at which torch.log differs from the C
+    of v1, v2 and the two random genomes, every chain call): how many
+    linked pairs have d >= 65,536 (past the table of torch.log values the
+    port read before it read one table of the C library's log for every
+    d a window links) and how many a d at which torch.log differs from the C
     library's log for d = 2..2,000,000, on the host CPU or on the card;
     and the largest linked d, against the table's length."""
     import torch
@@ -3536,12 +3928,12 @@ def phase_mesh(golden, v2):
 
 
 def phase_g300_mesh(g300):
-    """The 300 Mbp genome sharded (after phase 12, which built its index
-    and mapped it replicated): MappingEngine(mesh=..., shard_index=True)
-    at NCCL D = 1 in this process (a group of one), two passes of its 512
-    reads, each SAM byte-equal to phase 12's, and a plain_loops pass of
-    its first 64 reads, equal to phase 12's records of them.  Returns
-    the launches by path."""
+    """The 300 Mbp genome sharded (after phase 12's replicated passes,
+    which built its index and mapped it): MappingEngine(mesh=...,
+    shard_index=True) at NCCL D = 1 in this process (a group of one), two
+    passes of its 512 reads, each SAM byte-equal to phase 12's, and a
+    plain_loops pass of its first 64 reads, equal to phase 12's records
+    of them.  Returns the launches by path."""
     import torch.distributed as dist
 
     from lordfast_tpu_torch.parallel.mesh import make_mesh
@@ -3585,6 +3977,58 @@ def phase_g300_mesh(g300):
     return by_path
 
 
+def phase_g1200_mesh(g):
+    """The 1.2 Gbp genome sharded (after phase 13's replicated passes,
+    which built its index and mapped it): MappingEngine(mesh=...,
+    shard_index=True) at NCCL D = 1 in this process (a group of one), on
+    its high reads
+    (truth_check: located text positions >= 2**31, so seed_shard.cu's
+    kernels run their Pos = int64_t instances on them; the generator's
+    512 reads hold 58): a pass, each kernel held to its plain version on
+    its first call and timed (record_shard, check_shard_kernels), and a
+    plain_loops pass, each equal to phase 13's records of those reads.
+    Returns the launches by path."""
+    import torch.distributed as dist
+
+    from lordfast_tpu_torch.parallel.mesh import make_mesh
+
+    d = CACHE / "mesh"
+    d.mkdir(parents=True, exist_ok=True)
+    keep = {f"g{i}" for i in g["high"]}
+    names = _subset(g["reads"], d / "g1200_high.fq",
+                    lambda name, i: name in keep)
+    recs = [r for r in sam_records(g["sam"]) if r.split("\t")[0] in names]
+    runs = [_mesh_run(d, "g1200_high_shard", g["index"],
+                      d / "g1200_high.fq", {}, True, check_kernels=True),
+            _mesh_run(d, "g1200_high_plain", g["index"],
+                      d / "g1200_high.fq", {}, True, plain=True)]
+    # one rank, in this process: phase 13's index (its host layout made
+    # already) serves it, where a rank process would load and lay it out
+    # again
+    spec = d / "g1200_nccl.json"
+    spec.write_text(json.dumps({"backend": "nccl", "runs": runs}))
+    spec.with_name(spec.name + ".0.jsonl").unlink(missing_ok=True)
+    t = time.time()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh("cuda")
+        dist.barrier()
+        log(f"[mesh] g1200: NCCL group of one and its mesh set up in "
+            f"{time.time() - t:.1f} s")
+        map_runs(json.loads(spec.read_text()), mesh, 0,
+                 {str(g["index"]): g["idx"]}, str(spec))
+    finally:
+        dist.destroy_process_group()
+    ranks = [{r["name"]: r for r in map(json.loads, spec.with_name(
+        spec.name + ".0.jsonl").read_text().splitlines())}]
+    log(f"[mesh] g1200: 1 rank on nccl in this process in "
+        f"{time.time() - t:.1f} s, {len(names)} high reads")
+    by_path, _ = _report_mesh("nccl", 1, runs, ranks,
+                              {"g1200_high": ("records", recs)})
+    return by_path
+
+
 def main(mesh_only: bool = False) -> int:
     """Every phase; with ``mesh_only`` (``--mesh``) the builds, the
     golden and v2 phases that phase 10 is held against, and phase 10,
@@ -3598,17 +4042,20 @@ def main(mesh_only: bool = False) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     t0 = time.time()
-    int_rate = phase_env()
-    builds = start_builds(("v2",) if mesh_only else ("v1", "v2", "g300"))
+    stagger = not mesh_only and g1200_staggered()
+    builds = {} if mesh_only or stagger else start_builds(("g1200",))
     try:
-        return _phases(mesh_only, int_rate, builds, t0)
+        int_rate = phase_env()
+        builds.update(start_builds(("v2",) if mesh_only
+                                   else ("v1", "v2", "g300")))
+        return _phases(mesh_only, int_rate, builds, t0, stagger)
     finally:
-        for proc, _ in builds.values():
+        for proc, *_ in builds.values():
             proc.kill()
             proc.wait()
 
 
-def _phases(mesh_only, int_rate, builds, t0) -> int:
+def _phases(mesh_only, int_rate, builds, t0, stagger) -> int:
     import torch
 
     if mesh_only:
@@ -3625,6 +4072,8 @@ def _phases(mesh_only, int_rate, builds, t0) -> int:
     by_path["golden"], golden = phase_golden()
     by_path["v1"], v1_idx, v1_reads, v1_caps = phase_v1(builds)
     by_path["v2"], v2_parts, v2 = phase_v2(builds)
+    if stagger:  # v1's and v2's builds have ended
+        builds.update(start_builds(("g1200",)))
     sampled_paths, sampled_caps = phase_v2_sampled(v2)
     by_path.update(sampled_paths)
     time_at_parts(v2_parts)
@@ -3643,13 +4092,23 @@ def _phases(mesh_only, int_rate, builds, t0) -> int:
     by_path.update(mesh_paths)
     t10 = time.time()
     log(f"[smoke] phase 10 done in {t10 - t9:.1f} s")
-    g300_paths, g300_caps, g300 = phase_g300(builds, rows[-1], int_rate)
+    g300_paths, g300_caps, g300 = phase_g300(builds, rows, int_rate)
     by_path.update(g300_paths)
-    t12 = time.time()
+    t = time.time()
     by_path.update(phase_g300_mesh(g300))
-    log(f"[smoke] 300 Mbp sharded done in {time.time() - t12:.1f} s")
-    phase_log_counts({"v1": v1_caps, "v2": v2["caps"], "g300": g300_caps})
-    log(f"[smoke] phase 12 (300 Mbp) done in {time.time() - t10:.1f} s")
+    log(f"[smoke] 300 Mbp sharded done in {time.time() - t:.1f} s")
+    del g300  # its host index, before the 1.2 Gbp one loads
+    gc.collect()
+    t12 = time.time()
+    log(f"[smoke] phase 12 (300 Mbp) done in {t12 - t10:.1f} s")
+    g1200_paths, g1200_caps, g1200 = phase_g1200(builds, rows, int_rate)
+    by_path.update(g1200_paths)
+    t = time.time()
+    by_path.update(phase_g1200_mesh(g1200))
+    log(f"[smoke] 1.2 Gbp sharded done in {time.time() - t:.1f} s")
+    phase_log_counts({"v1": v1_caps, "v2": v2["caps"], "g300": g300_caps,
+                      "g1200": g1200_caps})
+    log(f"[smoke] phase 13 (1.2 Gbp) done in {time.time() - t12:.1f} s")
     # the shard kernels' main path: v2 over its SA sliced to 32, sharded
     # at NCCL D = the card count (the walk runs only with a sampled SA)
     main = f"v2_32_shard_nccl{torch.cuda.device_count()}"
@@ -3658,12 +4117,15 @@ def _phases(mesh_only, int_rate, builds, t0) -> int:
         MAIN_PATH[name] = main
     for row in rows:
         # each kernel's main path: v2's, and for sa_locate (sampled SA
-        # only) the 300 Mbp genome's, whose default config samples it
+        # only) the 1.2 Gbp genome's, whose default config samples it
         row["launches"] = by_path[MAIN_PATH.get(row["name"], "v2")][
             row["name"]]
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}
-    log(f"[smoke] all phases passed in {time.time() - t0:.1f} s")
+    log(f"[smoke] all phases passed in {time.time() - t0:.1f} s; peak RSS "
+        f"of this process {_peak_rss_gib(resource.RUSAGE_SELF):.2f} GiB, "
+        f"of its largest child {_peak_rss_gib(resource.RUSAGE_CHILDREN):.2f}"
+        f" GiB")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
