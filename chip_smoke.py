@@ -1822,7 +1822,8 @@ OTHER = "lft_other"  # another checkout's package, for compare_loops
 
 def _load_other(root: Path):
     """The package of the checkout at root, imported as OTHER beside this
-    one: its ops modules chain_cuda, fm_index_cuda and cuda_build."""
+    one: its ops modules chain_cuda, fm_index_cuda, cuda_build and
+    fm_shard_cuda."""
     import importlib
     import importlib.util
 
@@ -1833,15 +1834,17 @@ def _load_other(root: Path):
     sys.modules[OTHER] = mod
     spec.loader.exec_module(mod)
     return tuple(importlib.import_module(f"{OTHER}.ops.{m}")
-                 for m in ("chain_cuda", "fm_index_cuda", "cuda_build"))
+                 for m in ("chain_cuda", "fm_index_cuda", "cuda_build",
+                           "fm_shard_cuda"))
 
 
 def compare_loops(other: Path, reps: int = 5) -> int:
-    """``--against DIR``: this checkout's chain_dp, seed_ext and
-    sa_locate kernels against those of the checkout at DIR (e.g. the
-    parent commit, unpacked with git archive into a directory .gitignore
-    lists), on one card.  Both checkouts' chain_dp.cu and seed_ext.cu are
-    built at once (one nvcc each, each into its own checkout's _build);
+    """``--against DIR``: this checkout's chain_dp, seed_ext, sa_locate,
+    shard_bucket and shard_answer kernels against those of the checkout
+    at DIR (e.g. the parent commit, unpacked with git archive into a
+    directory .gitignore lists), on one card.  Both checkouts'
+    chain_dp.cu, seed_ext.cu and seed_shard.cu are built at once (one
+    nvcc each, each into its own checkout's _build);
     the inputs are v2's first device call, recorded from one pass of this
     checkout's engine over .smoke_cache's v2 dataset (made by a smoke
     run, or here), the full windows, and for sa_locate the first locate
@@ -1853,8 +1856,12 @@ def compare_loops(other: Path, reps: int = 5) -> int:
     checkout).  Each
     wrapper is called as its checkout's signature asks (seed_ext took
     (B, L) uint8 reads and int32 lengths before it took an
-    fm_index._Reads).  One JSON line per case, then the card's name and
-    power limit; no contract line."""
+    fm_index._Reads; shard_answer had no ``routed`` before it left empty
+    slots unwritten).  Then compare_shard: the sharded passes (NCCL, a
+    group of one in this process) of v2 with its full SA and at 32, and
+    of the 300 Mbp genome and the 1.2 Gbp genome's high reads where a
+    smoke run has left them.  One JSON line per case, then the card's
+    name and power limit; no contract line."""
     import inspect
     import threading
 
@@ -1869,13 +1876,13 @@ def compare_loops(other: Path, reps: int = 5) -> int:
     if not torch.cuda.is_available():
         print("[compare] needs a CUDA device", file=sys.stderr)
         return 2
-    o_chain, o_fm, o_cb = _load_other(other.resolve())
+    o_chain, o_fm, o_cb, o_shard = _load_other(other.resolve())
     t = time.time()
     errs = []
 
     def build(cb):
         try:
-            cb.build_all(("chain_dp", "seed_ext"), force=True)
+            cb.build_all(("chain_dp", "seed_ext", "seed_shard"), force=True)
         except Exception as e:  # noqa: BLE001 - raised below
             errs.append(e)
 
@@ -1887,7 +1894,8 @@ def compare_loops(other: Path, reps: int = 5) -> int:
         th.join()
     if errs:
         raise errs[0]
-    log(f"[compare] both checkouts' chain_dp and seed_ext built in "
+    log(f"[compare] both checkouts' chain_dp, seed_ext and seed_shard "
+        f"built in "
         f"{time.time() - t:.1f} s")
     _, reads_path = _dataset(easy=False)
     if not (CACHE / "v2.lft.npz").exists():
@@ -1921,12 +1929,14 @@ def compare_loops(other: Path, reps: int = 5) -> int:
         seed["arrs"], seed["meta"], seed["rd"], *lanes), {
             "this": seed_call(fm_index_cuda.seed_ext),
             "other": seed_call(o_fm.seed_ext)}))
-    locs = {"v2 sa_intv 32 call": (slice_sa(eng.idx, 32), reads_path)}
+    v2_idx = eng.idx
+    locs = {"v2 sa_intv 32 call": (keep_layout(slice_sa(v2_idx, 32)),
+                                   reads_path)}
     del eng
     for tag, name in (("g300", "300 Mbp"), ("g1200", "1.2 Gbp")):
         if (CACHE / f"{tag}.lft.npz").exists():
-            locs[f"{name} call"] = (load_index(CACHE / f"{tag}.lft.npz"),
-                                    _paths(tag)[1])
+            locs[f"{name} call"] = (keep_layout(load_index(
+                CACHE / f"{tag}.lft.npz")), _paths(tag)[1])
     for label, (idx, path) in locs.items():
         e = MappingEngine(idx, LordfastConfig(), device="cuda")
         with record_loops() as rec:
@@ -1953,8 +1963,184 @@ def compare_loops(other: Path, reps: int = 5) -> int:
             ms[side].append(_time_launches(fns[side], reps))
         log(json.dumps({"case": label, "ms_this": ms["this"],
                         "ms_other": ms["other"], "other": str(other)}))
+    del cases, e, calls, c, args, rec  # the replicated engines' arrays
+    runs = [("v2 full SA", v2_idx, reads_path),
+            ("v2 at 32", *locs["v2 sa_intv 32 call"])]
+    if "300 Mbp call" in locs:
+        runs.append(("300 Mbp", *locs["300 Mbp call"]))
+    high = CACHE / "mesh" / "g1200_high.fq"
+    if "1.2 Gbp call" in locs and high.exists():
+        runs.append(("1.2 Gbp high reads", locs["1.2 Gbp call"][0], high))
+    compare_shard(o_shard, runs, other, reps)
     log(f"[compare] {nvidia_smi_line()}")
     return 0
+
+
+def _routed_optional(fn):
+    """fn, or for an answer wrapper without ``routed`` (a checkout before
+    it left empty slots unwritten) fn called without it."""
+    import inspect
+
+    if "routed" in inspect.signature(fn).parameters:
+        return fn
+
+    def call(*args, routed=False, **kw):
+        return fn(*args, **kw)
+
+    call.launches = 0
+    return call
+
+
+def _other_bucket_check(fn, args, kw):
+    """Another checkout's shard_bucket on one recorded call against this
+    one's plain version, as a kernel whose slots follow its atomics'
+    order can be held: counts, the overflow flag and each query's
+    row id through its own slot equal."""
+    import torch
+
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    rps, D, cap = args[4:7]
+    (sk, tk, ck, ok), (sp, tp, cp, op) = (
+        _bucket_run(f, args, kw, rps, D, cap)
+        for f in (fn, K.shard_bucket_plain))
+    via = [torch.where(t >= 0, s[t.long().clamp(min=0)], -1)
+           for s, t in ((sk, tk), (sp, tp))]
+    if not (torch.equal(ck, cp) and torch.equal(ok, op)
+            and torch.equal(via[0], via[1])):
+        raise AssertionError("[compare] the other checkout's shard_bucket "
+                             "!= plain")
+
+
+def compare_shard(o_shard, runs, other, reps):
+    """--against's sharded part, on NCCL over a group of one in this
+    process: for each run (label, index, reads), a sharded engine's pass
+    records the first calls (record_shard) and check_shard_kernels times
+    this checkout's four kernels beside their bounds; then both
+    checkouts' shard_bucket and shard_answer, each held to the plain
+    version first, are timed on those calls in turns A B B A; then four
+    passes, A B B A, of this checkout's loops with each checkout's
+    bucket and answer in place (every SAM equal): the rank-0 ``device``
+    timer, the wall, the loops' counts, and a step's ``device`` ms beside
+    the kernels' ms a step (each extension step and walk step at its
+    first call's bucket, answer and step kernel ms)."""
+    import torch
+    import torch.distributed as dist
+
+    from lordfast_tpu_torch.config import LordfastConfig
+    from lordfast_tpu_torch.ops import fm_index
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+    from lordfast_tpu_torch.parallel.mesh import make_mesh
+    from lordfast_tpu_torch.pipeline.engine import MappingEngine
+
+    sides = {"this": {n: getattr(K, n) for n in ("shard_bucket",
+                                                  "shard_answer")},
+             "other": {"shard_bucket": o_shard.shard_bucket,
+                       "shard_answer": _routed_optional(
+                           o_shard.shard_answer)}}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh("cuda")
+        for label, idx, reads in runs:
+            eng = MappingEngine(idx, LordfastConfig(), device="cuda",
+                                mesh=mesh, shard_index=True)
+            with record_shard() as rec:
+                eng.map_file(reads, io.StringIO(), "chip_smoke")
+            figs = check_shard_kernels(rec, timed=True, reps=reps)
+            log(f"[compare] {label} sharded: " + json.dumps(
+                {t: {k: f[k] for k in ("ms", "bound_ms", "plain_ms")}
+                 for t, f in figs.items()}))
+            kern_ms = {}
+            for tag in ("shard_bucket", "shard_answer", "shard_bucket walk",
+                        "shard_answer walk", "shard_bucket ids",
+                        "shard_answer sa"):
+                if tag not in rec.calls:  # a full SA has no walk
+                    continue
+                args, kw = rec.calls[tag]
+                name = tag.split()[0]
+                fns = {}
+                for side, fn in sides.items():
+                    f = fn[name]
+                    if name == "shard_bucket":
+                        if side == "other":
+                            _other_bucket_check(f, args, kw)
+                        bufs = [args[7].clone(), args[8].clone(),
+                                args[9].clone(), torch.zeros_like(args[10])]
+                        fns[side] = (lambda f=f, b=bufs:
+                                     f(*args[:7], *b, **kw))
+                    else:
+                        recv, arrs, base, dst = args
+                        out = torch.empty_like(dst)
+                        want = torch.empty_like(dst)
+                        f(recv, arrs, base, out, **kw)
+                        K.shard_answer_plain(recv, arrs, base, want, **kw)
+                        took = recv != -1
+                        if not torch.equal(out[took], want[took]):
+                            raise AssertionError(f"[compare] {side} "
+                                                 f"{tag} != plain")
+                        fns[side] = (lambda f=f, o=out:
+                                     f(recv, arrs, base, o, **kw))
+                ms = {"this": [], "other": []}
+                for side in ("this", "other", "other", "this"):
+                    ms[side].append(_time_launches(fns[side], reps))
+                kern_ms[tag] = {k: sum(v) / len(v) for k, v in ms.items()}
+                log(json.dumps({"case": f"{tag} {label}",
+                                "ms_this": ms["this"],
+                                "ms_other": ms["other"],
+                                "bound_ms": figs[tag]["bound_ms"],
+                                "other": str(other)}))
+            passes = {"this": [], "other": []}
+            sams = set()
+            for side in ("this", "other", "other", "this"):
+                for n, f in sides[side].items():
+                    setattr(K, n, f)
+                fm_index.shard_counts.update(
+                    dict.fromkeys(fm_index.shard_counts, 0))
+                ext0 = K.shard_ext_step.launches
+                walk0 = K.shard_walk_step.launches
+                out = io.StringIO()
+                t = time.time()
+                eng.map_file(reads, out, "chip_smoke")
+                torch.cuda.synchronize()
+                c = dict(fm_index.shard_counts)
+                steps = max(c["steps"], 1)
+
+                def ms(tag, side=side):  # the step kernels: this one's
+                    if tag in kern_ms:
+                        return kern_ms[tag][side]
+                    return figs.get(tag, {"ms": 0.0})["ms"]
+
+                step_ms = ((K.shard_ext_step.launches - ext0)
+                           * (ms("shard_bucket") + ms("shard_answer")
+                              + ms("shard_ext_step"))
+                           + (K.shard_walk_step.launches - walk0)
+                           * (ms("shard_bucket walk")
+                              + ms("shard_answer walk")
+                              + ms("shard_walk_step"))) / steps
+                device_s = eng.metrics.timers.get("device", 0.0)
+                passes[side].append({
+                    "wall_s": time.time() - t, "device_s": device_s,
+                    "device_ms_a_step": device_s * 1e3 / steps,
+                    "kernels_ms_a_step": step_ms,
+                    "host_reads_a_call": c["host_reads"] / max(c["calls"],
+                                                               1),
+                    **c})
+                sams.add(out.getvalue())
+            for n, f in sides["this"].items():
+                setattr(K, n, f)
+            if len(sams) != 1:
+                raise AssertionError(f"[compare] {label}: the sharded "
+                                     f"passes' SAMs differ")
+            log(json.dumps({"case": f"sharded passes {label}",
+                            "passes_this": passes["this"],
+                            "passes_other": passes["other"],
+                            "other": str(other)}))
+            del eng
+    finally:
+        for n, f in sides["this"].items():
+            setattr(K, n, f)
+        dist.destroy_process_group()
 
 
 def _seed_line(tag, rec, stats, need):
@@ -3332,20 +3518,29 @@ def _clone(x):
 
 class record_shard:
     """Context manager: the first call of each of fm_shard_cuda's four
-    wrappers made inside it, and of the bucket and answer steps of the SA
-    entries' gather ("shard_bucket ids", "shard_answer sa"), is recorded
-    in ``self.calls[name]`` with its arguments as they were before the
-    call (tensors cloned: the step kernels run in place), and runs as
-    usual (a _Recorder stand-in at each module attribute, which the loops
-    look up at call time)."""
+    wrappers made inside it, of the bucket and answer steps of a walk step
+    ("shard_bucket walk", "shard_answer walk": most of their lanes dead)
+    and of the SA entries' gather ("shard_bucket ids", "shard_answer sa"),
+    is recorded in ``self.calls[name]`` with its arguments as they were
+    before the call (tensors cloned: the step kernels run in place), and
+    runs as usual (a _Recorder stand-in at each module attribute, which
+    the loops look up at call time)."""
 
     def __init__(self):
         self.calls = {}
+        self._step = ""  # the kind of the last bucket step: an answer's
 
     def _record(self, name):
         def record(*args, **kw):
-            tag = name + (" ids" if kw.get("ids") else "") + (
-                " sa" if kw.get("key") else "")
+            if name == "shard_bucket":
+                self._step = (" ids" if kw.get("ids") else
+                              " walk" if args[2] is None else "")
+            tag = name
+            if name == "shard_bucket":
+                tag += self._step
+            elif name == "shard_answer":
+                tag += " sa" if kw.get("key") else (
+                    " walk" if self._step == " walk" else "")
             if tag not in self.calls:
                 self.calls[tag] = (_clone(args), dict(kw))
         return record
@@ -3366,40 +3561,61 @@ class record_shard:
         return False
 
 
-def _bucket_check(args, kw, kernel, plain):
-    """shard_bucket's kernel against its plain version on one call's
-    arguments (live, k, l, meta, rps, D, cap, send, slot, counts, over):
-    the overflow flag and each owner's count equal, each owner's row ids
-    equal as a set (sorted in the bucket; the kernel's slots are its
-    atomics' order), each query's row id through its own slot equal,
-    and, with no overflow, the same queries without a slot.  Returns the
-    number of asked queries."""
+# a value shard_bucket never writes (row ids and slots are >= -1, counts
+# >= 0): every output it should write starts as this
+UNWRITTEN = -2
+
+
+def _bucket_run(fn, args, kw, rps, D, cap):
+    """(send, slot, counts, over) of fn (shard_bucket or its plain
+    version) on one recorded call's queries args[:4] with the stripes'
+    rows a rank rps, D ranks and cap; the outputs start as UNWRITTEN (the
+    flag at 0)."""
     import torch
 
-    live, k, l, meta, rps, D, cap = args[:7]
-    outs = []
-    for fn in (kernel, plain):
-        send, slot = args[7].clone(), args[8].clone()
-        counts = torch.zeros(D, dtype=torch.int32, device=live.device)
-        over = torch.zeros(1, dtype=torch.int32, device=live.device)
-        fn(live, k, l, meta, rps, D, cap, send, slot, counts, over, **kw)
-        outs.append((send, slot, counts, over))
-    (sk, tk, ck, ok), (sp, tp, cp, op) = outs
-    if not (torch.equal(ok, op) and torch.equal(ck, cp)):
-        raise AssertionError(f"shard_bucket: overflow {ok.tolist()} / "
-                             f"{op.tolist()}, counts {ck.tolist()} / "
-                             f"{cp.tolist()}")
-    via = [torch.where(t >= 0, s[t.long().clamp(min=0)], -1)
-           for s, t in ((sk, tk), (sp, tp))]
-    if not bool(op.any()):
-        if not (torch.equal(via[0], via[1])
-                and torch.equal(sk.view(D, cap).sort(1).values,
-                                sp.view(D, cap).sort(1).values)):
-            raise AssertionError("shard_bucket: kernel != plain")
-    elif int((tk >= 0).sum()) != int((tp >= 0).sum()):
-        raise AssertionError("shard_bucket: kernel and plain gave slots to "
-                             "different numbers of queries")
-    return int(cp.sum())
+    live, k, l, meta = args[:4]
+    dev, Q = live.device, args[8].numel()
+    send = torch.full((D * cap,), UNWRITTEN, dtype=torch.int64, device=dev)
+    slot = torch.full((Q,), UNWRITTEN, dtype=torch.int32, device=dev)
+    counts = torch.full((D,), UNWRITTEN, dtype=torch.int32, device=dev)
+    over = torch.zeros(1, dtype=torch.int32, device=dev)
+    fn(live, k, l, meta, rps, D, cap, send, slot, counts, over, **kw)
+    return send, slot, counts, over
+
+
+def _bucket_check(args, kw, kernel, plain):
+    """shard_bucket's kernel against its plain version on one recorded
+    call's queries (live, k, l, meta, rps, D, cap, send, slot, counts,
+    over), send, slot, counts and the overflow flag bit for bit: as
+    recorded, then over the same stripes' rows at D = 2, 3 and 8 (rps
+    cut to match) with shard_cap's cap, and at each D with a quarter of
+    that cap (rounded up to 8), which overflows.  Returns (the asked
+    queries, the launches compared, those that overflowed)."""
+    import torch
+
+    from lordfast_tpu_torch.ops import fm_index as fm
+
+    rps, D, cap = args[4:7]
+
+    def check(r, d, c):
+        got, want = (_bucket_run(f, args, kw, r, d, c)
+                     for f in (kernel, plain))
+        for name, x, y in zip(("send", "slot", "counts", "over"), got, want):
+            if not torch.equal(x, y):
+                bad = int((x != y).sum())
+                raise AssertionError(
+                    f"shard_bucket at D = {d}, cap {c}: {name} differs from "
+                    f"the plain version's at {bad} of {x.numel()}")
+        return int(want[3][0])
+
+    over, done = check(rps, D, cap), 1
+    asked = int(_bucket_run(plain, args, kw, rps, D, cap)[2].sum())
+    for d in dict.fromkeys((D, 2, 3, 8)):
+        fit = fm.shard_cap(asked, d)
+        for c in ((fit,) if d != D else ()) + (max((fit // 4 + 7) & ~7, 8),):
+            over += check(-(-rps * D // d), d, c)
+            done += 1
+    return asked, done, over
 
 
 def _row_piece_bytes(k, pos, seq_len, walk=False):
@@ -3505,16 +3721,62 @@ def _l2_bytes(arrs) -> int:
     return l2.numel() * l2.element_size()
 
 
+# a value no rank row, SA entry or zero fill holds: what shard_answer's
+# checks fill its output with first
+SENTINEL = -0x5A5A5A5A5A5A5A5B
+
+
+def _answer_check(kern, plain, recv, arrs, base, dst, kw):
+    """shard_answer's kernel against its plain version on one recorded
+    call (kw: its keywords but ``routed``), each into an output filled
+    with SENTINEL first: on the routed route every slot a query took (id
+    not -1) equal, and on the card every empty slot left unwritten; on
+    the all-gather route the whole buffer equal.  Returns (the routed
+    output, its figures)."""
+    import torch
+
+    want = torch.empty_like(dst)
+    plain(recv, arrs, base, want, **kw)
+    took = recv != -1
+    got = torch.full_like(dst, SENTINEL)
+    kern(recv, arrs, base, got, routed=True, **kw)
+    if not torch.equal(got[took], want[took]):
+        raise AssertionError("shard_answer, routed: a taken slot differs "
+                             "from the plain version's")
+    if recv.is_cuda and not bool((got[~took] == SENTINEL).all()):
+        raise AssertionError("shard_answer, routed: an empty slot was "
+                             "written")
+    ag = torch.full_like(dst, SENTINEL)
+    kern(recv, arrs, base, ag, routed=False, **kw)
+    if not torch.equal(ag, want):
+        raise AssertionError("shard_answer, all-gather route: kernel != "
+                             "plain")
+    return got, {"slots": int(recv.numel()), "empty": int((~took).sum())}
+
+
+def _sentinel_back(back, slot):
+    """back with SENTINEL in every row no query's slot names: what a
+    routed answer leaves unwritten reaches no step."""
+    import torch
+
+    taken = torch.zeros(back.shape[0], dtype=torch.bool, device=back.device)
+    taken[slot[slot >= 0].long()] = True
+    shape = (-1,) + (1,) * (back.dim() - 1)
+    return torch.where(taken.view(shape), back, SENTINEL)
+
+
 def check_shard_kernels(rec, timed=False, reps=5) -> dict:
     """Each of the four step kernels against its plain version on the card,
     on its first recorded call (record_shard): shard_bucket as
-    _bucket_check says, the others every output bit-equal (the answer's
-    rows; a step's lane state and live count, from two clones of the
-    state as it was before the call).  With ``timed``, each kernel's mean
-    ms over reps launches queued behind a spin (_time_launches; a step
-    kernel gets a fresh clone of the state a launch) and its plain
-    version's (_time_cuda), and its bound by bytes (shard_work).  Returns
-    {name: figures}."""
+    _bucket_check says, shard_answer as _answer_check says, a step's lane
+    state and live count bit-equal (from two clones of the state as it
+    was before the call), also with SENTINEL in every returned row no
+    query took; at D = 1 the first extension step also runs on the
+    routed answer's own output (the all_to_all's back there).  With
+    ``timed``, each kernel's mean ms over reps launches queued behind a
+    spin (_time_launches; a step kernel gets a fresh clone of the state a
+    launch) and its plain version's (_time_cuda), and its bound by bytes
+    (shard_work).  Returns {name: figures}."""
     import functools
     import itertools
 
@@ -3527,6 +3789,7 @@ def check_shard_kernels(rec, timed=False, reps=5) -> dict:
     if missing:
         raise AssertionError(f"shard kernels never called: {missing}")
     out = {}
+    routed_rows = None
     for tag, (args, kw) in rec.calls.items():
         name = tag.split()[0]
         kern = functools.partial(getattr(K, name), **kw)
@@ -3536,11 +3799,11 @@ def check_shard_kernels(rec, timed=False, reps=5) -> dict:
             if args[6] is None:
                 raise AssertionError("shard_bucket: the first call took the "
                                      "all-gather route")
-            fig["asked"] = _bucket_check(args, kw, getattr(K, name),
-                                         getattr(K, name + "_plain"))
+            fig["asked"], fig["launches_checked"], fig["overflowing"] = (
+                _bucket_check(args, kw, getattr(K, name),
+                              getattr(K, name + "_plain")))
             fig["lanes"] = int(args[0].numel())
-            # the outputs, overwritten by every launch (the kernel clears
-            # the send buffer and the counts itself)
+            # the outputs, every slot of which each launch writes
             bufs = [args[7].clone(), args[8].clone(), args[9].clone(),
                     torch.zeros(1, dtype=torch.int32, device=args[0].device)]
 
@@ -3548,28 +3811,39 @@ def check_shard_kernels(rec, timed=False, reps=5) -> dict:
                 return lambda: f(*args[:7], *bufs)
         elif name == "shard_answer":
             recv, arrs, base, dst = args
-            got, want = torch.empty_like(dst), torch.empty_like(dst)
-            kern(recv, arrs, base, got)
-            plain(recv, arrs, base, want)
-            if not torch.equal(got, want):
-                raise AssertionError(f"{tag}: kernel != plain")
-            fig["rows"] = int(recv.numel())
+            bare = {k: v for k, v in kw.items() if k != "routed"}
+            got, f = _answer_check(getattr(K, name),
+                                   getattr(K, name + "_plain"), recv, arrs,
+                                   base, dst, bare)
+            fig.update(f)
+            if tag == "shard_answer":
+                routed_rows = got.clone()
 
             def call(f):
                 return lambda: f(recv, arrs, base, got)
         else:
             n_args = 8 if name == "shard_ext_step" else 5
+            bk = 6 if name == "shard_ext_step" else 3
+            backs = [None, _sentinel_back(args[bk], args[bk + 1])]
+            if (name == "shard_ext_step" and routed_rows is not None
+                    and rec.calls["shard_bucket"][0][5] == 1
+                    and routed_rows.shape == args[bk].shape):
+                backs.append(routed_rows)
             res = []
-            for f in (kern, plain):
+            for f, back in [(plain, None)] + [(kern, b) for b in backs]:
                 a = _clone(args)
+                if back is not None:
+                    a = a[:bk] + (back,) + a[bk + 1:]
                 live = torch.zeros(1, dtype=torch.int32, device=a[0][0].device)
                 f(*a[:n_args], live)
                 res.append(list(a[0]) + [live])
-            for x, y in zip(*res):
-                if not torch.equal(x, y):
-                    raise AssertionError(f"{name}: kernel != plain")
+            for got in res[1:]:
+                for x, y in zip(got, res[0]):
+                    if not torch.equal(x, y):
+                        raise AssertionError(f"{name}: kernel != plain")
             fig["lanes"] = int(args[0][0].numel())
             fig["live"] = int(args[0][0].sum())
+            fig["backs_checked"] = len(backs)
 
             def call(f, n_args=n_args):
                 # a fresh copy of the state a launch, made before the

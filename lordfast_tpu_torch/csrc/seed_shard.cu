@@ -15,20 +15,21 @@
 // (ops/fm_shard_cuda.py launches them inside ops/fm_index.py exchange,
 // which makes the collectives, NCCL's or gloo's, outside any kernel):
 //   shard_bucket_kernel    each live lane's rank-row queries to its owner's
-//                          bucket of the (D, cap) send buffer, through a
-//                          per-owner counter (one atomicAdd for the queries
-//                          of a warp to one owner, __match_any_sync): each
-//                          query records the slot it took, so no order of
-//                          the atomics can change a value downstream; a
+//                          bucket of the (D, cap) send buffer, in query
+//                          order (fm_index.bucket's slots, bit for bit):
+//                          one scan over the queries with a decoupled
+//                          look-back across blocks, and the -1 tail of
+//                          every bucket, in one launch (see below); a
 //                          query past its bucket's cap takes no slot and
-//                          sets the overflow flag.  Dead lanes send
+//                          the overflow flag is raised.  Dead lanes send
 //                          nothing.  On the all-gather route a query's slot
 //                          is its index.
 //   (all_to_all_single of the row ids, equal splits)
 //   shard_answer_kernel    every received row id answered from this rank's
-//                          stripe (16-byte loads), zeros where this rank
-//                          does not own the row (padding slots, the
-//                          all-gather route's other ranks' rows)
+//                          stripe, a thread a 16-byte piece of a row, zeros
+//                          where this rank does not own the row; on the
+//                          routed route an empty slot (id -1) is left
+//                          unwritten (see below)
 // The locate's one gather of sampled SA entries a call (and a full SA's
 // locate) takes the same two kernels: shard_bucket on the row ids
 // themselves, shard_answer on the sa_samp stripe (width 1).
@@ -50,12 +51,59 @@
 // a warp), which the block's one all_reduce (MAX) carries beside the
 // overflow flag: one host read a block.
 //
-// What bounds it on the card: not bytes.  A step moves a few MB at most
-// (the live lanes' state and their 96-byte rows); its time is the
-// launches' and the collectives' latency, a few microseconds each.  Lane
+// What bounds it on the card: the host around the kernels, and within
+// them bytes and latency.  A step's four launches and two collectives
+// take the host 0.3-0.5 ms, its kernels ~0.05 ms (PERF.md, Sharded
+// seeding loops).  At v2's first sharded call on one H100 the answer
+// moves ~52 MB in ~0.021 ms (its bytes bound 0.0115 ms); the bucket
+// ~7 MB in ~0.010 ms (bound 0.0021 ms), most of it a floor that does not
+// shrink with the queries: the launch, a ticket a block and the
+// look-back's round trips through L2 (~6 us on 44,000 queries).  Lane
 // state stays in device memory between steps, so nothing crosses to the
-// host inside a block.  tests/test_torch_sharded_route.py holds a numpy
-// model of these kernels (names as here) against the plain loops.
+// host inside a block.
+//
+// The bucket's design.  A bucket's slots go to its owner's queries in
+// query order, so a query's slot is its owner's count of asked queries
+// before it: an exclusive scan, a count an owner, over the queries.  A
+// block takes a tile of kTile consecutive queries (a warp kItems rounds of
+// 32 of them, in order): each round's queries to one owner count
+// themselves with one __match_any_sync, their leader adding the round to
+// the warp's running count of that owner in shared memory; the warps'
+// counts are then scanned in warp order and the tile's own count of each
+// owner published (flag clear); a warp an owner (D <= kMaxOwners) finds
+// the tiles before this one through a decoupled look-back (Merrill and
+// Garland, 2016): 32 earlier tiles' words a round, nearest first, their
+// counts summed up to the nearest that holds an inclusive prefix (flag
+// set); then the tile publishes its own inclusive prefix, and each query
+// takes its slot: the earlier tiles' count of its owner, the earlier
+// warps' and its place in its warp's rounds (its block read again, from
+// L1, rather than kept across the look-back).  A block's tile is its ticket
+// (one atomicAdd a block), not its blockIdx, so a block waits only on
+// blocks that have started, which cannot deadlock.  The look-back words
+// carry the call's epoch, a counter the wrapper passes, so words of an
+// earlier call read as not yet published and nothing is zeroed between
+// calls; the last block to take a ticket sets the ticket counter back to
+// 0.  The block that closes the scan writes each owner's count and
+// raises the overflow flag.  Blocks whose tickets follow every tile's
+// are fill blocks: they wait for that inclusive prefix and write -1 into
+// each bucket's slots past its count, which no scan block writes, so no
+// memset is issued and no query races a fill.
+//
+// The answer's design.  Thread t copies piece t % 6 of slot t / 6: six
+// adjacent lanes load one row's 96 contiguous bytes (fm_blocks; occ_cp's
+// 2 pieces then bwt_blocks' 4), and a warp stores 512 contiguous bytes.
+// On the routed route a slot whose id is -1 is not written: no consumer
+// reads it.  The send buffer's slot s is -1 exactly when no query of its
+// rank took s, and the all_to_all carries out's slot s of this rank back
+// to that rank's back[s]; row_at reads back only at a slot a query took
+// (s >= 0), and fm_index.by_slot reads back[0] for slot -1 but masks it
+// to zeros.  On the all-gather route every slot this rank does not own
+// is written as zeros, since the reduce_scatter sums every rank's
+// answers.
+//
+// tests/test_torch_sharded_route.py holds a numpy model of these kernels
+// (tests/torch_shard_model.py, names as here) against the plain versions
+// and the plain loops.
 
 #include <cstdint>
 
@@ -69,6 +117,23 @@ using namespace fm_rank;
 
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xFFFFFFFFu;
+// shard_bucket_kernel's blocks, large so that few take tickets: a scan
+// block's tile of queries, a warp kItems rounds of 32 consecutive ones
+// (tests/torch_shard_model.py and ops/fm_shard_cuda.py BUCKET_TILE use
+// the same sizes)
+constexpr int kBucketThreads = 512;
+constexpr int kWarps = kBucketThreads / 32;
+constexpr int kItems = 4;
+constexpr int64_t kTile = kBucketThreads * kItems;
+// owners a launch routes to: one thread an owner scans the warps' counts
+constexpr int kMaxOwners = 256;
+static_assert(kMaxOwners <= kBucketThreads, "a thread an owner");
+// send slots a fill block covers
+constexpr int64_t kFillSlots = kBucketThreads * 16;
+// a look-back word: the call's epoch in bits 63-32, the inclusive flag in
+// bit 31, the count in bits 30-0
+constexpr unsigned long long kIncl = 0x80000000ull;
+constexpr unsigned long long kCount = 0x7FFFFFFFull;
 
 struct BucketArgs {
   const uint8_t* live;  // (n,) bool: the lane's alive / active flag
@@ -77,10 +142,14 @@ struct BucketArgs {
   const int64_t* l;     // (n,) the interval's l, or null
   int64_t* send;        // (D cap,) row ids, -1 in the empty slots; or (Q,)
   int32_t* slot;        // (Q,) each query's slot, -1 for none
-  int32_t* counts;      // (D,) zeroed in the launch
+  int32_t* counts;      // (D,) each owner's asked queries
   int32_t* over;        // set to 1 when a query finds its bucket full
+  unsigned long long* status;  // (n_scan, D) look-back words
+  unsigned* ticket;            // the tickets taken; 0 between calls
   int64_t n, seq_len, primary, rps, cap;
-  int D, all_gather, ids;
+  int D, all_gather, ids, n_scan, n_fill;
+  unsigned epoch;
+  double inv_rps;  // 1 / rps
 };
 
 // Query i of a step: on an extension the rows k - 1 (i < n) and l (i >= n)
@@ -88,64 +157,227 @@ struct BucketArgs {
 // The query's rank row is the block of its occ position (occ_pos) or, on a
 // walk, of x = k - (k > primary), whose row also holds x's char; the
 // primary row steps to 0 and asks for nothing.  With ids, query i asks for
-// row k[i] itself (a locate's sampled SA entries).
-__global__ void __launch_bounds__(kThreads) shard_bucket_kernel(
-    const BucketArgs a) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const bool ext = a.l != nullptr;
-  const int64_t n_q = ext ? 2 * a.n : a.n;
-  const bool in = i < n_q;  // no early return: the warp matches owners
+// row k[i] itself (a locate's sampled SA entries).  Returns whether query
+// i asks, and its block in blk.  A dead lane's k is not read: most lanes
+// of a loop's later steps are dead (the read-only path, so a second pass
+// finds a live lane's in L1).
+__device__ __forceinline__ bool query_block(const BucketArgs& a, int64_t i,
+                                            int64_t& blk) {
   const int64_t lane = i < a.n ? i : i - a.n;
-  bool ask = false;
-  int64_t blk = -1;
-  if (in && a.live[lane] != 0) {
-    if (a.ids) {
-      blk = a.k[lane];
-      ask = true;
-    } else if (ext) {
-      const int64_t k = i < a.n ? a.k[lane] - 1 : a.l[lane];
-      blk = occ_pos(a.seq_len, a.primary, k) >> 7;
-      ask = true;
-    } else {
-      const int64_t k = a.k[lane];
-      if (k != a.primary) {
-        blk = (k - (k > a.primary ? 1 : 0)) >> 7;
-        ask = true;
-      }
-    }
+  if (__ldg(a.live + lane) == 0) return false;
+  const int64_t k = a.l != nullptr && i >= a.n ? ld(a.l + lane)
+                                               : ld(a.k + lane);
+  if (a.ids) {
+    blk = k;
+    return true;
   }
-  if (a.all_gather) {  // the same for the whole grid
-    if (in) {
-      a.send[i] = ask ? blk : -1;
+  if (a.l != nullptr) {
+    blk = occ_pos(a.seq_len, a.primary, i < a.n ? k - 1 : k) >> 7;
+    return true;
+  }
+  blk = (k - (k > a.primary ? 1 : 0)) >> 7;
+  return k != a.primary;
+}
+
+// The owner of rank-row block blk: min(max(blk / rps, 0), D - 1), from a
+// double estimate of the quotient corrected by one either way (exact for
+// blk < 2^52), since a 64-bit division is a call whose saved registers
+// go to a stack frame.
+__device__ __forceinline__ int owner_of(const BucketArgs& a, int64_t blk) {
+  if (blk < 0) return 0;
+  int64_t o = static_cast<int64_t>(static_cast<double>(blk) * a.inv_rps);
+  if (o * a.rps > blk) {
+    --o;
+  } else if ((o + 1) * a.rps <= blk) {
+    ++o;
+  }
+  return o < a.D - 1 ? static_cast<int>(o) : a.D - 1;
+}
+
+__device__ __forceinline__ void lb_publish(unsigned long long* p,
+                                           unsigned epoch, bool incl,
+                                           unsigned count) {
+  *reinterpret_cast<volatile unsigned long long*>(p) =
+      (static_cast<unsigned long long>(epoch) << 32) | (incl ? kIncl : 0ull) |
+      count;
+}
+
+// The word at p once this call has published it (with incl: once it
+// holds an inclusive prefix).
+__device__ __forceinline__ unsigned long long lb_wait(
+    const unsigned long long* p, unsigned epoch, bool incl) {
+  const volatile unsigned long long* v = p;
+  unsigned long long w = *v;
+  while (static_cast<unsigned>(w >> 32) != epoch ||
+         (incl && (w & kIncl) == 0)) {
+    if (incl) __nanosleep(100);  // a fill block: off the scan's path
+    w = *v;
+  }
+  return w;
+}
+
+// The owner of query i (-1: it asks nothing, or i >= n_q), its block in
+// blk.
+__device__ __forceinline__ int query_owner(const BucketArgs& a, int64_t i,
+                                           int64_t n_q, int64_t& blk) {
+  blk = -1;
+  return i < n_q && query_block(a, i, blk) ? owner_of(a, blk) : -1;
+}
+
+// One round of a warp's queries, a lane's to owner (-1: none): the
+// round's queries to one owner take their places after the warp's count
+// of that owner (wc, the warp's row of wcount), their leader adding them
+// to it.  Returns the lane's place.
+__device__ __forceinline__ int take_round(int owner, int* wc) {
+  const int me = static_cast<int>(threadIdx.x & 31);
+  const unsigned peers = __match_any_sync(kFull, owner);
+  int r = 0;
+  if (owner >= 0) {
+    const int lead = __ffs(peers) - 1;
+    int c = 0;
+    if (me == lead) {
+      c = wc[owner];
+      wc[owner] = c + __popc(peers);
+    }
+    r = __shfl_sync(peers, c, lead) + __popc(peers & ((1u << me) - 1u));
+  }
+  __syncwarp();
+  return r;
+}
+
+// Owner o's asked queries in the tiles before tile t (t > 0), found by
+// the calling warp: a round of 32 earlier tiles, nearest first, a lane
+// waiting for each one's word, until a round holds an inclusive prefix;
+// the counts up to the nearest inclusive prefix are summed.
+__device__ __forceinline__ unsigned look_back(const BucketArgs& a, int64_t t,
+                                              int o) {
+  const int me = static_cast<int>(threadIdx.x & 31);
+  unsigned excl = 0;
+  for (int64_t top = t - 1;; top -= 32) {
+    const int64_t j = top - me;
+    unsigned long long x = kIncl;  // before tile 0: an inclusive 0
+    if (j >= 0) x = lb_wait(a.status + j * a.D + o, a.epoch, false);
+    const unsigned incl = __ballot_sync(kFull, (x & kIncl) != 0);
+    const int stop = incl != 0u ? __ffs(incl) - 1 : 31;
+    unsigned v = me <= stop ? static_cast<unsigned>(x & kCount) : 0u;
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+    excl += v;
+    if (incl != 0u) return excl;
+  }
+}
+
+__global__ void __launch_bounds__(kBucketThreads) shard_bucket_kernel(
+    const __grid_constant__ BucketArgs a) {
+  const int64_t n_q = a.l != nullptr ? 2 * a.n : a.n;
+  if (a.all_gather) {  // the same for the whole grid: query i in slot i
+    const int64_t i =
+        static_cast<int64_t>(blockIdx.x) * kBucketThreads + threadIdx.x;
+    if (i < n_q) {
+      int64_t blk = -1;
+      a.send[i] = query_block(a, i, blk) ? blk : -1;
       a.slot[i] = static_cast<int32_t>(i);
     }
     return;
   }
-  // the warp's queries to one owner take their slots with one atomicAdd
-  // by the first of them, in lane order after the count it returns
-  int64_t owner = -1;
-  if (ask) {
-    owner = blk / a.rps;
-    owner = owner < a.D - 1 ? owner : a.D - 1;
+  __shared__ int wcount[kWarps][kMaxOwners];  // a warp's count an owner
+  __shared__ int run[kMaxOwners];             // the tile's own counts
+  __shared__ int boff[kMaxOwners];            // the tiles before this one's
+  __shared__ unsigned tk;
+  if (threadIdx.x == 0) {
+    const unsigned t = atomicAdd(a.ticket, 1u);
+    if (t == gridDim.x - 1) *a.ticket = 0;  // every block has its ticket
+    tk = t;
   }
-  const unsigned peers =
-      __match_any_sync(kFull, static_cast<long long>(owner));
-  int32_t s = -1;
-  if (ask) {
-    const int me = static_cast<int>(threadIdx.x & 31);
-    const int first = __ffs(peers) - 1;
-    int base = 0;
-    if (me == first) base = atomicAdd(a.counts + owner, __popc(peers));
-    base = __shfl_sync(peers, base, first);
-    const int64_t r = base + __popc(peers & ((1u << me) - 1u));
-    if (r < a.cap) {
-      s = static_cast<int32_t>(owner * a.cap + r);
-      a.send[s] = blk;
-    } else {
-      *a.over = 1;
+  __syncthreads();
+  const int64_t t = tk;
+  const int o = static_cast<int>(threadIdx.x);  // the owner a thread scans
+  if (t >= a.n_scan) {  // a fill block: -1 past each bucket's count
+    if (o < a.D) {
+      const int64_t c = static_cast<int64_t>(
+          lb_wait(a.status + (a.n_scan - 1) * a.D + o, a.epoch, true) &
+          kCount);
+      boff[o] = static_cast<int>(c < a.cap ? c : a.cap);
+    }
+    __syncthreads();
+    const int64_t stride = static_cast<int64_t>(a.n_fill) * kBucketThreads;
+    const int64_t first = (t - a.n_scan) * kBucketThreads + threadIdx.x;
+    for (int ow = 0; ow < a.D; ++ow) {
+      int64_t* bucket = a.send + ow * a.cap;
+      for (int64_t r = boff[ow] + first; r < a.cap; r += stride) {
+        bucket[r] = -1;
+      }
+    }
+    return;
+  }
+  // tile t's queries, each warp's kItems rounds in order, counted, then
+  // placed after the earlier tiles' and warps' queries of their owners
+  const int w = static_cast<int>(threadIdx.x >> 5);
+  const int me = static_cast<int>(threadIdx.x & 31);
+  for (int ow = me; ow < a.D; ow += 32) wcount[w][ow] = 0;
+  __syncwarp();
+  const int64_t first = t * kTile + w * (32 * kItems);
+  int own[kItems], place[kItems];
+  {
+    int64_t blk[kItems];
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {  // every round's loads at once
+      own[it] = query_owner(a, first + it * 32 + me, n_q, blk[it]);
     }
   }
-  if (in) a.slot[i] = s;
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    place[it] = take_round(own[it], wcount[w]);
+  }
+  __syncthreads();
+  if (o < a.D) {  // the warps' counts scanned in warp order, published
+    int c = 0;
+    for (int ww = 0; ww < kWarps; ++ww) {
+      const int x = wcount[ww][o];
+      wcount[ww][o] = c;
+      c += x;
+    }
+    run[o] = c;
+    boff[o] = 0;
+    lb_publish(a.status + t * a.D + o, a.epoch, t == 0,
+               static_cast<unsigned>(c));
+  }
+  __syncthreads();
+  for (int ow = w; ow < a.D; ow += kWarps) {  // a warp looks back an owner
+    const unsigned excl = t > 0 ? look_back(a, t, ow) : 0u;
+    if (me == 0) {
+      const int64_t total = static_cast<int64_t>(excl) + run[ow];
+      if (t > 0) {
+        boff[ow] = static_cast<int>(excl);
+        lb_publish(a.status + t * a.D + ow, a.epoch, true,
+                   static_cast<unsigned>(total));
+      }
+      if (t == a.n_scan - 1) {  // the scan's last tile: the totals
+        a.counts[ow] = static_cast<int32_t>(total);
+        if (total > a.cap) *a.over = 1;
+      }
+    }
+  }
+  __syncthreads();
+  // each query's slot: the earlier tiles', the earlier warps' and its
+  // place in its warp's rounds (its block read again, from L1)
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const int64_t i = first + it * 32 + me;
+    if (i < n_q) {
+      int32_t s = -1;
+      if (own[it] >= 0) {
+        const int64_t r = static_cast<int64_t>(boff[own[it]]) +
+                          wcount[w][own[it]] + place[it];
+        if (r < a.cap) {
+          int64_t blk = -1;
+          query_block(a, i, blk);
+          s = static_cast<int32_t>(own[it] * a.cap + r);
+          a.send[s] = blk;
+        }
+      }
+      a.slot[i] = s;
+    }
+  }
 }
 
 struct AnswerArgs {
@@ -155,15 +387,17 @@ struct AnswerArgs {
                           // sa_samp (rps,) int32 or int64 (width 1)
   void* out;              // (n, 12) int64 as 6 pieces a row, or (n,) int64
   int64_t n, rps, base;   // base: this rank's first global row
-  int fused, width, elem_bytes;
+  int fused, width, elem_bytes, routed;
 };
 
 __global__ void __launch_bounds__(kThreads) shard_answer_kernel(
     const AnswerArgs a) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= a.n) return;
-  const int64_t loc = a.recv[i] - a.base;
-  if (a.width == 1) {  // a sampled SA entry, as int64
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (a.width == 1) {  // a sampled SA entry, as int64: a thread a slot
+    if (t >= a.n) return;
+    const int64_t id = ld(a.recv + t);
+    if (a.routed && id == -1) return;
+    const int64_t loc = id - a.base;
     int64_t v = 0;
     if (loc >= 0 && loc < a.rps) {
       v = a.elem_bytes == 8
@@ -171,35 +405,26 @@ __global__ void __launch_bounds__(kThreads) shard_answer_kernel(
               : static_cast<int64_t>(
                     __ldg(static_cast<const int32_t*>(a.rank_a) + loc));
     }
-    static_cast<int64_t*>(a.out)[i] = v;
+    static_cast<int64_t*>(a.out)[t] = v;
     return;
   }
-  longlong2* o = static_cast<longlong2*>(a.out) + 6 * i;
-  if (loc < 0 || loc >= a.rps) {
-    const longlong2 z = make_longlong2(0, 0);
-#pragma unroll
-    for (int j = 0; j < 6; ++j) o[j] = z;
-    return;
+  if (t >= 6 * a.n) return;
+  const int64_t s = t / 6;  // piece j of slot s
+  const int j = static_cast<int>(t - 6 * s);
+  const int64_t id = ld(a.recv + s);
+  if (a.routed && id == -1) return;
+  const int64_t loc = id - a.base;
+  longlong2 v = make_longlong2(0, 0);
+  if (loc >= 0 && loc < a.rps) {
+    const longlong2* ra = static_cast<const longlong2*>(a.rank_a);
+    const longlong2* src =
+        a.fused ? ra + 6 * loc + j
+                : (j < 2 ? ra + 2 * loc + j
+                         : reinterpret_cast<const longlong2*>(a.rank_b) +
+                               4 * loc + (j - 2));
+    v = __ldg(src);
   }
-  const longlong2* cp;
-  const longlong2* wp;
-  const int64_t* ra = static_cast<const int64_t*>(a.rank_a);
-  if (a.fused) {
-    cp = reinterpret_cast<const longlong2*>(ra + 12 * loc);
-    wp = cp + 2;
-  } else {
-    cp = reinterpret_cast<const longlong2*>(ra + 4 * loc);
-    wp = reinterpret_cast<const longlong2*>(a.rank_b + 8 * loc);
-  }
-  const longlong2 c0 = __ldg(cp), c1 = __ldg(cp + 1);
-  const longlong2 w0 = __ldg(wp), w1 = __ldg(wp + 1), w2 = __ldg(wp + 2),
-                  w3 = __ldg(wp + 3);
-  o[0] = c0;
-  o[1] = c1;
-  o[2] = w0;
-  o[3] = w1;
-  o[4] = w2;
-  o[5] = w3;
+  static_cast<longlong2*>(a.out)[t] = v;
 }
 
 // The returned row of query slot s (12 int64 at back + 12 s) for the occ
@@ -334,34 +559,39 @@ bool aligned16(const void* p) {
 // (int64) for an extension (2 n queries) or null for a walk (n queries)
 // or, with ids, for n queries of the row ids k themselves;
 // the rank stripes' rows a rank rps; D ranks; cap slots an owner.  Routed
-// (all_gather 0): send (D cap,) int64 gets the row ids (-1 in the empty
-// slots), slot (Q,) int32 each query's slot or -1, counts (D,) int32 is
-// scratch (zeroed here), *over (int32) is set to 1 if a bucket overflowed
-// (never cleared here).  All-gather (1): send (Q,) gets each query's row id
-// or -1, slot (Q,) its index.  Returns a cudaError_t (0 on a clean launch).
+// (all_gather 0, D <= 256): send (D cap,) int64 gets the row ids (-1 in
+// the empty slots), slot (Q,) int32 each query's slot or -1, counts (D,)
+// int32 each owner's asked queries, *over (int32) is set to 1 if a bucket
+// overflowed (never cleared here); status (status_words >= D ceil(Q /
+// 2048), at least D) int64 and ticket (int32, 0 before the first call)
+// are the look-back's scratch, kept by the caller between calls, and
+// epoch (never 0) differs from the previous calls' that used status.
+// All-gather (1): send (Q,) gets each query's row id or -1, slot (Q,) its
+// index.  Issues one launch and no memset.  Returns a cudaError_t (0 on a
+// clean launch).
 extern "C" int lf_shard_bucket(const void* live, const void* k, const void* l,
                                void* send, void* slot, void* counts,
-                               void* over, long long n, long long seq_len,
-                               long long primary, long long rps, long long cap,
-                               int D, int all_gather, int ids,
+                               void* over, void* status, void* ticket,
+                               long long status_words, long long n,
+                               long long seq_len, long long primary,
+                               long long rps, long long cap, int D,
+                               int all_gather, int ids, unsigned epoch,
                                void* stream) {
-  if (n < 0 || D <= 0 || rps <= 0 || (!all_gather && cap <= 0) ||
-      (ids && l != nullptr) ||
-      (!all_gather && (counts == nullptr || over == nullptr)) ||
-      (!all_gather && static_cast<long long>(D) * cap >= (1ll << 31)) ||
-      (l != nullptr ? 2 * n : n) >= (1ll << 31)) {
+  const int64_t n_q = l != nullptr ? 2 * n : n;
+  const int64_t n_scan = n_q > 0 ? (n_q + kTile - 1) / kTile : 1;
+  if (n < 0 || D <= 0 || rps <= 0 || (ids && l != nullptr) ||
+      n_q >= (1ll << 31) ||
+      (!all_gather &&
+       (cap <= 0 || D > kMaxOwners || counts == nullptr || over == nullptr ||
+        status == nullptr || ticket == nullptr || epoch == 0 ||
+        static_cast<long long>(D) * cap >= (1ll << 31) ||
+        status_words < n_scan * D))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!all_gather) {
-    cudaError_t e = cudaMemsetAsync(counts, 0, sizeof(int32_t) * D, st);
-    if (e == cudaSuccess) {
-      e = cudaMemsetAsync(send, 0xFF, sizeof(int64_t) * D * cap, st);
-    }
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int64_t n_q = l != nullptr ? 2 * n : n;
-  if (n_q == 0) return 0;
+  if (all_gather && n_q == 0) return 0;
+  const int64_t n_fill = (static_cast<int64_t>(D) * cap + kFillSlots - 1) /
+                         kFillSlots;
   const BucketArgs a{static_cast<const uint8_t*>(live),
                      static_cast<const int64_t*>(k),
                      static_cast<const int64_t*>(l),
@@ -369,8 +599,16 @@ extern "C" int lf_shard_bucket(const void* live, const void* k, const void* l,
                      static_cast<int32_t*>(slot),
                      static_cast<int32_t*>(counts),
                      static_cast<int32_t*>(over),
-                     n, seq_len, primary, rps, cap, D, all_gather, ids};
-  shard_bucket_kernel<<<blocks_of(n_q), kThreads, 0, st>>>(a);
+                     static_cast<unsigned long long*>(status),
+                     static_cast<unsigned*>(ticket),
+                     n, seq_len, primary, rps, cap, D, all_gather, ids,
+                     static_cast<int>(n_scan), static_cast<int>(n_fill),
+                     epoch, 1.0 / static_cast<double>(rps)};
+  const unsigned grid =
+      all_gather ? static_cast<unsigned>((n_q + kBucketThreads - 1) /
+                                         kBucketThreads)
+                 : static_cast<unsigned>(n_scan + n_fill);
+  shard_bucket_kernel<<<grid, kBucketThreads, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -380,11 +618,14 @@ extern "C" int lf_shard_bucket(const void* live, const void* k, const void* l,
 // bwt_blocks (rps, 8); int64, 16-byte aligned; out (n, 12) int64, 16-byte
 // aligned: each owned row's 12 values, zeros for the rest.  Width 1: rank_a
 // = sa_samp (rps,) of elem_bytes 4 or 8; out (n,) int64: each owned entry,
-// 0 for the rest.  Returns a cudaError_t.
+// 0 for the rest.  routed: a slot whose id is -1 is left as it is (the
+// routed route; on the all-gather route, 0, it gets zeros).  Returns a
+// cudaError_t.
 extern "C" int lf_shard_answer(const void* recv, const void* rank_a,
                                const void* rank_b, void* out, long long n,
                                long long rps, long long base, int fused,
-                               int width, int elem_bytes, void* stream) {
+                               int width, int elem_bytes, int routed,
+                               void* stream) {
   const bool rows = width == 12;
   if (n < 0 || rps <= 0 || (!rows && width != 1) ||
       (rows && (!aligned16(rank_a) || !aligned16(out) ||
@@ -395,8 +636,8 @@ extern "C" int lf_shard_answer(const void* recv, const void* rank_a,
   if (n == 0) return 0;
   const AnswerArgs a{static_cast<const int64_t*>(recv), rank_a,
                      static_cast<const int64_t*>(rank_b), out, n, rps, base,
-                     fused, width, elem_bytes};
-  shard_answer_kernel<<<blocks_of(n), kThreads, 0,
+                     fused, width, elem_bytes, routed};
+  shard_answer_kernel<<<blocks_of(rows ? 6 * n : n), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

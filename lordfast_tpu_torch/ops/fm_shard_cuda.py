@@ -13,10 +13,13 @@ run again through the all-gather route) and its routing protocol
 fallback, which the plain steps there use too).  A step is:
 
 - ``shard_bucket``: each live lane's queries to its owner's bucket of the
-  (D, cap) send buffer (or, on the all-gather route, to its own slot);
+  (D, cap) send buffer, in query order (or, on the all-gather route, to
+  its own slot): one launch, no memset;
 - ``all_to_all_single`` of the row ids, equal splits (all-gather route:
   ``all_gather_into_tensor``);
-- ``shard_answer``: the received rows answered from this rank's stripe;
+- ``shard_answer``: the received rows answered from this rank's stripe
+  (on the routed route the empty slots are left unwritten: no step reads
+  them);
 - ``all_to_all_single`` of the rows back (``reduce_scatter_tensor``, SUM);
 - ``shard_ext_step`` or ``shard_walk_step``: the lanes' step from the
   rows their queries got back, in place.
@@ -46,6 +49,10 @@ from .cuda_build import check_tensor
 
 # the values of a rank row: the counts of A, C, G, T, then 8 BWT words
 ROW = 12
+# shard_bucket_kernel's tile of queries a scan block (seed_shard.cu kTile)
+# and the most owners it routes to (kMaxOwners)
+BUCKET_TILE = 2048
+MAX_OWNERS = 256
 
 
 def _fn(name, argtypes):
@@ -112,8 +119,7 @@ def _query_blocks(live, k, l, meta, ids=False):
 def shard_bucket_plain(live, k, l, meta, rps, D, cap, send, slot, counts,
                        over, ids=False):
     """shard_bucket's plain version: the queries take their bucket's
-    slots in query order (fm_index.bucket; the kernel's order is its
-    atomics')."""
+    slots in query order (fm_index.bucket), as the kernel's scan does."""
     blk, ask = _query_blocks(live, k, l, meta, ids)
     if cap is None:
         send.copy_(torch.where(ask, blk, -1))
@@ -126,8 +132,9 @@ def shard_bucket_plain(live, k, l, meta, rps, D, cap, send, slot, counts,
     over.copy_(torch.maximum(over, (n > cap).any().to(over.dtype)))
 
 
-def shard_answer_plain(recv, arrs, base, out, key=None):
-    """shard_answer's plain version."""
+def shard_answer_plain(recv, arrs, base, out, key=None, routed=False):
+    """shard_answer's plain version: zeros in every slot this rank does
+    not own, on either route (``routed`` is the kernel's)."""
     if key is not None:
         out.copy_(fm._answer(arrs[key], recv, base))
         return
@@ -181,17 +188,46 @@ def shard_walk_step_plain(state, arrs, meta, back, slot, live=None):
 
 # ---- the wrappers ----
 
+# device -> (status (words,) int64, ticket (1,) int32): the bucket
+# kernel's look-back words and ticket counter, zeroed once when made
+_scratch = {}
+_epoch = 0
+
+
+def _lookback(dev, words):
+    """The bucket kernel's scratch on ``dev`` with at least ``words``
+    look-back words (made anew, twice as large, when it is too small: an
+    epoch never read as 0 marks its words unpublished)."""
+    s = _scratch.get(dev)
+    if s is None or s[0].numel() < words:
+        s = (torch.zeros(max(2 * words, 4096), dtype=torch.int64,
+                         device=dev),
+             torch.zeros(1, dtype=torch.int32, device=dev))
+        _scratch[dev] = s
+    return s
+
+
+def _next_epoch():
+    """The next call's epoch: 1 to 2**32 - 1, then 1 again."""
+    global _epoch
+    _epoch = _epoch % 0xFFFFFFFF + 1
+    return _epoch
+
+
 def shard_bucket(live, k, l, meta, rps, D, cap, send, slot, counts=None,
                  over=None, ids=False):
     """The bucket step of n lanes: live (n,) bool, k (n,) int64 and, for
     an extension, l (n,) int64 (2 n queries: k - 1, then l) or None for a
     walk (n queries); with ``ids`` (l and meta None) the n queries are
-    the row ids k themselves.  Routed (cap an int): send (D cap,) int64
-    gets the row ids (-1 in the empty slots), slot (Q,) int32 each
-    query's slot or -1, counts (D,) int32 each owner's asked queries, and
-    over (1,) int32 is raised to 1 when a bucket overflowed.  All-gather
-    route (cap None): send (Q,) gets each query's row id or -1, slot its
-    index.  rps: the stripes' rows a rank; D: the ranks."""
+    the row ids k themselves.  Routed (cap an int, D <= MAX_OWNERS): send
+    (D cap,) int64 gets the row ids in query order (-1 in the empty
+    slots), slot (Q,) int32 each query's slot or -1, counts (D,) int32
+    each owner's asked queries, and over (1,) int32 is raised to 1 when a
+    bucket overflowed: fm_index.bucket's values, bit for bit, from one
+    launch.  All-gather route (cap None): send (Q,) gets each query's row
+    id or -1, slot its index.  rps: the stripes' rows a rank; D: the
+    ranks.  The routed kernel's look-back scratch is kept a device
+    (_lookback); calls on one device run in stream order."""
     n = live.shape[0]
     Q = 2 * n if l is not None else n
     routed = cap is not None
@@ -200,6 +236,8 @@ def shard_bucket(live, k, l, meta, rps, D, cap, send, slot, counts=None,
                                   counts, over, ids)
     if ids and l is not None:
         raise ValueError("shard_bucket: row ids take no l")
+    if routed and D > MAX_OWNERS:
+        raise ValueError(f"shard_bucket: {D} owners, at most {MAX_OWNERS}")
     dev = _cuda_device("shard_bucket", live)
     check_tensor("live", live, torch.bool, (n,), dev)
     check_tensor("k", k, torch.int64, (n,), dev)
@@ -207,17 +245,23 @@ def shard_bucket(live, k, l, meta, rps, D, cap, send, slot, counts=None,
         check_tensor("l", l, torch.int64, (n,), dev)
     check_tensor("send", send, torch.int64, (D * cap if routed else Q,), dev)
     check_tensor("slot", slot, torch.int32, (Q,), dev)
+    status = ticket = None
+    words, epoch = 0, 0
     if routed:
         check_tensor("counts", counts, torch.int32, (D,), dev)
         check_tensor("over", over, torch.int32, (1,), dev)
+        words = D * max(-(-Q // BUCKET_TILE), 1)
+        status, ticket = _lookback(dev, words)
+        epoch = _next_epoch()
     with torch.cuda.device(dev):
-        rc = _fn("lf_shard_bucket", [_VP] * 7 + [_CL] * 5 + [_CI] * 3 + [_VP])(
+        rc = _fn("lf_shard_bucket", [_VP] * 9 + [_CL] * 6 + [_CI] * 3
+                 + [ctypes.c_uint, _VP])(
             live.data_ptr(), k.data_ptr(), _ptr(l), send.data_ptr(),
             slot.data_ptr(), _ptr(counts if routed else None),
-            _ptr(over if routed else None), n,
-            0 if ids else meta["seq_len"], 0 if ids else meta["primary"],
-            rps, cap if routed else 0, D, int(not routed), int(ids),
-            _stream(dev))
+            _ptr(over if routed else None), _ptr(status), _ptr(ticket),
+            words, n, 0 if ids else meta["seq_len"],
+            0 if ids else meta["primary"], rps, cap if routed else 0, D,
+            int(not routed), int(ids), epoch, _stream(dev))
     _check_launch("shard_bucket", rc)
     shard_bucket.launches += 1
 
@@ -225,14 +269,19 @@ def shard_bucket(live, k, l, meta, rps, D, cap, send, slot, counts=None,
 shard_bucket.launches = 0
 
 
-def shard_answer(recv, arrs, base, out, key=None):
+def shard_answer(recv, arrs, base, out, key=None, routed=False):
     """The answer step: recv (n,) int64 row ids (-1 for none); this rank's
     rank stripes (rank_stripes) with their first global row base; out (n,
     12) int64 gets each owned row's counts and words, zeros for the rest.
     With ``key`` ("sa_samp"): the entries of that 1-D stripe (int32 or
-    int64) into out (n,) int64, 0 for the rest."""
+    int64) into out (n,) int64, 0 for the rest.  ``routed`` (the routed
+    route): a slot whose id is -1 is left as it is, since no query took
+    it (seed_shard.cu says why no step reads it); on the all-gather route
+    every slot this rank does not own gets zeros, which the
+    reduce_scatter's SUM needs.  The plain version writes zeros on
+    both."""
     if recv.device.type == "cpu":
-        return shard_answer_plain(recv, arrs, base, out, key)
+        return shard_answer_plain(recv, arrs, base, out, key, routed)
     dev = _cuda_device("shard_answer", recv)
     n = recv.shape[0]
     check_tensor("recv", recv, torch.int64, (n,), dev)
@@ -243,7 +292,7 @@ def shard_answer(recv, arrs, base, out, key=None):
         check_tensor(key, st, st.dtype, (st.shape[0],), dev)
         check_tensor("out", out, torch.int64, (n,), dev)
         _launch_answer(dev, recv, st, None, out, n, st.shape[0], base, 0, 1,
-                       st.element_size())
+                       st.element_size(), routed)
         return
     fused, rank_a, rank_b = rank_stripes(arrs)
     check_tensor("out", out, torch.int64, (n, ROW), dev)
@@ -256,17 +305,17 @@ def shard_answer(recv, arrs, base, out, key=None):
         if x is not None and x.data_ptr() % 16:
             raise ValueError(f"shard_answer: {name} is not 16-byte aligned")
     _launch_answer(dev, recv, rank_a, rank_b, out, n, rank_a.shape[0], base,
-                   int(fused), ROW, 8)
+                   int(fused), ROW, 8, routed)
 
 
 def _launch_answer(dev, recv, rank_a, rank_b, out, n, rps, base, fused,
-                   width, elem_bytes):
+                   width, elem_bytes, routed):
     with torch.cuda.device(dev):
-        rc = _fn("lf_shard_answer", [_VP] * 4 + [_CL] * 3 + [_CI] * 3
+        rc = _fn("lf_shard_answer", [_VP] * 4 + [_CL] * 3 + [_CI] * 4
                  + [_VP])(
             recv.data_ptr(), rank_a.data_ptr(), _ptr(rank_b),
             out.data_ptr(), n, rps, base, fused, width, elem_bytes,
-            _stream(dev))
+            int(routed), _stream(dev))
     _check_launch("shard_answer", rc)
     shard_answer.launches += 1
 
@@ -366,7 +415,9 @@ def _kernel_steps(arrs, meta, live, k, l, group, key=None, bufs=None):
     step's queries: n lanes' (live, k, l) as shard_bucket takes them
     (key None), or with key "sa_samp" the row ids k where live, answered
     from the sa_samp stripe; their buffers from fm_index._empty (bufs).
-    The wrappers are looked up at call time."""
+    answer_fn answers on the route bucket_fn last took (exchange calls
+    them in turn), so on the routed route it leaves the empty slots
+    unwritten.  The wrappers are looked up at call time."""
     from . import fm_shard_cuda as K
 
     D, d, dev = group.size(), group.rank(), live.device
@@ -376,7 +427,10 @@ def _kernel_steps(arrs, meta, live, k, l, group, key=None, bufs=None):
     i32, i64 = torch.int32, torch.int64
     ids = key is not None
 
+    routed = []  # the route bucket_fn took: exchange answers it next
+
     def bucket_fn(cap, over):
+        routed[:] = [cap is not None]
         slot = fm._empty(bufs, "slot", (Q,), i32, dev)
         if cap is None:
             send = fm._empty(bufs, "send", (Q,), i64, dev)
@@ -392,7 +446,7 @@ def _kernel_steps(arrs, meta, live, k, l, group, key=None, bufs=None):
     def answer_fn(recv):
         out = fm._empty(bufs, "vals", (recv.numel(),) + (
             () if ids else (ROW,)), i64, dev)
-        K.shard_answer(recv, arrs, d * rps, out,
+        K.shard_answer(recv, arrs, d * rps, out, routed=routed[0],
                        **({"key": key} if ids else {}))
         return out
 

@@ -19,7 +19,10 @@ sharded seeder on ``csrc/seed_shard.cu``'s kernels over a group of one
 (NCCL) against its plain loops and the replicated seeder (every seed;
 each kernel against its plain version on its first call, both layouts,
 the SA full and at 32), and through the all-gather route with every
-bucket's cap forced to 8.  Needs an
+bucket's cap forced to 8; ``shard_bucket`` bit for bit against its plain
+version at D = 1, 2, 3, 8 and 256 (and D = 257 refused), and
+``shard_answer``'s routed route leaving the empty slots as they were.
+Needs an
 NVIDIA GPU (marker ``cuda``) and skips
 without one.  This file imports neither jax nor lordfast_tpu, so it also
 runs where JAX is not installed:
@@ -806,7 +809,9 @@ def test_cuda_shard_loops_match_plain(cuda_device, genome, sa_interval,
     assert c["host_reads"] == c["blocks"] + (4 if sampled else 3)
     figs = chip_smoke.check_shard_kernels(rec)
     assert set(figs) == set(chip_smoke.SHARD_KERNELS[: 4 if sampled else 3]
-                            + ("shard_bucket ids", "shard_answer sa"))
+                            + ("shard_bucket ids", "shard_answer sa")
+                            + ("shard_bucket walk",
+                               "shard_answer walk") * sampled)
     chip_smoke.reset_launches()
     want = fm_index._seed_anchors_impl(arrs, *rest, group=group, plain=True)
     counts = chip_smoke.read_launches()
@@ -836,3 +841,105 @@ def test_cuda_shard_loops_all_gather_route(cuda_device, genome, sa_interval,
     assert c["redone"] > 0, c
     for name in fm_index.SeedBatch._fields:
         assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+def _bucket_call(rng, n, D, kind, cap_kind, dev):
+    """A bucket step's queries on dev: n lanes over a genome of seq_len
+    2^24 (or its rows sampled at 32 for ids), 15% dead, 40% of the rows
+    in owner 0's stripe; the cap fits its largest bucket or holds half
+    of it.  Returns (args, kw) as chip_smoke.record_shard keeps a call."""
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    seq_len, primary = 1 << 24, 4321
+    ids = kind == "ids"
+    n_rows = seq_len // 32 if ids else (seq_len >> 7) + 1
+    rps = -(-n_rows // D)
+    top = n_rows if ids else seq_len + 1
+    first = min(rps if ids else rps << 7, top)
+    k = np.where(rng.random(n) < 0.4, rng.integers(0, first, n),
+                 rng.integers(0, top, n))
+    live = rng.random(n) < 0.85
+    l = None
+    if kind == "ext":
+        l = np.minimum(k + rng.integers(0, 5000, n), seq_len)
+        k[:5], l[5:10] = 0, seq_len
+    elif kind == "walk":
+        k[::7] = primary
+    meta = None if ids else {"seq_len": seq_len, "primary": primary}
+    T = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    live, k = T(live), T(k)
+    l = None if l is None else T(l)
+    blk, ask = K._query_blocks(live, k, l, meta, ids)
+    owner = (blk[ask] // rps).clamp(0, D - 1)
+    most = int(torch.bincount(owner, minlength=D).max()) if n else 0
+    cap = max(((most if cap_kind == "fit" else most // 2) + 7) & ~7, 8)
+    Q = blk.numel()
+    args = (live, k, l, meta, rps, D, cap,
+            torch.empty(D * cap, dtype=torch.int64, device=dev),
+            torch.empty(Q, dtype=torch.int32, device=dev),
+            torch.empty(D, dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+    return args, {"ids": True} if ids else {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ext", "walk", "ids"])
+@pytest.mark.parametrize("D", [1, 2, 3, 8, 256])
+def test_cuda_shard_bucket_matches_plain(cuda_device, D, kind):
+    # shard_bucket's one-launch scan == fm_index.bucket bit for bit (send,
+    # slot, counts, over), launched again and again on the same look-back
+    # scratch (each call its epoch): 150,000 lanes (up to 293 tiles),
+    # caps that fit and that overflow, at D = 2, 3 and 8 from the same
+    # queries (chip_smoke._bucket_check), one lane, and none
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    rng = np.random.default_rng([D, len(kind)])
+    for n, cap_kind in ((150_000, "fit"), (150_000, "over"), (1, "fit"),
+                        (0, "fit")):
+        args, kw = _bucket_call(rng, n, D, kind, cap_kind, cuda_device)
+        for _ in range(2):
+            before = K.shard_bucket.launches
+            asked, done, over = chip_smoke._bucket_check(
+                args, kw, K.shard_bucket, K.shard_bucket_plain)
+            torch.cuda.synchronize()
+            assert K.shard_bucket.launches == before + done
+            if n > 1:
+                assert over >= 1 + (cap_kind == "over")
+    args, kw = _bucket_call(rng, 10, 257, kind, "fit", cuda_device)
+    with pytest.raises(ValueError, match="owners"):
+        K.shard_bucket(*args, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["fused", "split", "sa32", "sa64"])
+def test_cuda_shard_answer_routed_leaves_empty_slots(cuda_device, layout):
+    # shard_answer == its plain version at every slot a query took; on the
+    # routed route a slot whose id is -1 keeps what it held, on the
+    # all-gather route it gets zeros (chip_smoke._answer_check); ids in
+    # and out of this rank's stripe, 16-byte pieces of fused and split
+    # rows, the SA entries' int32 and int64 stripes
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    rng = np.random.default_rng(len(layout))
+    rps, base, n = 5000, 20_000, 300_001
+    T = lambda x: torch.from_numpy(x).to(cuda_device)  # noqa: E731
+    rows = rng.integers(0, 2**32, (rps, 12))
+    if layout == "fused":
+        arrs, kw, shape = {"fm_blocks": T(rows)}, {}, (n, 12)
+    elif layout == "split":
+        arrs = {"occ_cp": T(np.ascontiguousarray(rows[:, :4])),
+                "bwt_blocks": T(np.ascontiguousarray(rows[:, 4:]))}
+        kw, shape = {}, (n, 12)
+    else:
+        dt = np.int32 if layout == "sa32" else np.int64
+        arrs = {"sa_samp": T(rng.integers(-1, 2**31 - 1, rps).astype(dt))}
+        kw, shape = {"key": "sa_samp"}, (n,)
+    recv = rng.integers(base - 100, base + rps + 100, n)
+    recv[rng.random(n) < 0.5] = -1
+    before = K.shard_answer.launches
+    got, figs = chip_smoke._answer_check(
+        K.shard_answer, K.shard_answer_plain, T(recv), arrs, base,
+        torch.empty(shape, dtype=torch.int64, device=cuda_device), kw)
+    torch.cuda.synchronize()
+    assert K.shard_answer.launches == before + 2
+    assert figs["empty"] == int((recv == -1).sum()) > 0

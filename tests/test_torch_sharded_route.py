@@ -19,8 +19,9 @@ integer: the tolerance is exact equality.  Covered:
   got a slot; a live mask asks only its queries;
 - the kernels' loops over the wrappers' plain versions (with the
   smoke's kernel checks, chip_smoke.check_shard_kernels, and bytes
-  bound, shard_work, run on them) and over the model (buckets' slots
-  taken in a random order) against the plain loops at D = 2 and 3, on a batch with padding
+  bound, shard_work, run on them) and over the model (the answer's
+  unwritten slots holding garbage) against the plain loops at D = 2
+  and 3, on a batch with padding
   rows, in both rank layouts with the SA full and at 32: the same seeds,
   also with every bucket's cap forced to 8 (every routed block overflows
   and runs again through the all-gather route); chip_smoke.edge_reads'
@@ -28,7 +29,15 @@ integer: the tolerance is exact equality.  Covered:
   text's start, MAX_ANCHOR_LEN) both ways and over the replicated index,
   at 7 steps a block, so the longest lanes die in mid-block;
 - the smoke's bytes bound of each kernel (chip_smoke.shard_work) against
-  a count by hand: only the rank-row pieces occ reads, the owned slots.
+  a count by hand: only the rank-row pieces occ reads, the owned slots;
+- the bucket kernel's model (its scan, look-back and tail fill) against
+  shard_bucket_plain bit for bit at D = 1, 2, 3 and 8, on extension,
+  walk and row-id queries, with caps that fit and overflow, whichever
+  earlier tiles have published their prefixes; the routed answer's
+  model over a sentinel-filled output, with D ranks in this process,
+  against the plain answer at every taken slot and through the next
+  extension and walk step (the all-gather answer over the whole
+  buffer); the smoke's bucket and answer checks against broken kernels.
 """
 
 import dataclasses
@@ -172,7 +181,8 @@ def test_shard_kernel_model_matches_plain_loops(model_case, D):
             assert list(o["checked"]) == sorted(
                 ["shard_bucket", "shard_answer", "shard_ext_step",
                  "shard_bucket ids", "shard_answer sa"]
-                + ["shard_walk_step"] * sampled), msg
+                + ["shard_walk_step", "shard_bucket walk",
+                   "shard_answer walk"] * sampled), msg
             assert (o["work"] > 0).all(), msg
             c = {tag: dict(zip(keys, o[f"{tag}_counts"]))
                  for tag in ("plain", "wrap", "model", "over")}
@@ -317,3 +327,358 @@ def test_smoke_shard_work_counts_what_the_lanes_need(name):
     kernel = {"bucket": "shard_bucket", "answer": "shard_answer",
               "ext": "shard_ext_step", "walk": "shard_walk_step"}
     assert chip_smoke.shard_work(kernel[name.split()[0]], args, kw) == want
+
+
+# ---- seed_shard.cu's bucket and answer kernels: the model (names as in
+# the source) against the plain versions, bit for bit ----
+
+BUCKET_SEQ_LEN = 1 << 20
+BUCKET_PRIMARY = 12345
+
+
+def _bucket_case(D, kind, cap_kind):
+    """One step's queries and their plain buckets: 35 kernel tiles' worth
+    of extension queries (past one look-back round of 32 tiles), half as
+    many lanes' walk or row-id queries, 15% of the lanes dead, 40% of the
+    rows drawn from owner 0's stripe (uneven buckets), an extension's
+    edge rows (k - 1 = -1, l =
+    seq_len), a walk's primary rows; the cap fits (the largest bucket
+    rounded up to 8), or half the largest bucket (some overflow), or None
+    (the all-gather route).  Returns (the model's arguments, the plain
+    version's (send, slot, counts, over))."""
+    import torch
+
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    import torch_shard_model as model
+
+    rng = np.random.default_rng([D, len(kind), len(cap_kind)])
+    n, seq_len, primary = 35 * model.kTile // 2, BUCKET_SEQ_LEN, \
+        BUCKET_PRIMARY
+    ids = kind == "ids"
+    n_rows = seq_len // 32 if ids else (seq_len >> 7) + 1
+    rps = -(-n_rows // D)
+    top = n_rows if ids else seq_len + 1
+    first = rps if ids else rps << 7
+    k = np.where(rng.random(n) < 0.4, rng.integers(0, min(first, top), n),
+                 rng.integers(0, top, n))
+    live = rng.random(n) < 0.85
+    l = None
+    if kind == "ext":
+        l = np.minimum(k + rng.integers(0, 5000, n), seq_len)
+        k[:5], l[5:10] = 0, seq_len
+    elif kind == "walk":
+        k[::7] = primary
+    meta = None if ids else {"seq_len": seq_len, "primary": primary}
+    sl, pr = (0, 0) if ids else (seq_len, primary)
+    blk, ask = model.query_block(live, k, l, sl, pr, ids)
+    owner = np.minimum(blk[ask] // rps, D - 1)
+    most = int(np.bincount(owner, minlength=D).max())
+    cap = {"fit": max((most + 7) & ~7, 8),
+           "over": max((most // 2 + 7) & ~7, 8), "all_gather": None}[cap_kind]
+    Q = len(blk)
+    T = torch.from_numpy
+    send = torch.full((Q if cap is None else D * cap,), 7)
+    slot = torch.full((Q,), 7, dtype=torch.int32)
+    counts = torch.full((D,), 7, dtype=torch.int32)
+    over = torch.zeros(1, dtype=torch.int32)
+    K.shard_bucket_plain(T(live), T(k), None if l is None else T(l), meta,
+                         rps, D, cap, send, slot, counts, over, ids=ids)
+    args = (live, k, l, sl, pr, rps, D, cap or 0, cap is None, ids)
+    return args, (send.numpy(), slot.numpy(), counts.numpy(),
+                  int(over[0]))
+
+
+@pytest.mark.parametrize("cap_kind", ["fit", "over", "all_gather"])
+@pytest.mark.parametrize("kind", ["ext", "walk", "ids"])
+@pytest.mark.parametrize("D", [1, 2, 3, 8])
+def test_bucket_model_matches_plain(D, kind, cap_kind):
+    # the kernel's scan (tiles, warps' rounds, look-back, tail fill) gives
+    # fm_index.bucket's slots in query order: send, slot, counts and the
+    # overflow flag bit for bit, whichever earlier tiles have published
+    # their inclusive prefix when a tile looks back (none but tile 0's:
+    # every look-back walks to the start, 32 tiles a round)
+    import torch_shard_model as model
+
+    args, want = _bucket_case(D, kind, cap_kind)
+    for seed, published in enumerate((0.0, 0.3, 1.0)):
+        got = model.shard_bucket_kernel(np.random.default_rng(seed), *args,
+                                        published=published)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        if cap_kind != "all_gather":
+            np.testing.assert_array_equal(got[2], want[2])
+            assert got[3] == want[3] == (cap_kind == "over")
+    # asked and unasked queries, filled and empty slots
+    assert (want[0] >= 0).any()
+    assert (want[0] == -1).any() or cap_kind != "all_gather"
+    assert (want[1] >= 0).any()
+    assert (want[1] < 0).any() == (cap_kind != "all_gather")
+
+
+def _stripes(full, keys, D):
+    """Every rank's stripes of ``keys`` of the arrays ``full``, padded as
+    parallel/sharded_index.shard_index_arrays pads them, beside L2."""
+    import torch
+
+    out = []
+    for r in range(D):
+        arrs = {"L2": full["L2"]}
+        for key in keys:
+            v = full[key]
+            rps = -(-v.shape[0] // D)
+            st = torch.zeros((rps,) + tuple(v.shape[1:]), dtype=v.dtype)
+            part = v[r * rps: (r + 1) * rps]
+            st[: part.shape[0]] = part
+            arrs[key] = st
+        out.append(arrs)
+    return out
+
+
+SENTINEL = -0x5A5A5A5A5A5A5A5B
+
+
+@pytest.mark.parametrize("layout", ["fused", "split"])
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_answer_model_leaves_only_unread_slots(small_index, D, layout):
+    # D ranks in this process, the all_to_all written out: the routed
+    # answer (the model) over an out filled with a sentinel equals the
+    # plain answer at every slot a query took, leaves every empty slot
+    # unwritten, and the next extension / walk step and the SA entries'
+    # by_slot give the same values as from the plain answer's zeros; the
+    # all-gather answer equals the plain one over the whole buffer
+    import torch
+
+    import chip_smoke
+    import torch_shard_model as model
+    from lordfast_tpu_torch.ops import fm_index as fm
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    idx = port_index(small_index[0])
+    full = idx.device_arrays("cpu")
+    if layout == "split":
+        full = chip_smoke.split_layout(idx, full)
+        full["occ_cp"] = full["occ_cp"][: full["bwt_blocks"].shape[0]]
+    keys = ("fm_blocks",) if layout == "fused" else ("occ_cp", "bwt_blocks")
+    ranks = _stripes(full, keys + ("sa_samp",), D)
+    meta = dict(idx.meta, sa_intv=32)
+    seq_len, primary = meta["seq_len"], meta["primary"]
+    rng = np.random.default_rng([D, len(layout)])
+    T = torch.from_numpy
+    n, B, L = 700, 6, 300
+    reads = rng.integers(0, 5, (B, L)).astype(np.uint8)
+    rd = fm._Reads(T(reads), T(rng.integers(100, L + 1, B)))
+
+    def lanes():
+        k = rng.integers(0, seq_len + 1, n)
+        lanes_ = {"live": T(rng.random(n) < 0.85), "k": T(k)}
+        lanes_["l"] = T(np.minimum(k + rng.integers(0, 3000, n), seq_len))
+        lanes_["k"][:4], lanes_["l"][4:8] = 0, seq_len
+        lanes_["rows"] = T(np.where(rng.random(n) < 0.1, primary, k))
+        lanes_["ids"] = T(rng.integers(0, len(full["sa_samp"]), n))
+        lanes_["m"] = T(rng.integers(0, 60, n))
+        lanes_["pos_f"] = T(rng.integers(0, L, n))
+        lanes_["b_lane"] = T(rng.integers(0, B, n))
+        return lanes_
+
+    per = [lanes() for _ in range(D)]
+    for q in ("ext", "walk", "sa"):
+        sa = q == "sa"
+        stripe = ranks[0]["sa_samp" if sa else keys[0]]
+        rps = stripe.shape[0]
+        qargs = [(x["live"], x["ids"] if sa else x["rows"] if q == "walk"
+                  else x["k"], x["l"] if q == "ext" else None) for x in per]
+        Q = 2 * n if q == "ext" else n
+        cap = fm.shard_cap(Q, D)
+        sends, slots = [], []
+        for live, k, l in qargs:
+            send = torch.empty(D * cap, dtype=torch.int64)
+            slot = torch.empty(Q, dtype=torch.int32)
+            K.shard_bucket_plain(live, k, l, None if sa else meta, rps, D,
+                                 cap, send, slot,
+                                 torch.empty(D, dtype=torch.int32),
+                                 torch.zeros(1, dtype=torch.int32), ids=sa)
+            sends.append(send)
+            slots.append(slot)
+        kw = {"key": "sa_samp"} if sa else {}
+        backs = {}
+        for tag in ("plain", "model"):
+            outs = []
+            for o in range(D):
+                recv = torch.cat([s[o * cap: (o + 1) * cap] for s in sends])
+                shape = (D * cap,) + (() if sa else (12,))
+                if tag == "plain":
+                    out = torch.zeros(shape, dtype=torch.int64)
+                    K.shard_answer_plain(recv, ranks[o], o * rps, out, **kw)
+                else:
+                    out = np.full(shape, SENTINEL, np.int64)
+                    _model_answer(model, K, recv, ranks[o], o * rps, out,
+                                  True, kw)
+                    empty = recv.numpy() == -1
+                    assert (out[empty] == SENTINEL).all()
+                    assert (out[~empty] != SENTINEL).all()
+                    out = T(out)
+                outs.append(out)
+            backs[tag] = [torch.cat([x[r * cap: (r + 1) * cap] for x in outs])
+                          for r in range(D)]
+        for r in range(D):
+            took = slots[r][slots[r] >= 0].long()
+            assert took.numel() > 0
+            assert torch.equal(backs["model"][r][took],
+                               backs["plain"][r][took])
+            got = [fm.by_slot(backs[t][r], slots[r]) for t in backs]
+            assert torch.equal(got[0], got[1])
+            if sa:
+                continue
+            x, res = per[r], []
+            for t in backs:
+                if q == "ext":
+                    st = [x["live"].clone(), x["k"].clone(), x["l"].clone(),
+                          x["m"].clone()]
+                    K.shard_ext_step_plain(st, x["pos_f"], x["b_lane"], rd,
+                                           ranks[r], meta, backs[t][r],
+                                           slots[r])
+                else:
+                    st = [x["live"].clone(), x["rows"].clone(),
+                          torch.zeros(n, dtype=torch.int64)]
+                    K.shard_walk_step_plain(st, ranks[r], meta, backs[t][r],
+                                            slots[r])
+                res.append(st)
+            for a, b in zip(*res):
+                assert torch.equal(a, b)
+        # the all-gather route: every rank's queries to every rank, the
+        # slots this rank does not own written as zeros
+        recv = torch.cat([torch.where(ask, blk, -1) for blk, ask in (
+            K._query_blocks(live, k, l, meta, sa) for live, k, l in qargs)])
+        for o in range(D):
+            shape = (recv.numel(),) + (() if sa else (12,))
+            want = torch.empty(shape, dtype=torch.int64)
+            K.shard_answer_plain(recv, ranks[o], o * rps, want, **kw)
+            out = np.full(shape, SENTINEL, np.int64)
+            _model_answer(model, K, recv, ranks[o], o * rps, out, False, kw)
+            np.testing.assert_array_equal(out, want.numpy())
+
+
+def _model_answer(model, K, recv, arrs, base, out, routed, kw):
+    """The answer kernel's model into ``out`` (numpy, in place)."""
+    if kw:
+        st = arrs["sa_samp"].numpy()
+        model.shard_answer_kernel(recv.numpy(), st, None, len(st), base,
+                                  True, out, routed, 1)
+        return
+    fused, a, b = K.rank_stripes(arrs)
+    model.shard_answer_kernel(recv.numpy(), a.numpy(),
+                              None if b is None else b.numpy(), a.shape[0],
+                              base, fused, out, routed)
+
+
+def _smoke_bucket_call(kind):
+    """A recorded shard_bucket call as chip_smoke.record_shard keeps it
+    ((live, k, l, meta, rps, D, cap, send, slot, counts, over), kw), at
+    D = 1 over _bucket_case's queries, with shard_cap's cap."""
+    import torch
+
+    from lordfast_tpu_torch.ops import fm_index as fm
+
+    (live, k, l, sl, pr, rps, _, _, _, ids), _ = _bucket_case(1, kind, "fit")
+    Q = 2 * len(live) if l is not None else len(live)
+    cap = fm.shard_cap(Q, 1)
+    T = torch.from_numpy
+    meta = None if ids else {"seq_len": sl, "primary": pr}
+    args = (T(live), T(k), None if l is None else T(l), meta, rps, 1, cap,
+            torch.empty(cap, dtype=torch.int64),
+            torch.empty(Q, dtype=torch.int32),
+            torch.empty(1, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32))
+    return args, {"ids": True} if ids else {}
+
+
+@pytest.mark.parametrize("kind", ["ext", "walk", "ids"])
+def test_smoke_bucket_check_is_bit_for_bit(kind):
+    # chip_smoke._bucket_check holds the kernel to the plain version bit
+    # for bit at the recorded D and at D = 2, 3 and 8, each with a cap
+    # that fits and one that overflows; a kernel whose slots keep each
+    # bucket's queries but not their query order (an atomics-order kernel's
+    # freedom) fails it
+    import torch
+
+    import chip_smoke
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    args, kw = _smoke_bucket_call(kind)
+    asked, done, over = chip_smoke._bucket_check(args, kw, K.shard_bucket,
+                                                 K.shard_bucket_plain)
+    assert asked > 0 and done == 8 and over >= 4
+
+    def reversed_buckets(live, k, l, meta, rps, D, cap, send, slot, counts,
+                         over, ids=False):
+        K.shard_bucket_plain(live, k, l, meta, rps, D, cap, send, slot,
+                             counts, over, ids)
+        took = slot >= 0
+        s = slot[took].long()
+        o = s // cap
+        m = counts.long().clamp(max=cap)[o]
+        new = o * cap + (m - 1 - (s - o * cap))
+        sent = send.clone()
+        send[new] = sent[s]
+        slot[took] = new.to(slot.dtype)
+
+    with pytest.raises(AssertionError, match="differs from the plain"):
+        chip_smoke._bucket_check(args, kw, reversed_buckets,
+                                 K.shard_bucket_plain)
+
+
+@pytest.mark.parametrize("fault", ["none", "taken slot", "all-gather zeros"])
+def test_smoke_answer_check(fault):
+    # chip_smoke._answer_check: the routed answer equal at every taken
+    # slot, the all-gather answer over the whole buffer; a kernel that
+    # writes a wrong value at a taken slot, or leaves an empty slot
+    # unwritten on the all-gather route, fails it
+    import torch
+
+    import chip_smoke
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    rng = np.random.default_rng(5)
+    arrs = {"fm_blocks": torch.from_numpy(rng.integers(0, 2**32, (8, 12))),
+            "L2": torch.zeros(5, dtype=torch.int64)}
+    recv = torch.tensor([-1, 9, 3, -1, 2, 12, 9, -1])
+
+    def kern(recv, arrs, base, out, routed=False):
+        keep = out.clone()
+        K.shard_answer_plain(recv, arrs, base, out)
+        if fault == "taken slot":
+            out[1, 5] += 1
+        elif routed or fault == "all-gather zeros":
+            out[recv == -1] = keep[recv == -1]
+
+    dst = torch.zeros((8, 12), dtype=torch.int64)
+    if fault == "none":
+        got, figs = chip_smoke._answer_check(kern, K.shard_answer_plain,
+                                             recv, arrs, 2, dst, {})
+        assert figs == {"slots": 8, "empty": 3}
+        assert (got[recv == -1] == chip_smoke.SENTINEL).all()
+        return
+    with pytest.raises(AssertionError, match="shard_answer"):
+        chip_smoke._answer_check(kern, K.shard_answer_plain, recv, arrs, 2,
+                                 dst, {})
+
+
+def test_bucket_model_sizes_are_the_kernels():
+    # the model's and the wrapper's tile and owner limit are the ones
+    # csrc/seed_shard.cu compiles (the wrapper sizes the look-back words
+    # by the tile; the kernel refuses fewer)
+    import re
+    from pathlib import Path
+
+    import torch_shard_model as model
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    src = (Path(K.__file__).resolve().parent.parent / "csrc"
+           / "seed_shard.cu").read_text()
+    const = {m[0]: int(m[1]) for m in re.findall(
+        r"constexpr int(?:64_t)? (k\w+) = (\d+);", src)}
+    assert const["kBucketThreads"] == model.kBucketThreads
+    assert const["kItems"] == model.kItems
+    assert const["kMaxOwners"] == model.kMaxOwners == K.MAX_OWNERS
+    assert model.kTile == K.BUCKET_TILE

@@ -2,15 +2,26 @@
 (names as in the source), for the CPU tests of the sharded index's loops.
 
 Each model computes what its kernel computes, thread by thread as numpy
-arrays: ``shard_bucket_kernel`` takes its buckets' slots in the order its
-threads' atomicAdds land, which the model draws at random; the step
-models read the returned rows by slot (a zero row for slot -1) and count
-occ and step the walk as ``fm_rank.cuh`` does, with 32-bit words, the
-words past the row's masked out and the row's char from its own word.
-``install`` puts them in place of the ``fm_shard_cuda`` wrappers (the
-loops look the wrappers up at call time), so ``fm_shard_cuda.shard_ext``
-and ``shard_walk`` run their block schedule over the models on the CPU.
-This module imports neither jax nor lordfast_tpu.
+arrays.  ``shard_bucket_kernel`` is the kernel's scan: tiles of kTile
+queries, a warp kItems rounds of 32, each round's peers of one owner
+counted by their leader into the warp's running count (wcount), the
+warps' counts scanned in warp order, each tile's offset an owner found by
+the decoupled look-back over the earlier tiles' words, 32 a round (which
+of them hold an inclusive prefix yet drawn at random: the sum cannot
+depend on it), a query's slot its tile's offset, its warp's and its
+place in the warp's rounds, the owners' totals written by the scan's
+last tile and each bucket's -1 tail by the fill blocks, over a send
+buffer that starts as garbage.
+``shard_answer_kernel`` is the piece copy, a thread a 16-byte piece, that
+leaves a routed empty slot unwritten.  The step models read the returned
+rows by slot (a zero row for slot -1) and count occ and step the walk as
+``fm_rank.cuh`` does, with 32-bit words, the words past the row's masked
+out and the row's char from its own word.  ``install`` puts them in place
+of the ``fm_shard_cuda`` wrappers (the loops look the wrappers up at call
+time), so ``fm_shard_cuda.shard_ext`` and ``shard_walk`` run their block
+schedule over the models on the CPU; its answer fills the slots the
+kernel leaves unwritten with random values first, so a step that read
+one would go wrong.  This module imports neither jax nor lordfast_tpu.
 """
 
 from __future__ import annotations
@@ -20,57 +31,130 @@ import numpy as np
 M32 = np.uint64(0xFFFFFFFF)
 MAX_ANCHOR = 4095
 
+# seed_shard.cu's sizes
+kBucketThreads = 512
+kWarps = kBucketThreads // 32
+kItems = 4
+kTile = kBucketThreads * kItems
+kMaxOwners = 256
+
 
 def occ_pos(seq_len, primary, k):
     kk = np.clip(k, 0, seq_len - 1)
     return kk - (kk >= primary)
 
 
-def shard_bucket_kernel(rng, live, k, l, seq_len, primary, rps, D, cap,
-                        all_gather, ids=False):
-    """(send, slot, counts, over) of one launch; the threads' atomics in
-    the random order rng draws."""
+def query_block(live, k, l, seq_len, primary, ids=False):
+    """(blk, asks) of every query: query_block."""
     ext = l is not None
     n = len(live)
     lane = np.concatenate([np.arange(n), np.arange(n)]) if ext else \
         np.arange(n)
     if ids:
-        blk, ask = k, live
-    elif ext:
+        return np.asarray(k), np.asarray(live, bool)
+    if ext:
         kq = np.concatenate([k - 1, l])
-        blk = occ_pos(seq_len, primary, kq) >> 7
-        ask = live[lane]
-    else:
-        blk = (k - (k > primary)) >> 7
-        ask = live & (k != primary)
-    Q = len(lane)
+        return occ_pos(seq_len, primary, kq) >> 7, live[lane]
+    return (k - (k > primary)) >> 7, live & (k != primary)
+
+
+def shard_bucket_kernel(rng, live, k, l, seq_len, primary, rps, D, cap,
+                        all_gather, ids=False, published=None):
+    """(send, slot, counts, over) of one launch: the scan blocks' tiles in
+    ticket order, the fill blocks' tails.  ``published``: the chance that
+    an earlier tile has published its inclusive prefix when a tile looks
+    back (None: drawn from rng)."""
+    blk, ask = query_block(live, k, l, seq_len, primary, ids)
+    Q = len(blk)
     if all_gather:
         return np.where(ask, blk, -1), np.arange(Q), None, 0
-    owner = np.minimum(blk // rps, D - 1)
-    counts = np.zeros(D, np.int64)
-    rank = np.full(Q, -1, np.int64)
-    for i in rng.permutation(Q):  # the atomics' order
-        if ask[i]:
-            rank[i] = counts[owner[i]]
-            counts[owner[i]] += 1
-    ok = ask & (rank < cap)
-    slot = np.where(ok, owner * cap + rank, -1)
-    send = np.full(D * cap, -1, np.int64)
-    send[slot[ok]] = blk[ok]
-    return send, slot, counts, int((ask & (rank >= cap)).any())
+    assert 1 <= D <= kMaxOwners
+    n_scan = max(-(-Q // kTile), 1)
+    # owner D: asks nothing (the kernel's -1); query i = t kTile + w 32
+    # kItems + it 32 + me
+    owner = np.full(n_scan * kTile, D)
+    b = np.full(n_scan * kTile, -1, np.int64)
+    b[:Q] = blk
+    ow = np.clip(blk // rps, 0, D - 1)
+    owner[:Q] = np.where(ask, ow, D)
+    own = owner.reshape(n_scan, kWarps, kItems, 32)
+    t_, w_, it_, me_ = np.indices(own.shape)
+    peer = own[..., None] == np.arange(D + 1)   # (t, w, it, me, owner)
+    # a round's peers: the lanes before a lane (popc(peers & lt)) and
+    # all of them (the leader's popc(peers))
+    below = np.cumsum(peer, axis=3) - peer
+    popc = peer.sum(3)                           # (t, w, it, owner)
+    wcount = np.cumsum(popc, axis=2) - popc      # before each round
+    rank = wcount[t_, w_, it_, own] + below[t_, w_, it_, me_, own]
+    wtot = popc.sum(2)                           # (t, w, owner)
+    woff = np.cumsum(wtot, axis=1) - wtot        # the warps scanned
+    run = wtot.sum(1)                            # each tile's own count
+    # look_back: a warp an owner reads 32 earlier tiles' words a round,
+    # nearest first, and sums them up to the nearest that holds an
+    # inclusive prefix (which have published theirs yet drawn at random;
+    # tile 0's always has, and before it reads as an inclusive 0)
+    incl = np.zeros_like(run)
+    boff = np.zeros_like(run)
+    if published is None:
+        published = rng.random()
+    for t in range(n_scan):
+        for o in range(D):
+            excl, top = 0, t - 1
+            while t > 0:
+                j = top - np.arange(32)
+                flag = (j <= 0) | (rng.random(32) < published)
+                jj = np.maximum(j, 0)
+                x = np.where(j < 0, 0, np.where(flag, incl[jj, o],
+                                                run[jj, o]))
+                stop = int(np.argmax(flag)) if flag.any() else 31
+                excl += int(x[: stop + 1].sum())
+                if flag.any():
+                    break
+                top -= 32
+            boff[t, o] = excl
+            incl[t, o] = excl + run[t, o]
+    counts = incl[-1, :D]
+    r = (boff[t_, own] + woff[t_, w_, own] + rank).reshape(-1)[:Q]
+    own = own.reshape(-1)[:Q]
+    ok = (own < D) & (r < cap)
+    slot = np.where(ok, own * cap + r, -1)
+    send = rng.integers(-2**62, 2**62, D * cap)  # what the buffer held
+    send[slot[ok]] = b[:Q][ok]
+    # the fill blocks: -1 past each bucket's count
+    p = np.arange(D * cap)
+    send[p % cap >= np.minimum(counts, cap)[p // cap]] = -1
+    return send, slot, counts, int((counts > cap).any())
 
 
-def shard_answer_kernel(recv, rank_a, rank_b, rps, base, fused, width=12):
+def shard_answer_kernel(recv, rank_a, rank_b, rps, base, fused, out,
+                        routed, width=12):
     """Each received row id's row (width 12) or entry (width 1: rank_a the
-    1-D sa_samp stripe) as int64, zeros where this rank does not own it."""
-    loc = recv - base
-    ok = (loc >= 0) & (loc < rps)
-    rows = np.clip(loc, 0, rps - 1)
+    1-D sa_samp stripe) as int64 into ``out`` in place, zeros where this
+    rank does not own it; with ``routed``, a slot whose id is -1 is left
+    as it is.  Width 12: thread t copies piece t % 6 of slot t // 6."""
+    n = len(recv)
     if width == 1:
-        return np.where(ok, rank_a[rows].astype(np.int64), 0)
-    vals = rank_a[rows] if fused else np.concatenate(
-        [rank_a[rows], rank_b[rows]], 1)
-    return np.where(ok[:, None], vals, 0)
+        loc = recv - base
+        ok = (loc >= 0) & (loc < rps)
+        v = np.where(ok, rank_a[np.clip(loc, 0, rps - 1)].astype(np.int64),
+                     0)
+        write = ~(routed & (recv == -1))
+        out[write] = v[write]
+        return
+    t = np.arange(6 * n)
+    s, j = t // 6, t % 6
+    loc = recv[s] - base
+    ok = (loc >= 0) & (loc < rps)
+    lc = np.clip(loc, 0, rps - 1)
+    if fused:
+        src = rank_a.reshape(-1, 6, 2)[lc, j]
+    else:
+        src = np.where((j < 2)[:, None],
+                       rank_a.reshape(-1, 2, 2)[lc, np.minimum(j, 1)],
+                       rank_b.reshape(-1, 4, 2)[lc, np.maximum(j - 2, 0)])
+    v = np.where(ok[:, None], src, 0)
+    write = ~(routed & (recv[s] == -1))
+    out.reshape(6 * n, 2)[t[write]] = v[write]
 
 
 def row_at(back, slot):
@@ -178,16 +262,19 @@ def install(K, rng):
             over.copy_(torch.maximum(over, torch.tensor([out[3]],
                                                         dtype=over.dtype)))
 
-    def answer(recv, arrs, base, out, key=None):
+    def answer(recv, arrs, base, out, key=None, routed=False):
+        # the slots the kernel leaves unwritten hold whatever they held
+        o = rng.integers(-2**62, 2**62, tuple(out.shape))
         if key is not None:
             st = arrs[key].numpy()
-            out.copy_(T(shard_answer_kernel(recv.numpy(), st, None,
-                                            len(st), base, True, 1)))
-            return
-        fused, a, b = K.rank_stripes(arrs)
-        out.copy_(T(shard_answer_kernel(recv.numpy(), a.numpy(),
-                                        None if b is None else b.numpy(),
-                                        a.shape[0], base, fused)))
+            shard_answer_kernel(recv.numpy(), st, None, len(st), base, True,
+                                o, routed, 1)
+        else:
+            fused, a, b = K.rank_stripes(arrs)
+            shard_answer_kernel(recv.numpy(), a.numpy(),
+                                None if b is None else b.numpy(),
+                                a.shape[0], base, fused, o, routed)
+        out.copy_(T(o))
 
     def ext_step(state, pos_f, b_lane, rd, arrs, meta, back, slot,
                  live=None):
