@@ -8,7 +8,9 @@
 the checkout at DIR, timed in turns, see ``compare_loops``: chain_dp and
 seed_ext at v2's call, chain_dp on full windows, sa_locate at v2's call
 over its SA sliced to 32, at the 300 Mbp and 1.2 Gbp genomes' and on
-their 1,048,576 rows.)
+their 1,048,576 rows; the sharded kernels on sharded passes' recorded
+calls, each loop's first call under the profiler and four passes with
+each checkout's sharded loops, see ``compare_shard``.)
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. environment: torch/CUDA versions, the card's name, power limit and
@@ -150,12 +152,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      be one a block, one a redone block, one sizing each loop and two an
      exact gather;
    - v2 over its SA sliced to 32, sharded: at NCCL two passes (== phase
-     5's SAM), each kernel held to its plain version on its first call
-     of the first pass (record_shard, check_shard_kernels: shard_bucket
-     up to its atomics' slot order, the rest bit for bit) and timed, with
-     its bound by bytes (shard_work); a plain_loops pass of the first 64
-     reads; at gloo D = 2 the first 64 reads, the kernels checked on both
-     ranks;
+     5's SAM), each kernel held to its plain version bit for bit on its
+     first call of the first pass, and each step kernel also on its
+     first list steps below 10% and 1% of its lanes live, with the list
+     reversed (record_shard, check_shard_kernels), and timed, with its
+     bound by bytes (shard_work) and a step kernel's latency floor
+     (step_floor) and, on a list step, its time on a persistent grid; a
+     plain_loops pass of the first 64 reads; at gloo D = 2 the first 64
+     reads, the kernels checked on both ranks;
 11. v2 sampled (run right after phase 5): phase 5's config over v2's
    index with the SA sliced to 32, then 16 (``slice_sa``: no second
    build), two passes each and a plain_loops pass, every SAM byte-equal
@@ -240,6 +244,7 @@ from __future__ import annotations
 
 import gc
 import io
+import itertools
 import json
 import os
 import resource
@@ -2012,32 +2017,125 @@ def _other_bucket_check(fn, args, kw):
                              "!= plain")
 
 
+# the functions of fm_shard_cuda compare_shard puts in place for each
+# checkout's sharded passes: its loops, which call its own kernels
+SHARD_SIDE = ("shard_ext", "shard_walk", "sa_gather")
+# the loop each step kernel runs in
+STEP_LOOPS = {"shard_ext": "shard_ext_step", "shard_walk": "shard_walk_step"}
+
+
+def kernel_events(tdir) -> list:
+    """(name, ms) of each CUDA kernel of the one Chrome trace that
+    utils.metrics.profiler_trace wrote into tdir, in launch order."""
+    traces = list(Path(tdir).glob("lordfast_*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"{len(traces)} trace files in {tdir}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    return [(e["name"], e["dur"] / 1e3) for e in sorted(
+        (e for e in events if e.get("cat") == "kernel"),
+        key=lambda e: e["ts"])]
+
+
+def band_sums(ms, lives, n) -> dict:
+    """A step kernel's launches over one call (ms: each launch's ms in
+    order; lives: the lanes live before each; n: the lanes): its launches,
+    summed ms and, in each LIVE_BANDS band, its launches, summed and mean
+    ms."""
+    if len(ms) != len(lives):
+        raise AssertionError(f"{len(ms)} launches traced, {len(lives)} "
+                             "steps run")
+    bands = {}
+    for t, live in zip(ms, lives):
+        b = bands.setdefault(live_band(live, n), {"launches": 0, "ms": 0.0})
+        b["launches"] += 1
+        b["ms"] += t
+    for b in bands.values():
+        b["mean_ms"] = b["ms"] / b["launches"]
+    return {"launches": len(ms), "ms": sum(ms),
+            "bands": {label: bands[label] for label, _ in LIVE_BANDS
+                      if label in bands}}
+
+
+def _step_lives(loop, args) -> list:
+    """The lanes live before each step of one run of this checkout's loop
+    (fm_shard_cuda.shard_ext or shard_walk) on a clone of its recorded
+    arguments, logged on the card by a stand-in at its step kernel's
+    attribute (each checkout's loop steps the same lanes)."""
+    import torch
+
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    name = STEP_LOOPS[loop]
+    lives, f = [], getattr(K, name)
+    setattr(K, name, _Recorder(f, lambda st, *a, **kw: lives.append(
+        st[0].sum())))
+    try:
+        getattr(K, loop)(*_clone(args))
+    finally:
+        setattr(K, name, f)
+    return torch.stack(lives).tolist() if lives else []
+
+
+def _profile_loop(fn, args, tdir) -> list:
+    """kernel_events of one run of loop fn on a clone of its recorded
+    arguments under utils.metrics.profiler_trace (trace in tdir)."""
+    import shutil
+
+    import torch
+
+    from lordfast_tpu_torch.utils.metrics import profiler_trace
+
+    shutil.rmtree(tdir, ignore_errors=True)
+    a = _clone(args)
+    torch.cuda.synchronize()
+    with profiler_trace(tdir, "cuda"):
+        fn(*a)
+        torch.cuda.synchronize()
+    return kernel_events(tdir)
+
+
+def call_sums(events, lives, n, step) -> dict:
+    """One profiled loop call's seed_shard.cu kernels: for the step kernel
+    ``step`` band_sums over its launches, for the bucket and answer their
+    launches and summed ms."""
+    out = {}
+    for name in ("shard_bucket", "shard_answer", step):
+        ms = [t for k, t in events if f"{name}_kernel" in k]
+        out[name] = (band_sums(ms, lives, n) if name == step
+                     else {"launches": len(ms), "ms": sum(ms)})
+    return out
+
+
 def compare_shard(o_shard, runs, other, reps):
     """--against's sharded part, on NCCL over a group of one in this
     process: for each run (label, index, reads), a sharded engine's pass
-    records the first calls (record_shard) and check_shard_kernels times
-    this checkout's four kernels beside their bounds; then both
-    checkouts' shard_bucket and shard_answer, each held to the plain
-    version first, are timed on those calls in turns A B B A; then four
-    passes, A B B A, of this checkout's loops with each checkout's
-    bucket and answer in place (every SAM equal): the rank-0 ``device``
-    timer, the wall, the loops' counts, and a step's ``device`` ms beside
-    the kernels' ms a step (each extension step and walk step at its
-    first call's bucket, answer and step kernel ms)."""
-    import torch
+    records the first calls, the step kernels' sparse list steps and the
+    loops' first calls (record_shard), and check_shard_kernels times this
+    checkout's four kernels beside their bounds and the step kernels'
+    floors; then both checkouts' kernels, each held to the plain version
+    first, are timed on those calls in turns A B B A (the other's step
+    kernels over the flags, this one's over the recorded list); then each
+    loop's first call is run again under the profiler with each
+    checkout's loop, A B B A: each step kernel's launches, summed ms and
+    mean ms by live share (band_sums), the bucket's and answer's sums;
+    then four passes, A B B A, with each checkout's loops (and so its
+    kernels) in place, every SAM equal: rank 0's ``device`` timer, the
+    wall, the loops' counts, a step's ``device`` ms beside the kernels'
+    ms a step summed over the profiled calls."""
     import torch.distributed as dist
 
     from lordfast_tpu_torch.config import LordfastConfig
-    from lordfast_tpu_torch.ops import fm_index
     from lordfast_tpu_torch.ops import fm_shard_cuda as K
     from lordfast_tpu_torch.parallel.mesh import make_mesh
     from lordfast_tpu_torch.pipeline.engine import MappingEngine
 
-    sides = {"this": {n: getattr(K, n) for n in ("shard_bucket",
-                                                  "shard_answer")},
-             "other": {"shard_bucket": o_shard.shard_bucket,
-                       "shard_answer": _routed_optional(
-                           o_shard.shard_answer)}}
+    o_fm = sys.modules[f"{OTHER}.ops.fm_index"]
+    kernels = {"this": {n: getattr(K, n) for n in SHARD_KERNELS},
+               "other": {n: getattr(o_shard, n) for n in SHARD_KERNELS}}
+    kernels["other"]["shard_answer"] = _routed_optional(
+        o_shard.shard_answer)
+    sides = {"this": {n: getattr(K, n) for n in SHARD_SIDE},
+             "other": {n: getattr(o_shard, n) for n in SHARD_SIDE}}
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
@@ -2045,102 +2143,144 @@ def compare_shard(o_shard, runs, other, reps):
         for label, idx, reads in runs:
             eng = MappingEngine(idx, LordfastConfig(), device="cuda",
                                 mesh=mesh, shard_index=True)
-            with record_shard() as rec:
+            with record_shard(loops=True) as rec:
                 eng.map_file(reads, io.StringIO(), "chip_smoke")
             figs = check_shard_kernels(rec, timed=True, reps=reps)
             log(f"[compare] {label} sharded: " + json.dumps(
-                {t: {k: f[k] for k in ("ms", "bound_ms", "plain_ms")}
+                {t: {k: f[k] for k in ("ms", "bound_ms", "plain_ms",
+                                       "floor_ms", "persistent_ms", "live",
+                                       "lanes") if k in f}
                  for t, f in figs.items()}))
-            kern_ms = {}
-            for tag in ("shard_bucket", "shard_answer", "shard_bucket walk",
-                        "shard_answer walk", "shard_bucket ids",
-                        "shard_answer sa"):
-                if tag not in rec.calls:  # a full SA has no walk
-                    continue
-                args, kw = rec.calls[tag]
-                name = tag.split()[0]
-                fns = {}
-                for side, fn in sides.items():
-                    f = fn[name]
-                    if name == "shard_bucket":
-                        if side == "other":
-                            _other_bucket_check(f, args, kw)
-                        bufs = [args[7].clone(), args[8].clone(),
-                                args[9].clone(), torch.zeros_like(args[10])]
-                        fns[side] = (lambda f=f, b=bufs:
-                                     f(*args[:7], *b, **kw))
-                    else:
-                        recv, arrs, base, dst = args
-                        out = torch.empty_like(dst)
-                        want = torch.empty_like(dst)
-                        f(recv, arrs, base, out, **kw)
-                        K.shard_answer_plain(recv, arrs, base, want, **kw)
-                        took = recv != -1
-                        if not torch.equal(out[took], want[took]):
-                            raise AssertionError(f"[compare] {side} "
-                                                 f"{tag} != plain")
-                        fns[side] = (lambda f=f, o=out:
-                                     f(recv, arrs, base, o, **kw))
-                ms = {"this": [], "other": []}
-                for side in ("this", "other", "other", "this"):
-                    ms[side].append(_time_launches(fns[side], reps))
-                kern_ms[tag] = {k: sum(v) / len(v) for k, v in ms.items()}
-                log(json.dumps({"case": f"{tag} {label}",
-                                "ms_this": ms["this"],
-                                "ms_other": ms["other"],
-                                "bound_ms": figs[tag]["bound_ms"],
-                                "other": str(other)}))
-            passes = {"this": [], "other": []}
-            sams = set()
-            for side in ("this", "other", "other", "this"):
-                for n, f in sides[side].items():
-                    setattr(K, n, f)
-                fm_index.shard_counts.update(
-                    dict.fromkeys(fm_index.shard_counts, 0))
-                ext0 = K.shard_ext_step.launches
-                walk0 = K.shard_walk_step.launches
-                out = io.StringIO()
-                t = time.time()
-                eng.map_file(reads, out, "chip_smoke")
-                torch.cuda.synchronize()
-                c = dict(fm_index.shard_counts)
-                steps = max(c["steps"], 1)
-
-                def ms(tag, side=side):  # the step kernels: this one's
-                    if tag in kern_ms:
-                        return kern_ms[tag][side]
-                    return figs.get(tag, {"ms": 0.0})["ms"]
-
-                step_ms = ((K.shard_ext_step.launches - ext0)
-                           * (ms("shard_bucket") + ms("shard_answer")
-                              + ms("shard_ext_step"))
-                           + (K.shard_walk_step.launches - walk0)
-                           * (ms("shard_bucket walk")
-                              + ms("shard_answer walk")
-                              + ms("shard_walk_step"))) / steps
-                device_s = eng.metrics.timers.get("device", 0.0)
-                passes[side].append({
-                    "wall_s": time.time() - t, "device_s": device_s,
-                    "device_ms_a_step": device_s * 1e3 / steps,
-                    "kernels_ms_a_step": step_ms,
-                    "host_reads_a_call": c["host_reads"] / max(c["calls"],
-                                                               1),
-                    **c})
-                sams.add(out.getvalue())
-            for n, f in sides["this"].items():
-                setattr(K, n, f)
-            if len(sams) != 1:
-                raise AssertionError(f"[compare] {label}: the sharded "
-                                     f"passes' SAMs differ")
-            log(json.dumps({"case": f"sharded passes {label}",
-                            "passes_this": passes["this"],
-                            "passes_other": passes["other"],
-                            "other": str(other)}))
+            for tag in figs:
+                _compare_kernel(tag, rec, kernels, figs, label, other, reps)
+            sums = _compare_calls(rec, sides, label, other)
+            _compare_passes(eng, reads, sides, o_fm, sums, label, other)
             del eng
+    finally:
+        dist.destroy_process_group()
+
+
+def _compare_kernel(tag, rec, kernels, figs, label, other, reps):
+    """Both checkouts' kernel of one recorded call, each held to this
+    checkout's plain version first, timed A B B A (a step kernel: the
+    other's over the flags, this one's over the recorded list)."""
+    import torch
+
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    args, kw = rec.calls[tag]
+    name = tag.split()[0]
+    fns = {}
+    for side, fn in kernels.items():
+        f = fn[name]
+        if name == "shard_bucket":
+            if side == "other":
+                _other_bucket_check(f, args, kw)
+            bufs = [args[7].clone(), args[8].clone(), args[9].clone(),
+                    torch.zeros_like(args[10])]
+            fns[side] = lambda f=f, b=bufs: f(*args[:7], *b, **kw)
+        elif name == "shard_answer":
+            recv, arrs, base, dst = args
+            out = torch.empty_like(dst)
+            want = torch.empty_like(dst)
+            f(recv, arrs, base, out, **kw)
+            K.shard_answer_plain(recv, arrs, base, want, **kw)
+            took = recv != -1
+            if not torch.equal(out[took], want[took]):
+                raise AssertionError(f"[compare] {side} {tag} != plain")
+            fns[side] = lambda f=f, o=out: f(recv, arrs, base, o, **kw)
+        else:
+            skw = kw if side == "this" else {}
+            n_args = _step_args(name, args, kw)[0]
+            got, want = _clone(args), _clone(args)
+            f(*got[:n_args], **{k: _clone(v) for k, v in skw.items()})
+            getattr(K, name + "_plain")(*want[:n_args])
+            if not all(torch.equal(x, y) for x, y in zip(got[0], want[0])):
+                raise AssertionError(f"[compare] {side} {tag} != plain")
+            fns[side] = _time_step(name, args, skw, f, reps)
+    ms = {"this": [], "other": []}
+    for side in ("this", "other", "other", "this"):
+        ms[side].append(_time_launches(fns[side], reps))
+    log(json.dumps({"case": f"{tag} {label}", "ms_this": ms["this"],
+                    "ms_other": ms["other"],
+                    "bound_ms": figs[tag]["bound_ms"],
+                    **({"floor_ms": figs[tag]["floor_ms"]}
+                       if "floor_ms" in figs[tag] else {}),
+                    "other": str(other)}))
+
+
+def _compare_calls(rec, sides, label, other) -> dict:
+    """Each loop's first recorded call run again under the profiler with
+    each checkout's loop, A B B A (call_sums); logs one line a loop.
+    Returns {side: the four kernels' summed ms a step over both loops'
+    profiled calls, each side's mean}."""
+    per_step = {"this": [0.0, 0], "other": [0.0, 0]}
+    for loop, step in STEP_LOOPS.items():
+        if loop not in rec.calls:  # a full SA has no walk
+            continue
+        args = rec.calls[loop][0]
+        lives = _step_lives(loop, args)
+        n = int(args[3].numel())
+        res = {"this": [], "other": []}
+        for i, side in enumerate(("this", "other", "other", "this")):
+            ev = _profile_loop(sides[side][loop], args,
+                               CACHE / "profile" / f"shard_call_{i}")
+            res[side].append(call_sums(ev, lives, n, step))
+        for side, r in res.items():
+            per_step[side][0] += sum(sum(x["ms"] for x in c.values())
+                                     for c in r) / len(r)
+            per_step[side][1] += len(lives)
+        log(json.dumps({"case": f"{loop} call summed {label}",
+                        "lanes": n, "steps": len(lives),
+                        "calls_this": res["this"],
+                        "calls_other": res["other"], "other": str(other)}))
+    return {side: ms / max(steps, 1) for side, (ms, steps)
+            in per_step.items()}
+
+
+def _compare_passes(eng, reads, sides, o_fm, sums, label, other):
+    """Four sharded passes, A B B A, each with one checkout's loops in
+    place (the loops call their own checkout's kernels), every SAM
+    equal; one line of each side's passes."""
+    import torch
+
+    from lordfast_tpu_torch.ops import fm_index
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    passes = {"this": [], "other": []}
+    sams = set()
+    try:
+        for side in ("this", "other", "other", "this"):
+            for n, f in sides[side].items():
+                setattr(K, n, f)
+            for counts in (fm_index.shard_counts, o_fm.shard_counts):
+                counts.update(dict.fromkeys(counts, 0))
+            out = io.StringIO()
+            t = time.time()
+            eng.map_file(reads, out, "chip_smoke")
+            torch.cuda.synchronize()
+            # calls count in this checkout's pipeline, the rest in the
+            # loops' own
+            c = {k: fm_index.shard_counts[k] + o_fm.shard_counts.get(k, 0)
+                 for k in fm_index.shard_counts}
+            steps = max(c["steps"], 1)
+            device_s = eng.metrics.timers.get("device", 0.0)
+            passes[side].append({
+                "wall_s": time.time() - t, "device_s": device_s,
+                "device_ms_a_step": device_s * 1e3 / steps,
+                "kernels_ms_a_step": sums[side],
+                "host_reads_a_call": c["host_reads"] / max(c["calls"], 1),
+                **c})
+            sams.add(out.getvalue())
     finally:
         for n, f in sides["this"].items():
             setattr(K, n, f)
-        dist.destroy_process_group()
+    if len(sams) != 1:
+        raise AssertionError(f"[compare] {label}: the sharded passes' SAMs "
+                             "differ")
+    log(json.dumps({"case": f"sharded passes {label}",
+                    "passes_this": passes["this"],
+                    "passes_other": passes["other"], "other": str(other)}))
 
 
 def _seed_line(tag, rec, stats, need):
@@ -3506,14 +3646,23 @@ SHARD_REPLACES = {
 
 
 def _clone(x):
-    """x with every tensor in it (lists, tuples, dicts) cloned."""
+    """x with every tensor in it (lists, tuples, named tuples) cloned."""
     import torch
 
     if isinstance(x, torch.Tensor):
         return x.clone()
+    if hasattr(x, "_fields"):
+        return type(x)(*(_clone(v) for v in x))
     if isinstance(x, (list, tuple)):
         return type(x)(_clone(v) for v in x)
     return x
+
+
+# the sparse steps record_shard keeps beside the first calls: the first
+# list step of the first sharded call at which fewer than this share of
+# its lanes is live, by tag suffix
+SPARSE_STEPS = {"<10%": 0.10, "<1%": 0.01}
+STEP_KERNELS = ("shard_ext_step", "shard_walk_step")
 
 
 class record_shard:
@@ -3521,14 +3670,39 @@ class record_shard:
     wrappers made inside it, of the bucket and answer steps of a walk step
     ("shard_bucket walk", "shard_answer walk": most of their lanes dead)
     and of the SA entries' gather ("shard_bucket ids", "shard_answer sa"),
-    is recorded in ``self.calls[name]`` with its arguments as they were
-    before the call (tensors cloned: the step kernels run in place), and
-    runs as usual (a _Recorder stand-in at each module attribute, which
-    the loops look up at call time)."""
+    is recorded in ``self.calls[name]`` with its arguments and keywords
+    as they were before the call (tensors cloned: the step kernels run in
+    place, on the loop's lane lists), and runs as usual (a _Recorder
+    stand-in at each module attribute, which the loops look up at call
+    time).  Each step kernel is also recorded at the first list step of
+    the first sharded call at which fewer than 10% and 1% of its lanes
+    are live ("shard_ext_step <10%", ...: SPARSE_STEPS; a host read of
+    the live flags a list step until both are found).  With ``loops``,
+    the first call of the loops fm_shard_cuda.shard_ext and shard_walk
+    too (compare_shard replays them)."""
 
-    def __init__(self):
+    def __init__(self, loops=False):
         self.calls = {}
         self._step = ""  # the kind of the last bucket step: an answer's
+        self._call = None  # shard_counts["calls"] of the first step
+        self._names = SHARD_KERNELS + (("shard_ext", "shard_walk")
+                                       if loops else ())
+
+    def _sparse(self, name, args, kw):
+        """The sparse-step tags this call of a step kernel takes."""
+        from lordfast_tpu_torch.ops import fm_index
+
+        lanes = kw.get("lanes")
+        if self._call is None:
+            self._call = fm_index.shard_counts["calls"]
+        todo = [t for t in SPARSE_STEPS if f"{name} {t}" not in self.calls]
+        if (lanes is None or lanes.first or not todo
+                or fm_index.shard_counts["calls"] != self._call):
+            return []
+        flags = args[0][0]
+        live = int(flags.sum())
+        return [f"{name} {t}" for t in todo
+                if live < SPARSE_STEPS[t] * flags.numel()]
 
     def _record(self, name):
         def record(*args, **kw):
@@ -3541,14 +3715,18 @@ class record_shard:
             elif name == "shard_answer":
                 tag += " sa" if kw.get("key") else (
                     " walk" if self._step == " walk" else "")
-            if tag not in self.calls:
-                self.calls[tag] = (_clone(args), dict(kw))
+            tags = [tag] if tag not in self.calls else []
+            if name in STEP_KERNELS:
+                tags += self._sparse(name, args, kw)
+            for t in tags:
+                self.calls[t] = (_clone(args), {k: _clone(v)
+                                                for k, v in kw.items()})
         return record
 
     def __enter__(self):
         from lordfast_tpu_torch.ops import fm_shard_cuda as K
 
-        self._saved = {n: getattr(K, n) for n in SHARD_KERNELS}
+        self._saved = {n: getattr(K, n) for n in self._names}
         for n, f in self._saved.items():
             setattr(K, n, _Recorder(f, self._record(n)))
         return self
@@ -3765,20 +3943,125 @@ def _sentinel_back(back, slot):
     return torch.where(taken.view(shape), back, SENTINEL)
 
 
-def check_shard_kernels(rec, timed=False, reps=5) -> dict:
+def step_floor(empty_ms: float, chase: float) -> float:
+    """A step kernel's latency floor (ms): the back-to-back time of an
+    empty launch of its grid, plus two dependent loads (a lane's slot,
+    then its returned row) at ``chase`` ns each (chase_ns over the rank
+    rows' bytes)."""
+    return empty_ms + 2 * chase * 1e-6
+
+
+# the live shares a step kernel's summed time is split by (the lanes
+# live before the step over all lanes): label, lowest share
+LIVE_BANDS = ((">=50%", 0.5), ("1-50%", 0.01), ("<1%", 0.0))
+
+
+def live_band(live: int, n: int) -> str:
+    """The LIVE_BANDS label of a step with ``live`` of its ``n`` lanes
+    live before it."""
+    share = live / max(n, 1)
+    return next(label for label, lo in LIVE_BANDS if share >= lo)
+
+
+def _step_args(name, args, kw):
+    """(the positional arguments a step kernel's check passes, the index
+    of its back, its lanes' LaneList or None)."""
+    n_args, bk = (8, 6) if name == "shard_ext_step" else (5, 3)
+    return n_args, bk, kw.get("lanes")
+
+
+def _step_outputs(state, live, lanes):
+    """A step's results as check_shard_kernels compares them: the lane
+    state, the live count and, with a list, the list it wrote (sorted:
+    its order follows the atomics) and the counter ring."""
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    out = list(state) + [live]
+    if lanes is not None:
+        _, _, list_out, n_out, _ = K.lane_ring(lanes)
+        out += [list_out[: int(n_out[0])].sort().values, lanes.ring]
+    return out
+
+
+def _reverse_list(lanes):
+    """A list step's list reversed in place (its count's lanes): the step
+    must give the same results in any order."""
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    list_in, n_in = K.lane_ring(lanes)[:2]
+    m = int(n_in[0])
+    list_in[:m] = list_in[:m].flip(0)
+
+
+def _check_step(name, tag, args, kw, kern, plain, routed_rows):
+    """A step kernel against its plain version on one recorded call (from
+    clones of its arguments): the lane state, the live count and, with a
+    list, the list written (as a set) and the count zeroed, bit-equal;
+    also with SENTINEL in every returned row no query took, on a list
+    step with the list reversed, and at the first extension call with
+    the routed answer's own output as its rows (``routed_rows``, or
+    None).  Returns its figures."""
+    import torch
+
+    n_args, bk, lanes = _step_args(name, args, kw)
+    backs = [None, _sentinel_back(args[bk], args[bk + 1])]
+    if routed_rows is not None and routed_rows.shape == args[bk].shape:
+        backs.append(routed_rows)
+    runs = [(plain, None, False)] + [(kern, b, False) for b in backs]
+    if lanes is not None and not lanes.first:
+        runs.append((kern, None, True))
+    res = []
+    for f, back, rev in runs:
+        a, ln = _clone(args), _clone(lanes)
+        if back is not None:
+            a = a[:bk] + (back,) + a[bk + 1:]
+        if rev:
+            _reverse_list(ln)
+        live = torch.zeros(1, dtype=torch.int32, device=a[0][0].device)
+        f(*a[:n_args], live, lanes=ln)
+        res.append(_step_outputs(a[0], live, ln))
+    for got in res[1:]:
+        for x, y in zip(got, res[0]):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{tag}: kernel != plain")
+    flags = args[0][0]
+    return {"lanes": int(flags.numel()), "live": int(flags.sum()),
+            "list_step": lanes is not None and not lanes.first,
+            "backs_checked": len(backs), "reversed": runs[-1][2]}
+
+
+def _time_step(name, args, kw, f, reps, n_live=None):
+    """Mean ms of step kernel f (the wrapper or its plain version) on one
+    recorded call, a fresh clone of its arguments a launch (made before
+    the timed window: the step runs in place); n_live: the lanes its grid
+    covers on a list step (a persistent grid's, in place of the
+    block's)."""
+    n_args, _, lanes = _step_args(name, args, kw)
+    if n_live is not None:
+        lanes = lanes._replace(n_live=n_live)
+    pre = itertools.cycle([(_clone(args), _clone(lanes))
+                           for _ in range(reps + 1)])
+
+    def call():
+        a, ln = next(pre)
+        f(*a[:n_args], **({} if ln is None else {"lanes": ln}))
+
+    return call
+
+
+def check_shard_kernels(rec, timed=False, reps=5, chase=None) -> dict:
     """Each of the four step kernels against its plain version on the card,
-    on its first recorded call (record_shard): shard_bucket as
-    _bucket_check says, shard_answer as _answer_check says, a step's lane
-    state and live count bit-equal (from two clones of the state as it
-    was before the call), also with SENTINEL in every returned row no
-    query took; at D = 1 the first extension step also runs on the
-    routed answer's own output (the all_to_all's back there).  With
-    ``timed``, each kernel's mean ms over reps launches queued behind a
-    spin (_time_launches; a step kernel gets a fresh clone of the state a
-    launch) and its plain version's (_time_cuda), and its bound by bytes
-    (shard_work).  Returns {name: figures}."""
+    on its first recorded call (record_shard), and each step kernel on
+    its recorded sparse list steps too: shard_bucket as _bucket_check
+    says, shard_answer as _answer_check says, a step as _check_step says.
+    With ``timed``, each kernel's mean ms over reps launches queued
+    behind a spin (_time_launches) and its plain version's (_time_cuda),
+    and its bound by bytes (shard_work); a step kernel also its latency
+    floor (step_floor: its grid's empty launch, timed the same way, and
+    two loads at ``chase`` ns, chase_ns over the stripe's rank rows,
+    measured here when None) and, on a list step, its time on a
+    persistent grid of one block an SM.  Returns {tag: figures}."""
     import functools
-    import itertools
 
     import torch
 
@@ -3792,6 +4075,8 @@ def check_shard_kernels(rec, timed=False, reps=5) -> dict:
     routed_rows = None
     for tag, (args, kw) in rec.calls.items():
         name = tag.split()[0]
+        if name not in SHARD_KERNELS:  # a recorded loop (compare_shard's)
+            continue
         kern = functools.partial(getattr(K, name), **kw)
         plain = functools.partial(getattr(K, name + "_plain"), **kw)
         fig = {"max_abs_err": 0}
@@ -3822,42 +4107,55 @@ def check_shard_kernels(rec, timed=False, reps=5) -> dict:
             def call(f):
                 return lambda: f(recv, arrs, base, got)
         else:
-            n_args = 8 if name == "shard_ext_step" else 5
-            bk = 6 if name == "shard_ext_step" else 3
-            backs = [None, _sentinel_back(args[bk], args[bk + 1])]
-            if (name == "shard_ext_step" and routed_rows is not None
-                    and rec.calls["shard_bucket"][0][5] == 1
-                    and routed_rows.shape == args[bk].shape):
-                backs.append(routed_rows)
-            res = []
-            for f, back in [(plain, None)] + [(kern, b) for b in backs]:
-                a = _clone(args)
-                if back is not None:
-                    a = a[:bk] + (back,) + a[bk + 1:]
-                live = torch.zeros(1, dtype=torch.int32, device=a[0][0].device)
-                f(*a[:n_args], live)
-                res.append(list(a[0]) + [live])
-            for got in res[1:]:
-                for x, y in zip(got, res[0]):
-                    if not torch.equal(x, y):
-                        raise AssertionError(f"{name}: kernel != plain")
-            fig["lanes"] = int(args[0][0].numel())
-            fig["live"] = int(args[0][0].sum())
-            fig["backs_checked"] = len(backs)
+            # the routed answer's output is the first extension call's back
+            # at D = 1 (the all_to_all's back there)
+            first_ext = (tag == "shard_ext_step"
+                         and rec.calls["shard_bucket"][0][5] == 1)
+            fig.update(_check_step(name, tag, args, kw, kern, plain,
+                                   routed_rows if first_ext else None))
 
-            def call(f, n_args=n_args):
-                # a fresh copy of the state a launch, made before the
-                # timed window (the step runs in place)
-                pre = itertools.cycle([_clone(args) for _ in range(reps + 1)])
-                return lambda: f(*next(pre)[:n_args])
+            def call(f, name=name, args=args, kw=kw):
+                return _time_step(name, args, kw, f, reps)
         if timed:
             fig["ms"] = _time_launches(call(kern), reps)
             fig["plain_ms"] = _time_cuda(call(plain), reps)
             nbytes = shard_work(name, args, kw)
             fig["bound_ms"], fig["bound_by"] = bound(nbytes, 0, 1.0)
             fig["bytes"] = nbytes
+            if name in STEP_KERNELS:
+                fig.update(_step_times(name, args, kw, kern, reps, chase))
+                chase = fig["chase_ns"]
         out[tag] = fig
     return out
+
+
+def _step_times(name, args, kw, kern, reps, chase):
+    """A step kernel's floor figures on one recorded call: its grid's
+    lanes, the empty launch's ms (fm_shard_cuda.noop), the ns of a
+    dependent load (chase, or chase_ns over the stripe's rank rows), the
+    floor (step_floor), and on a list step its ms on a persistent grid of
+    one block an SM."""
+    import torch
+
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    n_args, _, lanes = _step_args(name, args, kw)
+    flags = args[0][0]
+    grid = K.grid_lanes(flags.numel(), lanes)
+    if chase is None:
+        chase = chase_ns(rank_bytes(args[4] if n_args == 8 else args[1]))
+    empty = _time_launches(lambda: K.noop(grid, flags.device), 4 * reps)
+    l2 = (args[4] if n_args == 8 else args[1])["L2"]
+    fig = {"grid_lanes": grid, "empty_ms": empty, "chase_ns": chase,
+           "floor_ms": step_floor(empty, chase),
+           "blocks_a_sm": K.resident_blocks(name, l2.element_size())}
+    if lanes is not None and not lanes.first:
+        sms = torch.cuda.get_device_properties(
+            flags.device).multi_processor_count
+        fig["persistent_ms"] = _time_launches(_time_step(
+            name, args, kw, kern, reps,
+            n_live=min(grid, sms * K.STEP_THREADS)), reps)
+    return fig
 
 
 def _striped_bytes(idx, arrs: dict):
@@ -4093,7 +4391,7 @@ def _report_mesh(backend, world, runs, recs, want, replicated_s=None):
                 f"peak device memory {x['peak_mib']:.0f} MiB")
             for k, f in x.get("kernels", {}).items():
                 log(f"[mesh] {backend} D={world} {name} rank {rank} {k}: "
-                    f"== plain on its first call ("
+                    f"== plain on its recorded call ("
                     + ", ".join(f"{a} {v:.6g}" if isinstance(v, float)
                                 else f"{a} {v}" for a, v in f.items())
                     + ")")
@@ -4131,7 +4429,9 @@ def shard_rows(figs) -> list:
              "max_abs_err": figs[name]["max_abs_err"],
              "ms": figs[name]["ms"], "plain_ms": figs[name]["plain_ms"],
              "bound_ms": figs[name]["bound_ms"],
-             "bound_by": figs[name]["bound_by"], "library_ms": None}
+             "bound_by": figs[name]["bound_by"], "library_ms": None,
+             **({"floor_ms": figs[name]["floor_ms"]}
+                if "floor_ms" in figs[name] else {})}
             for name in SHARD_KERNELS]
 
 

@@ -46,19 +46,25 @@
 //                          rank row (fm_blocks, or occ_cp + bwt_blocks
 //                          answered into one 12-value row)
 // The occ count and the walk step are fm_rank.cuh's, which seed_ext.cu's
-// kernels use too.  The step kernels run in place; on the last step of a
-// block of steps each adds its live lanes to a device count (one atomicAdd
-// a warp), which the block's one all_reduce (MAX) carries beside the
-// overflow flag: one host read a block.
+// kernels use too.  The step kernels run in place over a compacted list
+// of live lanes (see below); on the last step of a block of steps the
+// list's count is the block's live lanes, which the block's one
+// all_reduce (MAX) carries beside the overflow flag: one host read a
+// block.
 //
 // What bounds it on the card: the host around the kernels, and within
 // them bytes and latency.  A step's four launches and two collectives
-// take the host 0.3-0.5 ms, its kernels ~0.05 ms (PERF.md, Sharded
-// seeding loops).  At v2's first sharded call on one H100 the answer
-// moves ~52 MB in ~0.021 ms (its bytes bound 0.0115 ms); the bucket
-// ~7 MB in ~0.010 ms (bound 0.0021 ms), most of it a floor that does not
-// shrink with the queries: the launch, a ticket a block and the
-// look-back's round trips through L2 (~6 us on 44,000 queries).  Lane
+// take rank 0's device timer 0.4-0.9 ms, its four kernels ~0.012 ms
+// summed over a call (PERF.md, Sharded seeding loops).  The step
+// kernels' dense first step (128,000 lanes) takes 0.017-0.019 ms against
+// a bytes bound of 0.0067; a list step 0.005-0.008 ms back to back
+// (~0.003 alone) against a latency floor of ~0.0025: an empty launch of
+// its grid and two dependent loads.  At v2's first sharded call on one
+// H100 the answer moves ~52 MB in ~0.021 ms (its bytes bound 0.0115
+// ms); the bucket ~7 MB in ~0.010 ms (bound 0.0021 ms), most of it a
+// floor that does not shrink with the queries: the launch, a ticket a
+// block and the look-back's round trips through L2 (~6 us on 44,000
+// queries).  Lane
 // state stays in device memory between steps, so nothing crosses to the
 // host inside a block.
 //
@@ -100,6 +106,36 @@
 // to zeros.  On the all-gather route every slot this rank does not own
 // is written as zeros, since the reduce_scatter sums every rank's
 // answers.
+//
+// The steps' design.  A loop's lanes die step by step (an extension call
+// runs ~565 steps, most lanes dead within two; a walk starts with ~5% of
+// its rows active), so a step runs over a list of the live lanes, not
+// over every lane's flag: the first step of a block (and of a block run
+// again, from its saved state) reads every flag and writes a list; each
+// later step runs a thread a list entry and writes the next list (two
+// lists, in turns).  A block reserves its live lanes' slots in the list
+// it writes with one atomicAdd as soon as it knows them, before their
+// loads, and each lane fills its slot after its step: the index of a
+// lane kept alive, -1 for one that died, which the next step skips.  (A
+// slot taken only once the survivors are known costs a dependent atomic
+// round trip at every warp's end; one atomicAdd a warp, reserved early,
+// contends on one address across the ~4,000-13,000 warps of a first
+// step: on one H100 each made the first steps 2-4 us slower than the
+// parent's, PERF.md.)  A step's grid covers the group's most live
+// lanes at the block's start (the host holds that count from the block's
+// read; lanes only die), and its threads exit past the list's count,
+// which they read on the card: no host read and no memset inside a
+// block.  The counts are a ring of three: step g reserves on count g %
+// 3, reads count (g - 1) % 3 and zeroes count (g + 1) % 3
+// (ops/fm_shard_cuda.py's LaneList), so the count it reserves on was
+// zeroed a step before and the one it zeroes was read a step before; a
+// block's last step also counts its kept lanes into the block's live
+// count.  The list's order follows the atomics; a lane's step reads and
+// writes only its own state, so the results do not depend on it.  The
+// lane's loads that need no returned row (its state, both slots) are
+// issued together, then the read word and length with both queries' row
+// pieces (load_rank_row: only the pieces up to the row's word); L2 is
+// read from shared memory once they have arrived.
 //
 // tests/test_torch_sharded_route.py holds a numpy model of these kernels
 // (tests/torch_shard_model.py, names as here) against the plain versions
@@ -442,12 +478,109 @@ __device__ __forceinline__ void row_at(const int64_t* back, int32_t s,
   load_rank_row(cp, cp + 2, pos, k, row);
 }
 
-// Adds the warp's live lanes to *live (every thread of the warp calls it).
-__device__ __forceinline__ void count_live(int32_t* live, bool alive) {
-  const unsigned b = __ballot_sync(kFull, alive);
-  if ((threadIdx.x & 31) == 0 && b != 0u) {
-    atomicAdd(live, static_cast<int32_t>(__popc(b)));
+// A step's lanes and its compacted list of live lanes.  The first step of
+// a block of steps runs over every lane's flag (list_in null: n lanes);
+// each later one over the list_in[0 .. *n_in) entries the step before it
+// wrote: a lane it kept alive, or -1 for a lane that died there (skipped;
+// no flag is read).  A block reserves list_out slots for its live lanes
+// at one atomicAdd on *n_out as soon as it knows them, so the atomic's
+// round trip overlaps the lanes' loads; after the step each kept lane
+// writes its index into its warp's slots, and each lane that died -1
+// (list_out null: no list).  *live (or null) counts the kept lanes, one
+// atomicAdd a warp (a block's last step: the block's live count); thread
+// 0 of block 0 sets *zero (or null) to 0: the count the next step
+// reserves on, which the step before this one read (the counter ring of
+// lf_shard_ext_step).  The list's order follows the atomics; no lane's
+// step depends on another's.
+struct Lanes {
+  const int32_t* list_in;
+  const int32_t* n_in;
+  int32_t* list_out;
+  int32_t* n_out;
+  int32_t* live;
+  int32_t* zero;
+  int64_t n;
+};
+
+// step(lane) -> whether the lane stays alive, for every lane of the step,
+// a block kThreads consecutive items (flags or list entries) at a time
+// with the grid striding over them (the wrapper sizes the grid to the
+// lanes alive at the block's start, so a thread takes one item); a list
+// step's first entry is loaded beside the list's count.  A block's live
+// lanes reserve their slots with one atomicAdd, issued by thread 0 before
+// the lanes' loads and awaited only after their step, and each warp's
+// live lanes fill the warp's run of them: its kept lanes first, then -1
+// for each that died.  Items and lanes are 32-bit: n <= 2^30
+// (make_lanes).
+template <typename Pos, typename Step>
+__device__ __forceinline__ void for_lanes(const Lanes& s,
+                                          const uint8_t* flags,
+                                          const void* l2, int64_t* l2s,
+                                          Step step) {
+  __shared__ int woff[kThreads / 32];  // each warp's first slot in its block's
+  __shared__ int base;                 // the block's first slot
+  if (s.zero != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *s.zero = 0;
+  // L2 into shared memory, its load beside the items' (the first barrier
+  // below waits for both)
+  if (threadIdx.x < 5) l2s[threadIdx.x] = pos_at<Pos>(l2, threadIdx.x);
+  const int me = static_cast<int>(threadIdx.x & 31);
+  const int w = static_cast<int>(threadIdx.x >> 5);
+  const unsigned lt = (1u << me) - 1u;
+  const int n = static_cast<int>(s.n);
+  const int stride = static_cast<int>(gridDim.x) * kThreads;
+  const int b0 = static_cast<int>(blockIdx.x) * kThreads;
+  const int t = static_cast<int>(threadIdx.x);
+  int first = -1;
+  if (s.list_in != nullptr && b0 + t < n) first = __ldg(s.list_in + b0 + t);
+  const int items = s.list_in != nullptr ? __ldg(s.n_in) : n;
+  for (int i0 = b0; i0 < items; i0 += stride) {  // the block's, uniform
+    const int i = i0 + t;
+    int lane = i;
+    bool alive = false;
+    if (i < items) {
+      if (s.list_in != nullptr) {
+        lane = i0 == b0 ? first : __ldg(s.list_in + i);
+        alive = lane >= 0;
+      } else {
+        alive = flags[lane] != 0;
+      }
+    }
+    const unsigned b_alive = __ballot_sync(kFull, alive);
+    int got = 0;  // thread 0: the block's first slot, still in flight
+    if (me == 0) woff[w] = __popc(b_alive);
+    __syncthreads();
+    if (s.list_out != nullptr) {
+      if (t == 0) {
+        int sum = 0;
+        for (int k = 0; k < kThreads / 32; ++k) {
+          const int c = woff[k];
+          woff[k] = sum;
+          sum += c;
+        }
+        if (sum > 0) got = atomicAdd(s.n_out, sum);
+      }
+    }
+    const bool keep = alive && step(lane);
+    const unsigned b_keep = __ballot_sync(kFull, keep);
+    if (s.list_out != nullptr) {
+      if (t == 0) base = got;
+      __syncthreads();
+      if (alive) {
+        const int at = keep ? __popc(b_keep & lt)
+                            : __popc(b_keep) + __popc(b_alive & ~b_keep & lt);
+        s.list_out[base + woff[w] + at] = keep ? lane : -1;
+      }
+      __syncthreads();  // woff and base are the next round's
+    }
+    if (s.live != nullptr && me == 0 && b_keep != 0u) {
+      atomicAdd(s.live, __popc(b_keep));
+    }
   }
+}
+
+// L2 from the block's shared memory (for_lanes fills it)
+__device__ __forceinline__ L2 shared_l2(const int64_t* l2s) {
+  return L2{l2s[0], l2s[1], l2s[2], l2s[3], l2s[4]};
 }
 
 struct ExtArgs {
@@ -462,50 +595,70 @@ struct ExtArgs {
   const void* l2;          // (5,) Pos
   const int64_t* back;     // (slots, 12) the returned rows
   const int32_t* slot;     // (2 n,)
-  int32_t* live;           // the live-lane count, or null
   int64_t n, seq_len, primary;
   int L, W16;
 };
 
-// One greedy extension step of every alive lane (_ext_steps' body): the
+// occ_pos in the index's position type: with Pos = int32_t every row fits
+// (seq_len < 2^31), so the clamp and the shift are 32-bit there.
+template <typename Pos>
+__device__ __forceinline__ Pos occ_pos_as(Pos seq_len, Pos primary, Pos k) {
+  const Pos kk = k < 0 ? 0 : (k < seq_len - 1 ? k : seq_len - 1);
+  return kk - (kk >= primary ? 1 : 0);
+}
+
+// One greedy extension step of an alive lane (_ext_steps' body): the
 // complement of the next read char as one backward-extension step of [k,
-// l]; a lane dies at a non-ACGT char, past the read's end, on an empty
-// interval or at MAX_ANCHOR_LEN, and a dead lane is left as it is.
+// l]; the lane dies at a non-ACGT char, past the read's end, on an empty
+// interval or at MAX_ANCHOR_LEN.  Returns whether it stays alive.  The
+// loads that need no returned row are issued first, together (the lane's
+// state and both slots), then the read's word and length with both
+// queries' row pieces; L2 comes from shared memory (l2s) once they have
+// arrived.  Rows are Pos arithmetic, read positions (below L) 32-bit.
+template <typename Pos>
+__device__ __forceinline__ bool ext_lane(const ExtArgs& a, const int64_t* l2s,
+                                         int lane) {
+  const Pos k = static_cast<Pos>(a.k[lane]);
+  const Pos l = static_cast<Pos>(a.l[lane]);
+  const int32_t m = static_cast<int32_t>(a.m[lane]);
+  const int32_t pf = static_cast<int32_t>(ld(a.pos_f + lane));
+  const int64_t b = ld(a.b_lane + lane);
+  const int32_t sk = __ldg(a.slot + lane);
+  const int32_t sl = __ldg(a.slot + a.n + lane);
+  const Pos seq_len = static_cast<Pos>(a.seq_len);
+  const Pos primary = static_cast<Pos>(a.primary);
+  const int32_t q = pf + m;  // the next read position to consume
+  const int32_t qc = q < a.L ? q : a.L - 1;
+  const int64_t word = ld(a.rw + b * a.W16 + (qc >> 4));
+  const int64_t len = ld(a.lens + b);
+  Row rk, rl;
+  row_at(a.back, sk, occ_pos_as<Pos>(seq_len, primary, k - 1), k - 1, rk);
+  row_at(a.back, sl, occ_pos_as<Pos>(seq_len, primary, l), l, rl);
+  const int c = static_cast<int>((word >> (3 * (15 - (qc & 15)))) & 7);
+  const bool ok_char = q < len && c < 4;
+  const int cc = ok_char ? 3 - c : 0;  // complemented
+  const L2 l2 = shared_l2(l2s);
+  const int64_t nk = l2[cc] + occ_of_row(a.seq_len, l2, rk, cc) + 1;
+  const int64_t nl = l2[cc] + occ_of_row(a.seq_len, l2, rl, cc);
+  const bool alive = ok_char && nk <= nl && m < kMaxAnchor;
+  if (alive) {
+    a.k[lane] = nk;
+    a.l[lane] = nl;
+    a.m[lane] = m + 1;
+  } else {
+    a.alive[lane] = 0;
+  }
+  return alive;
+}
+
+// One extension step of a block's lanes (Lanes): its first over the alive
+// flags, a later one over the list; a dead lane is left as it is.
 template <typename Pos>
 __global__ void __launch_bounds__(kThreads) shard_ext_step_kernel(
-    const ExtArgs a) {
-  const int64_t lane =
-      static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  bool alive = lane < a.n && a.alive[lane] != 0;
-  if (alive) {
-    const L2 l2 = load_l2<Pos>(a.l2);
-    const int64_t k = a.k[lane];
-    const int64_t l = a.l[lane];
-    const int64_t m = a.m[lane];
-    const int64_t q = a.pos_f[lane] + m;  // next read position to consume
-    const int64_t b = a.b_lane[lane];
-    const int64_t qc = q < a.L ? q : a.L - 1;
-    const int64_t word = ld(a.rw + b * a.W16 + (qc >> 4));
-    Row rk, rl;
-    row_at(a.back, a.slot[lane], occ_pos(a.seq_len, a.primary, k - 1), k - 1,
-           rk);
-    row_at(a.back, a.slot[a.n + lane], occ_pos(a.seq_len, a.primary, l), l,
-           rl);
-    const int c = static_cast<int>((word >> (3 * (15 - (qc & 15)))) & 7);
-    const bool ok_char = q < ld(a.lens + b) && c < 4;
-    const int cc = ok_char ? 3 - c : 0;  // complemented
-    const int64_t nk = l2[cc] + occ_of_row(a.seq_len, l2, rk, cc) + 1;
-    const int64_t nl = l2[cc] + occ_of_row(a.seq_len, l2, rl, cc);
-    alive = ok_char && nk <= nl && m < kMaxAnchor;
-    if (alive) {
-      a.k[lane] = nk;
-      a.l[lane] = nl;
-      a.m[lane] = m + 1;
-    } else {
-      a.alive[lane] = 0;
-    }
-  }
-  if (a.live != nullptr) count_live(a.live, alive);
+    const ExtArgs a, const Lanes s) {
+  __shared__ int64_t l2s[5];
+  for_lanes<Pos>(s, a.alive, a.l2, l2s,
+                 [&](int lane) { return ext_lane<Pos>(a, l2s, lane); });
 }
 
 struct WalkArgs {
@@ -515,35 +668,47 @@ struct WalkArgs {
   const void* l2;          // (5,) Pos
   const int64_t* back;     // (slots, 12) the returned rows
   const int32_t* slot;     // (n,)
-  int32_t* live;           // the live-lane count, or null
   int64_t n, seq_len, primary, mask;
 };
 
-// One inverse-Psi step of every active row (the plain walk's body, bwt_sa
-// of lib/bwa/bwt.c:86-96): the primary row steps to 0, any other row to
-// walk_next of its returned row; a row stops at a sampled row (rows & mask
-// == 0), and an inactive row is left as it is.
+// One inverse-Psi step of an active row (the plain walk's body, bwt_sa of
+// lib/bwa/bwt.c:86-96): the primary row steps to 0, any other row to
+// walk_next of its returned row; the row stops at a sampled row (rows &
+// mask == 0).  Returns whether it stays active.  Its row, steps and slot
+// are loaded together, then the returned row's pieces (L2 from shared
+// memory, l2s).
+template <typename Pos>
+__device__ __forceinline__ bool walk_lane(const WalkArgs& a,
+                                          const int64_t* l2s, int i) {
+  const Pos k = static_cast<Pos>(a.rows[i]);
+  const int64_t steps = a.steps[i];
+  const int32_t s = __ldg(a.slot + i);
+  const Pos primary = static_cast<Pos>(a.primary);
+  int64_t nxt = 0;
+  if (k != primary) {
+    Row row;
+    row_at(a.back, s, k - (k > primary ? 1 : 0), k, row);
+    nxt = walk_next(a.seq_len, shared_l2(l2s), row);
+  }
+  a.rows[i] = nxt;
+  a.steps[i] = steps + 1;
+  const bool active = (nxt & a.mask) != 0;
+  if (!active) a.active[i] = 0;
+  return active;
+}
+
+// One walk step of a block's rows (Lanes), as shard_ext_step_kernel's.
 template <typename Pos>
 __global__ void __launch_bounds__(kThreads) shard_walk_step_kernel(
-    const WalkArgs a) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  bool active = i < a.n && a.active[i] != 0;
-  if (active) {
-    const int64_t k = a.rows[i];
-    int64_t nxt = 0;
-    if (k != a.primary) {
-      const L2 l2 = load_l2<Pos>(a.l2);
-      Row row;
-      row_at(a.back, a.slot[i], k - (k > a.primary ? 1 : 0), k, row);
-      nxt = walk_next(a.seq_len, l2, row);
-    }
-    a.rows[i] = nxt;
-    a.steps[i] += 1;
-    active = (nxt & a.mask) != 0;
-    if (!active) a.active[i] = 0;
-  }
-  if (a.live != nullptr) count_live(a.live, active);
+    const WalkArgs a, const Lanes s) {
+  __shared__ int64_t l2s[5];
+  for_lanes<Pos>(s, a.active, a.l2, l2s,
+                 [&](int i) { return walk_lane<Pos>(a, l2s, i); });
 }
+
+// An empty kernel: a step's latency floor starts from the back-to-back
+// time of its grid's empty launch (chip_smoke.py step_floor).
+__global__ void __launch_bounds__(kThreads) shard_noop_kernel() {}
 
 unsigned blocks_of(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
@@ -551,6 +716,27 @@ unsigned blocks_of(int64_t n) {
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// A step's Lanes from the step kernels' arguments (see Lanes): the first
+// step of a block over the flags (list_in null) or a later one over
+// list_in[0 .. *n_in); list_out (n,) int32 with the count n_out (int32)
+// its slots are reserved on, or null; live (int32) or null; zero (int32)
+// or null.  n_grid in [1, n]: the lanes the grid covers, one a thread
+// (the block's live lanes at its start for a list step, whose entries
+// never outnumber them; the kernel strides past it in any case); n <=
+// 2^30.  False on arguments the kernels do not take.
+bool make_lanes(const void* list_in, const void* n_in, void* list_out,
+                void* n_out, void* live, void* zero, long long n,
+                long long n_grid, Lanes& s) {
+  s = Lanes{static_cast<const int32_t*>(list_in),
+            static_cast<const int32_t*>(n_in),
+            static_cast<int32_t*>(list_out), static_cast<int32_t*>(n_out),
+            static_cast<int32_t*>(live), static_cast<int32_t*>(zero), n};
+  return n >= 0 && n <= (1ll << 30) &&
+         (n == 0 || (n_grid >= 1 && n_grid <= n)) &&
+         (list_in == nullptr || n_in != nullptr) &&
+         (list_out == nullptr || n_out != nullptr);
 }
 
 }  // namespace
@@ -642,20 +828,28 @@ extern "C" int lf_shard_answer(const void* recv, const void* rank_a,
   return static_cast<int>(cudaGetLastError());
 }
 
+
 // The extension step over n lanes, in place: alive (bool), k, l, m (int64);
 // pos_f, b_lane (n,) int64; the reads as 3-bit words rw (B, W16) int64 of
 // L chars and lens (B,) int64; l2 (5,) int32 (pos_bytes 4) or int64 (8);
 // back (slots, 12) int64, 16-byte aligned, and slot (2 n,) int32 from the
-// bucket step; live (int32) or null: the live lanes after the step are
-// added to it.  Returns a cudaError_t.
+// bucket step; the lanes as make_lanes takes them (a list step's entries
+// each a live lane, once, or -1).  Issues one launch and no memset.
+// Returns a cudaError_t.
 extern "C" int lf_shard_ext_step(void* alive, void* k, void* l, void* m,
                                  const void* pos_f, const void* b_lane,
                                  const void* rw, const void* lens,
                                  const void* l2, const void* back,
-                                 const void* slot, void* live, long long n,
-                                 long long seq_len, long long primary, int L,
-                                 int W16, int pos_bytes, void* stream) {
-  if (n < 0 || L <= 0 || W16 * 16 < L || !aligned16(back) ||
+                                 const void* slot, const void* list_in,
+                                 const void* n_in, void* list_out,
+                                 void* n_out, void* live, void* zero,
+                                 long long n,
+                                 long long n_grid, long long seq_len,
+                                 long long primary, int L, int W16,
+                                 int pos_bytes, void* stream) {
+  Lanes s;
+  if (!make_lanes(list_in, n_in, list_out, n_out, live, zero, n, n_grid, s) ||
+      L <= 0 || W16 * 16 < L || !aligned16(back) ||
       (pos_bytes != 4 && pos_bytes != 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -667,42 +861,83 @@ extern "C" int lf_shard_ext_step(void* alive, void* k, void* l, void* m,
                   static_cast<const int64_t*>(rw),
                   static_cast<const int64_t*>(lens), l2,
                   static_cast<const int64_t*>(back),
-                  static_cast<const int32_t*>(slot),
-                  static_cast<int32_t*>(live), n, seq_len, primary, L, W16};
+                  static_cast<const int32_t*>(slot), n, seq_len, primary, L,
+                  W16};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (pos_bytes == 4) {
-    shard_ext_step_kernel<int32_t><<<blocks_of(n), kThreads, 0, st>>>(a);
+    shard_ext_step_kernel<int32_t><<<blocks_of(n_grid), kThreads, 0, st>>>(
+        a, s);
   } else {
-    shard_ext_step_kernel<int64_t><<<blocks_of(n), kThreads, 0, st>>>(a);
+    shard_ext_step_kernel<int64_t><<<blocks_of(n_grid), kThreads, 0, st>>>(
+        a, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The walk step over n rows, in place: active (bool), rows, steps (int64);
 // l2 as lf_shard_ext_step's; back and slot (n,) int32 from the bucket
-// step; sa_intv a power of two above 1; live as lf_shard_ext_step's.
+// step; sa_intv a power of two above 1; the lanes as lf_shard_ext_step's.
 // Returns a cudaError_t.
 extern "C" int lf_shard_walk_step(void* active, void* rows, void* steps,
                                   const void* l2, const void* back,
-                                  const void* slot, void* live, long long n,
-                                  long long seq_len, long long primary,
-                                  int sa_intv, int pos_bytes, void* stream) {
-  if (n < 0 || sa_intv < 2 || (sa_intv & (sa_intv - 1)) != 0 ||
-      !aligned16(back) || (pos_bytes != 4 && pos_bytes != 8)) {
+                                  const void* slot, const void* list_in,
+                                  const void* n_in, void* list_out,
+                                  void* n_out, void* live, void* zero,
+                                  long long n,
+                                  long long n_grid, long long seq_len,
+                                  long long primary, int sa_intv,
+                                  int pos_bytes, void* stream) {
+  Lanes s;
+  if (!make_lanes(list_in, n_in, list_out, n_out, live, zero, n, n_grid, s) ||
+      sa_intv < 2 || (sa_intv & (sa_intv - 1)) != 0 || !aligned16(back) ||
+      (pos_bytes != 4 && pos_bytes != 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
   const WalkArgs a{static_cast<uint8_t*>(active), static_cast<int64_t*>(rows),
                    static_cast<int64_t*>(steps), l2,
                    static_cast<const int64_t*>(back),
-                   static_cast<const int32_t*>(slot),
-                   static_cast<int32_t*>(live), n, seq_len, primary,
+                   static_cast<const int32_t*>(slot), n, seq_len, primary,
                    static_cast<int64_t>(sa_intv - 1)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (pos_bytes == 4) {
-    shard_walk_step_kernel<int32_t><<<blocks_of(n), kThreads, 0, st>>>(a);
+    shard_walk_step_kernel<int32_t><<<blocks_of(n_grid), kThreads, 0, st>>>(
+        a, s);
   } else {
-    shard_walk_step_kernel<int64_t><<<blocks_of(n), kThreads, 0, st>>>(a);
+    shard_walk_step_kernel<int64_t><<<blocks_of(n_grid), kThreads, 0, st>>>(
+        a, s);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The blocks of 256 threads an SM holds at once of the extension step
+// (walk 0) or the walk step (walk 1) in the Pos instance of pos_bytes,
+// into *blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor: what the
+// kernel's registers leave room for).  Returns a cudaError_t.
+extern "C" int lf_shard_step_blocks(int walk, int pos_bytes, int* blocks) {
+  if (pos_bytes != 4 && pos_bytes != 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* f =
+      walk ? (pos_bytes == 4
+                  ? reinterpret_cast<const void*>(
+                        shard_walk_step_kernel<int32_t>)
+                  : reinterpret_cast<const void*>(
+                        shard_walk_step_kernel<int64_t>))
+           : (pos_bytes == 4
+                  ? reinterpret_cast<const void*>(
+                        shard_ext_step_kernel<int32_t>)
+                  : reinterpret_cast<const void*>(
+                        shard_ext_step_kernel<int64_t>));
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, f, kThreads, 0));
+}
+
+// An empty launch of a step's grid over n_grid >= 1 lanes (256 threads a
+// block, as the step kernels').  Returns a cudaError_t.
+extern "C" int lf_shard_noop(long long n_grid, void* stream) {
+  if (n_grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  shard_noop_kernel<<<blocks_of(n_grid), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

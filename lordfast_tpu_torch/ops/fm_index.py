@@ -111,13 +111,16 @@ class ShardRoute(NamedTuple):
     """The row gathers of one block of a sharded loop's steps: the
     process group, the buckets' slots (shard_cap of the most queries a
     step of any rank asks at the block's start: lanes only die), or None
-    for the all-gather route (the JAX version's ``_row_gather_ag``), and
-    the block's flags (2,) int32 on the device: the live lanes after its
-    last step and whether a bucket overflowed."""
+    for the all-gather route (the JAX version's ``_row_gather_ag``), the
+    block's flags (2,) int32 on the device: the live lanes after its
+    last step and whether a bucket overflowed; and the group's most live
+    lanes at the block's start (the step kernels' grid; the plain steps
+    do not read it)."""
 
     group: object
     cap: object
     flags: torch.Tensor
+    n_live: int = 0
 
 
 def _answer(stripe, ids, base):
@@ -295,10 +298,11 @@ def _route_gather(stripe, rows, route=None, live=None):
 def _shard_blocks(step, state, group, per_lane):
     """A sharded lockstep loop in blocks: ``state`` is a list of lane
     tensors whose first is the lane's live mask, ``step(state, route,
-    last)`` one step of every lane (a dead lane left as it is) that
-    returns the new state, gathers rows through ``route`` (a ShardRoute),
-    at most ``per_lane`` queries a lane a gather, and, when ``last``,
-    writes the live lanes into route.flags[0].
+    first, last)`` one step of every lane (a dead lane left as it is)
+    that returns the new state, gathers rows through ``route`` (a
+    ShardRoute), at most ``per_lane`` queries a lane a gather, and, when
+    ``last`` (the block's last step), writes the live lanes into
+    route.flags[0]; ``first``: the block's first step.
 
     One host read sizes the first block (the group's most live lanes);
     then each block runs SHARD_BLOCK_STEPS steps through the routed
@@ -316,7 +320,7 @@ def _shard_blocks(step, state, group, per_lane):
 
     def run(st, route):
         for i in range(S):
-            st = step(st, route, i == S - 1)
+            st = step(st, route, i == 0, i == S - 1)
         shard_counts["steps"] += S
         return st
 
@@ -324,14 +328,15 @@ def _shard_blocks(step, state, group, per_lane):
         start = [x.clone() for x in state]
         flags.zero_()
         cap = shard_cap(n_live * per_lane, group.size())
-        state = run(state, ShardRoute(group, cap, flags))
+        state = run(state, ShardRoute(group, cap, flags, n_live))
         shard_counts["blocks"] += 1
-        n_live, over = _read_flags(flags, group)
+        n_end, over = _read_flags(flags, group)
         if over:
             shard_counts["redone"] += 1
             flags.zero_()
-            state = run(start, ShardRoute(group, None, flags))
-            n_live = _read_flags(flags, group)[0]
+            state = run(start, ShardRoute(group, None, flags, n_live))
+            n_end = _read_flags(flags, group)[0]
+        n_live = n_end
     return state
 
 
@@ -425,7 +430,7 @@ def _shard_walk(arrs, meta, rows, active, group):
     _shard_walk.entries += 1
     mask = meta["sa_intv"] - 1
 
-    def step(st, route, last):
+    def step(st, route, first, last):
         act, r, n = st
         r = torch.where(act, _walk_step(arrs, meta, r, route, act), r)
         n = n + act.long()
@@ -616,7 +621,7 @@ def _shard_ext(arrs, meta, rd, alive, k, l, m, posf, bf, group):
     ``fm_shard_cuda.shard_ext`` replaces it."""
     _shard_ext.entries += 1
 
-    def step(st, route, last):
+    def step(st, route, first, last):
         st = _ext_step(arrs, meta, rd, *st, posf, bf, route)
         if last:
             route.flags[0] = st[0].sum()

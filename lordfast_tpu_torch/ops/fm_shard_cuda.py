@@ -22,7 +22,10 @@ fallback, which the plain steps there use too).  A step is:
   them);
 - ``all_to_all_single`` of the rows back (``reduce_scatter_tensor``, SUM);
 - ``shard_ext_step`` or ``shard_walk_step``: the lanes' step from the
-  rows their queries got back, in place.
+  rows their queries got back, in place: a block's first step over
+  every lane's flag, each later one over the compacted list of the
+  lanes the step before kept alive (``LaneList``), with a grid sized to
+  the group's live lanes at the block's start.
 
 ``sa_gather`` is the locate's one exact gather of sampled SA entries a
 call (and a full SA's locate) on the same bucket and answer kernels.
@@ -40,6 +43,7 @@ Build: ``cuda_build`` (nvcc at first use, ctypes).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -53,6 +57,8 @@ ROW = 12
 # and the most owners it routes to (kMaxOwners)
 BUCKET_TILE = 2048
 MAX_OWNERS = 256
+# the step kernels' threads a block, a lane a thread (kThreads)
+STEP_THREADS = 256
 
 
 def _fn(name, argtypes):
@@ -96,6 +102,65 @@ def rank_stripes(arrs):
         raise ValueError(f"occ_cp's stripe has {cp.shape[0]} rows, "
                          f"bwt_blocks's {bb.shape[0]}")
     return False, cp, bb
+
+
+class LaneList(NamedTuple):
+    """One step's view of a sharded loop's compacted list of live lanes
+    (csrc/seed_shard.cu, the steps' design): ``lists`` (2, n) int32 and
+    ``ring`` (3,) int32 (zeros when made), kept on the lanes' device over
+    the loop (lane_list); ``step``: the step's index g in the loop,
+    counted over its blocks; ``first``: the block's first step, which
+    runs over every lane's flag (else over the list the step before
+    wrote: a lane it kept alive, or -1 for one that died); ``n_live``:
+    the group's most live lanes at the block's start, which sizes a list
+    step's grid.  Step g writes lists[g % 2], its slots reserved on
+    ring[g % 3], reads lists[(g - 1) % 2] and its count ring[(g - 1) % 3]
+    and zeroes ring[(g + 1) % 3]."""
+
+    lists: torch.Tensor
+    ring: torch.Tensor
+    step: int
+    first: bool
+    n_live: int
+
+
+def lane_list(n, device):
+    """A loop's (lists, ring) for LaneList: made once, outside any
+    block."""
+    return (torch.empty((2, n), dtype=torch.int32, device=device),
+            torch.zeros(3, dtype=torch.int32, device=device))
+
+
+def _ring_rows(lanes):
+    """(list_in, n_in, list_out, n_out, zero) of one step as indexes: of
+    lists' rows for the lists, of ring's counts for the counts (None for
+    a block's first step's list_in and n_in; see LaneList)."""
+    g = lanes.step
+    return (None if lanes.first else (g - 1) % 2,
+            None if lanes.first else (g - 1) % 3, g % 2, g % 3, (g + 1) % 3)
+
+
+def lane_ring(lanes):
+    """(list_in, n_in, list_out, n_out, zero) of one step, views of its
+    LaneList's tensors (see LaneList), or None: the list it runs over and
+    its count (None on a block's first step), the list it writes and the
+    count its slots are reserved on, the count it zeroes.  Without lanes,
+    all None: a step over the flags that writes no list."""
+    if lanes is None:
+        return None, None, None, None, None
+    rows = _ring_rows(lanes)
+    return tuple(None if j is None else (
+        lanes.lists[j] if i in (0, 2) else lanes.ring[j: j + 1])
+        for i, j in enumerate(rows))
+
+
+def grid_lanes(n, lanes):
+    """The lanes a step's grid covers, a thread each: every lane on a
+    block's first step (or without a list), else the group's live lanes
+    at the block's start (at least 1, at most n)."""
+    if lanes is None or lanes.first:
+        return n
+    return min(max(lanes.n_live, 1), n)
 
 
 # ---- the plain versions (the CPU path; the smoke's reference) ----
@@ -146,11 +211,31 @@ def shard_answer_plain(recv, arrs, base, out, key=None, routed=False):
                              fm._answer(rank_b, recv, base)], 1))
 
 
+def _append_plain(alive, kept, lanes, live):
+    """The plain steps' list and counts: the lanes kept alive (a mask) in
+    lane order, then -1 for each lane that died (alive before the step,
+    not kept), into the list a step writes, the lanes alive before it
+    added to the count its slots are reserved on, the count it zeroes
+    zeroed (lane_ring), and the kept lanes added to live."""
+    _, _, list_out, n_out, zero = lane_ring(lanes)
+    if list_out is not None:
+        idx = kept.nonzero()[:, 0]
+        n_alive = int(alive.sum())
+        list_out[: idx.numel()] = idx.to(list_out.dtype)
+        list_out[idx.numel(): n_alive] = -1
+        n_out.add_(n_alive)
+        zero.zero_()
+    if live is not None:
+        live.add_(kept.sum().to(live.dtype))
+
+
 def shard_ext_step_plain(state, pos_f, b_lane, rd, arrs, meta, back, slot,
-                         live=None):
+                         live=None, lanes=None):
     """shard_ext_step's plain version (fm_index._ext_step's arithmetic,
-    from the rows returned by slot)."""
+    from the rows returned by slot), over every alive lane whatever the
+    list holds: the oracle of a list step too."""
     n = state[0].numel()
+    alive = state[0].clone()
     ok_char, cc = fm.next_char(rd, b_lane, pos_f, state[3])
     occs = []
     for kq, rows in ((state[1] - 1, fm.by_slot(back, slot[:n])),
@@ -161,13 +246,14 @@ def shard_ext_step_plain(state, pos_f, b_lane, rd, arrs, meta, back, slot,
     new = fm.advance(*state, ok_char, L2c + occs[0] + 1, L2c + occs[1])
     for x, v in zip(state, new):
         x.copy_(v)
-    if live is not None:
-        live.add_(new[0].sum().to(live.dtype))
+    _append_plain(alive, new[0], lanes, live)
 
 
-def shard_walk_step_plain(state, arrs, meta, back, slot, live=None):
+def shard_walk_step_plain(state, arrs, meta, back, slot, live=None,
+                          lanes=None):
     """shard_walk_step's plain version (fm_index._walk_step's arithmetic,
-    the char from the word of x's own rank row)."""
+    the char from the word of x's own rank row), over every active row
+    whatever the list holds."""
     active, rows, steps = state
     primary = meta["primary"]
     x = rows - (rows > primary).long()
@@ -182,8 +268,7 @@ def shard_walk_step_plain(state, arrs, meta, back, slot, live=None):
     rows.copy_(torch.where(a, nxt, rows))
     steps.add_(a.long())
     active.copy_(a & ((rows & (meta["sa_intv"] - 1)) != 0))
-    if live is not None:
-        live.add_(active.sum().to(live.dtype))
+    _append_plain(a, active, lanes, live)
 
 
 # ---- the wrappers ----
@@ -338,17 +423,40 @@ def _l2(arrs, dev):
     return l2
 
 
+def _lanes_ptrs(name, n, lanes, live, dev):
+    """The list and count pointers of one step in the kernels' order
+    (list_in, n_in, list_out, n_out, live, zero: lane_ring's and live)
+    after checking them, and the lanes its grid covers (grid_lanes)."""
+    if live is not None:
+        check_tensor("live", live, torch.int32, (1,), dev)
+    if lanes is not None:
+        check_tensor("lists", lanes.lists, torch.int32, (2, n), dev)
+        check_tensor("ring", lanes.ring, torch.int32, (3,), dev)
+        if n > 2**30:
+            raise ValueError(f"{name}: {n} lanes, at most 2^30 (int32 "
+                             "lists and indexes)")
+    ptrs = [None] * 5  # the pointers lane_ring's views would give
+    if lanes is not None:
+        lists, ring = lanes.lists.data_ptr(), lanes.ring.data_ptr()
+        ptrs = [None if j is None else (
+            lists + 4 * n * j if i in (0, 2) else ring + 4 * j)
+            for i, j in enumerate(_ring_rows(lanes))]
+    return ptrs[:4] + [_ptr(live), ptrs[4]], grid_lanes(n, lanes)
+
+
 def shard_ext_step(state, pos_f, b_lane, rd, arrs, meta, back, slot,
-                   live=None):
+                   live=None, lanes=None):
     """One extension step of n lanes in place: state [alive (n,) bool, k,
     l, m (n,) int64]; pos_f, b_lane (n,) int64; rd the read batch
     (fm_index._Reads); back (slots, 12) int64 and slot (2 n,) int32 from
     the bucket step; live (1,) int32 or None: the lanes alive after the
-    step are added to it."""
+    step are added to it; lanes: the loop's LaneList, or None for a step
+    over every lane's flag that writes no list.  A list step's entries
+    must each be a live lane, once, or -1 (the step before wrote them)."""
     alive, k, l, m = state
     if alive.device.type == "cpu":
         return shard_ext_step_plain(state, pos_f, b_lane, rd, arrs, meta,
-                                    back, slot, live)
+                                    back, slot, live, lanes)
     dev = _cuda_device("shard_ext_step", alive)
     n = alive.shape[0]
     check_tensor("alive", alive, torch.bool, (n,), dev)
@@ -359,16 +467,15 @@ def shard_ext_step(state, pos_f, b_lane, rd, arrs, meta, back, slot,
     check_tensor("rw", rd.rw, torch.int64, (B, W16), dev)
     check_tensor("lens", rd.lens, torch.int64, (B,), dev)
     _check_step("shard_ext_step", back, slot, 2 * n, dev)
-    if live is not None:
-        check_tensor("live", live, torch.int32, (1,), dev)
+    ptrs, n_grid = _lanes_ptrs("shard_ext_step", n, lanes, live, dev)
     l2 = _l2(arrs, dev)
     with torch.cuda.device(dev):
         rc = _fn("lf_shard_ext_step",
-                 [_VP] * 12 + [_CL] * 3 + [_CI] * 3 + [_VP])(
+                 [_VP] * 17 + [_CL] * 4 + [_CI] * 3 + [_VP])(
             alive.data_ptr(), k.data_ptr(), l.data_ptr(), m.data_ptr(),
             pos_f.data_ptr(), b_lane.data_ptr(), rd.rw.data_ptr(),
             rd.lens.data_ptr(), l2.data_ptr(), back.data_ptr(),
-            slot.data_ptr(), _ptr(live), n, meta["seq_len"],
+            slot.data_ptr(), *ptrs, n, n_grid, meta["seq_len"],
             meta["primary"], rd.L, W16, l2.element_size(), _stream(dev))
     _check_launch("shard_ext_step", rc)
     shard_ext_step.launches += 1
@@ -377,35 +484,54 @@ def shard_ext_step(state, pos_f, b_lane, rd, arrs, meta, back, slot,
 shard_ext_step.launches = 0
 
 
-def shard_walk_step(state, arrs, meta, back, slot, live=None):
+def shard_walk_step(state, arrs, meta, back, slot, live=None, lanes=None):
     """One walk step of n rows in place: state [active (n,) bool, rows,
     steps (n,) int64]; back and slot (n,) int32 from the bucket step;
-    live as shard_ext_step's.  The index's sa_intv is a power of two
-    above 1."""
+    live and lanes as shard_ext_step's.  The index's sa_intv is a power
+    of two above 1."""
     active, rows, steps = state
     if active.device.type == "cpu":
-        return shard_walk_step_plain(state, arrs, meta, back, slot, live)
+        return shard_walk_step_plain(state, arrs, meta, back, slot, live,
+                                     lanes)
     dev = _cuda_device("shard_walk_step", active)
     n = active.shape[0]
     check_tensor("active", active, torch.bool, (n,), dev)
     check_tensor("rows", rows, torch.int64, (n,), dev)
     check_tensor("steps", steps, torch.int64, (n,), dev)
     _check_step("shard_walk_step", back, slot, n, dev)
-    if live is not None:
-        check_tensor("live", live, torch.int32, (1,), dev)
+    ptrs, n_grid = _lanes_ptrs("shard_walk_step", n, lanes, live, dev)
     l2 = _l2(arrs, dev)
     with torch.cuda.device(dev):
-        rc = _fn("lf_shard_walk_step", [_VP] * 7 + [_CL] * 3 + [_CI] * 2
+        rc = _fn("lf_shard_walk_step", [_VP] * 12 + [_CL] * 4 + [_CI] * 2
                  + [_VP])(
             active.data_ptr(), rows.data_ptr(), steps.data_ptr(),
-            l2.data_ptr(), back.data_ptr(), slot.data_ptr(), _ptr(live), n,
-            meta["seq_len"], meta["primary"], meta["sa_intv"],
+            l2.data_ptr(), back.data_ptr(), slot.data_ptr(), *ptrs, n,
+            n_grid, meta["seq_len"], meta["primary"], meta["sa_intv"],
             l2.element_size(), _stream(dev))
     _check_launch("shard_walk_step", rc)
     shard_walk_step.launches += 1
 
 
 shard_walk_step.launches = 0
+
+
+def resident_blocks(name, pos_bytes):
+    """Blocks of STEP_THREADS an SM holds at once of step kernel ``name``
+    (shard_ext_step or shard_walk_step) in the instance of pos_bytes (4
+    or 8): its occupancy, as its registers leave room."""
+    out = ctypes.c_int(0)
+    rc = _fn("lf_shard_step_blocks", [_CI, _CI, ctypes.POINTER(_CI)])(
+        int(name == "shard_walk_step"), pos_bytes, ctypes.byref(out))
+    _check_launch("lf_shard_step_blocks", rc)
+    return out.value
+
+
+def noop(n_grid, dev):
+    """One empty launch of a step's grid over n_grid lanes (a step's
+    latency floor starts from its back-to-back time); not counted."""
+    with torch.cuda.device(dev):
+        rc = _fn("lf_shard_noop", [_CL, _VP])(n_grid, _stream(dev))
+    _check_launch("shard_noop", rc)
 
 
 # ---- the loops ----
@@ -464,6 +590,25 @@ def _route_rows(arrs, meta, live, k, l, route, bufs):
         route.flags[1:], bufs=bufs)
 
 
+def _list_steps(live0, launch):
+    """_shard_blocks' step of a loop on the kernels over a compacted list
+    of live lanes: ``launch(state, route, live, lanes)`` runs one step
+    (the bucket, the answer and the step kernel, given its LaneList, and
+    on a block's last step route.flags[:1] as live); the loop's lists and
+    counter ring are made here, once, on live0's device."""
+    lists, ring = lane_list(live0.shape[0], live0.device)
+    g = 0
+
+    def step(st, route, first, last):
+        nonlocal g
+        launch(st, route, route.flags[:1] if last else None,
+               LaneList(lists, ring, g, first, route.n_live))
+        g += 1
+        return st
+
+    return step
+
+
 def shard_ext(arrs, meta, rd, alive, k, l, m, pos_f, b_lane, group):
     """fm_index._shard_ext on the kernels: the lockstep extension of every
     lane over a sharded index until no lane of any rank is alive, in
@@ -474,16 +619,16 @@ def shard_ext(arrs, meta, rd, alive, k, l, m, pos_f, b_lane, group):
 
     bufs = {}
 
-    def step(st, route, last):
+    def launch(st, route, live, lanes):
         back, slot = _route_rows(arrs, meta, st[0], st[1], st[2], route,
                                  bufs)
         K.shard_ext_step(st, pos_f, b_lane, rd, arrs, meta, back, slot,
-                         route.flags[:1] if last else None)
-        return st
+                         live, lanes=lanes)
 
     state = [alive.clone(), k.clone(), l.clone(), m.clone()]
     # a step stacks each lane's two rank queries (k - 1 and l)
-    _, k, l, m = fm._shard_blocks(step, state, group, 2)
+    _, k, l, m = fm._shard_blocks(_list_steps(alive, launch), state, group,
+                                  2)
     return k, l, m
 
 
@@ -502,15 +647,14 @@ def shard_walk(arrs, meta, rows, active, group):
 
     bufs = {}
 
-    def step(st, route, last):
+    def launch(st, route, live, lanes):
         back, slot = _route_rows(arrs, meta, st[0], st[1], None, route,
                                  bufs)
-        K.shard_walk_step(st, arrs, meta, back, slot,
-                          route.flags[:1] if last else None)
-        return st
+        K.shard_walk_step(st, arrs, meta, back, slot, live, lanes=lanes)
 
     state = [active.clone(), rows.clone(), torch.zeros_like(rows)]
-    _, rows, steps = fm._shard_blocks(step, state, group, 1)
+    _, rows, steps = fm._shard_blocks(_list_steps(active, launch), state,
+                                      group, 1)
     return rows, steps
 
 

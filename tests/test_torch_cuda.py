@@ -808,10 +808,14 @@ def test_cuda_shard_loops_match_plain(cuda_device, genome, sa_interval,
     assert c["calls"] == 1 and c["redone"] == 0
     assert c["host_reads"] == c["blocks"] + (4 if sampled else 3)
     figs = chip_smoke.check_shard_kernels(rec)
+    steps = chip_smoke.STEP_KERNELS[: 2 if sampled else 1]
     assert set(figs) == set(chip_smoke.SHARD_KERNELS[: 4 if sampled else 3]
                             + ("shard_bucket ids", "shard_answer sa")
                             + ("shard_bucket walk",
-                               "shard_answer walk") * sampled)
+                               "shard_answer walk") * sampled
+                            + tuple(f"{k} {t}" for k in steps
+                                    for t in chip_smoke.SPARSE_STEPS))
+    assert all(figs[f"{k} <1%"]["list_step"] for k in steps)
     chip_smoke.reset_launches()
     want = fm_index._seed_anchors_impl(arrs, *rest, group=group, plain=True)
     counts = chip_smoke.read_launches()
@@ -943,3 +947,35 @@ def test_cuda_shard_answer_routed_leaves_empty_slots(cuda_device, layout):
     torch.cuda.synchronize()
     assert K.shard_answer.launches == before + 2
     assert figs["empty"] == int((recv == -1).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos64", [False, True])
+@pytest.mark.parametrize("kind", ["ext", "walk"])
+def test_cuda_list_steps_match_plain(cuda_device, kind, pos64):
+    # seed_shard.cu's step kernels over a compacted list of live lanes: a
+    # block's first step over the flags (2% of 200,000 lanes live: a
+    # sparse step) and its list step over the list the first wrote, each
+    # == its plain version (lane state, counter ring, the list as a set),
+    # the list step also over the list reversed and shuffled; rows and
+    # intervals at int32 positions, or at and above 2^31 (the Pos =
+    # int64_t instances)
+    import torch_shard_model as model
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    rng = np.random.default_rng([len(kind), pos64, 15])
+    seq_len = 2**33 + 12345 if pos64 else 2**30 + 777
+    case = model.step_case(rng, kind, 200_000, seq_len, 0.02, pos64)
+    name = f"shard_{kind}_step"
+    before = getattr(K, name).launches
+    out = model.list_steps(K, getattr(K, name), getattr(K, name + "_plain"),
+                           case, kind, cuda_device, np.random.default_rng(5))
+    torch.cuda.synchronize()
+    assert getattr(K, name).launches == before + 4
+    for tag in ("first", "list", "list reversed", "list shuffled"):
+        want = out[tag.split()[0] + " plain"]
+        for x, y in zip(out[tag][:-1], want[:-1]):
+            assert x.equal(y), tag
+        assert want[-1] is None or out[tag][-1].equal(want[-1]), tag
+    assert 0 < int(out["list plain"][0].sum()) < int(
+        out["first plain"][0].sum())

@@ -178,11 +178,14 @@ def test_shard_kernel_model_matches_plain_loops(model_case, D):
                         err_msg=f"{msg} {tag} {f}")
             assert o["plain_valid"].any(), msg
             sampled = "32" in run["name"]
+            # each step kernel also at its first list steps below 10% and
+            # 1% of its lanes live (chip_smoke.record_shard)
+            steps = ["shard_ext_step"] + ["shard_walk_step"] * sampled
             assert list(o["checked"]) == sorted(
-                ["shard_bucket", "shard_answer", "shard_ext_step",
-                 "shard_bucket ids", "shard_answer sa"]
-                + ["shard_walk_step", "shard_bucket walk",
-                   "shard_answer walk"] * sampled), msg
+                ["shard_bucket", "shard_answer", "shard_bucket ids",
+                 "shard_answer sa"] + steps
+                + ["shard_bucket walk", "shard_answer walk"] * sampled
+                + [f"{k} {t}" for k in steps for t in ("<10%", "<1%")]), msg
             assert (o["work"] > 0).all(), msg
             c = {tag: dict(zip(keys, o[f"{tag}_counts"]))
                  for tag in ("plain", "wrap", "model", "over")}
@@ -207,12 +210,16 @@ def test_shard_kernel_model_matches_plain_loops(model_case, D):
             # the "max" lanes take 4095 steps and die on the 4096th, in
             # the middle of a block of 7 (every rank extends the same
             # lanes, so at D = 3 a bucket may overflow and a block run
-            # again)
+            # again); the model's run forces the first block's cap to 8,
+            # so it runs again through the all-gather route from its
+            # saved state, its first step over the flags again
             assert o["edge_plain_m"].max() == 4095
             for tag in ("edge_plain", "edge_model"):
                 ec = dict(zip(keys, o[f"{tag}_counts"]))
                 assert ec["blocks"] == math.ceil(4096 / 7), (msg, ec)
                 assert ec["steps"] == 7 * (ec["blocks"] + ec["redone"])
+            ec = dict(zip(keys, o["edge_model_counts"]))
+            assert ec["redone"] >= 1, (msg, ec)
 
 
 def _launches(**kw):
@@ -682,3 +689,118 @@ def test_bucket_model_sizes_are_the_kernels():
     assert const["kItems"] == model.kItems
     assert const["kMaxOwners"] == model.kMaxOwners == K.MAX_OWNERS
     assert model.kTile == K.BUCKET_TILE
+    assert const["kThreads"] == K.STEP_THREADS
+
+
+# ---- seed_shard.cu's step kernels over a compacted list of live lanes:
+# the model (names as in the source) against the plain steps ----
+
+@pytest.mark.parametrize("pos64", [False, True])
+@pytest.mark.parametrize("kind", ["ext", "walk"])
+def test_list_step_order_does_not_matter(kind, pos64):
+    # a block's first step over the flags and its list step over the list
+    # the first wrote (in an order drawn at random) give the plain steps'
+    # lane state, counter ring and list (as a set), and so does the list
+    # step over the same list reversed or shuffled: each lane's step is
+    # its own.  A third of 3000 lanes live, rows and intervals at int32
+    # positions or at and above 2^31 (the int64 index's)
+    import torch_shard_model as model
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    rng = np.random.default_rng([len(kind), pos64])
+    seq_len = 2**33 + 12345 if pos64 else 2**30 + 777
+    case = model.step_case(rng, kind, 3000, seq_len, 0.3, pos64)
+    name = f"shard_{kind}_step"
+    plain = getattr(K, name + "_plain")
+    saved = model.install(K, np.random.default_rng(3))
+    try:
+        out = model.list_steps(K, getattr(K, name), plain, case, kind, "cpu",
+                               np.random.default_rng(4))
+    finally:
+        (K.shard_bucket, K.shard_answer, K.shard_ext_step,
+         K.shard_walk_step) = saved
+    for tag in ("first", "list", "list reversed", "list shuffled"):
+        want = out[tag.split()[0] + " plain"]
+        for x, y in zip(out[tag][:-1], want[:-1]):
+            assert x.equal(y), tag
+        assert (out[tag][-1] is None) == (want[-1] is None), tag
+        assert want[-1] is None or out[tag][-1].equal(want[-1]), tag
+    live0 = int(case["state"][0].sum())
+    kept, last = (int(out[t][0].sum()) for t in ("first plain",
+                                                 "list plain"))
+    assert 0 < last < kept < live0
+    # the ring: step 4 reserved its live lanes' slots on count 1 and zeroed
+    # count 2; step 5 reserved on count 2 and zeroed count 0; each list
+    # holds the kept lanes and a -1 for each lane that died
+    ring, lst, live = out["list plain"][-3:]
+    assert ring.tolist() == [0, live0, kept]
+    assert int(live[0]) == last == int((lst >= 0).sum())
+    assert int((out["first plain"][-2] == -1).sum()) == live0 - kept
+
+
+def test_step_floor_and_live_bands():
+    # the smoke's step floor (an empty launch of the step's grid and two
+    # dependent loads at the pointer chase's ns) and the live-share bands
+    # its summed call times are split by
+    import chip_smoke
+
+    assert chip_smoke.step_floor(0.002, 266.7) == pytest.approx(
+        0.002 + 2 * 266.7e-6)
+    assert [chip_smoke.live_band(x, 1000) for x in (1000, 500, 499, 10, 9,
+                                                    0)] == [
+        ">=50%", ">=50%", "1-50%", "1-50%", "<1%", "<1%"]
+    s = chip_smoke.band_sums([3.0, 2.0, 1.0, 0.5, 0.25], [800, 600, 30, 5, 0],
+                             1000)
+    assert s["launches"] == 5 and s["ms"] == pytest.approx(6.75)
+    assert s["bands"] == {
+        ">=50%": {"launches": 2, "ms": 5.0, "mean_ms": 2.5},
+        "1-50%": {"launches": 1, "ms": 1.0, "mean_ms": 1.0},
+        "<1%": {"launches": 2, "ms": 0.75, "mean_ms": 0.375}}
+    with pytest.raises(AssertionError, match="launches traced"):
+        chip_smoke.band_sums([1.0], [5, 4], 10)
+    ev = [("void shard_bucket_kernel(a)", 1.0),
+          ("void (anonymous namespace)::shard_walk_step_kernel<int>(x)", 2.0),
+          ("ncclKernel", 9.0), ("void shard_answer_kernel(b)", 0.5),
+          ("void (anonymous namespace)::shard_walk_step_kernel<int>(x)", 1.0)]
+    c = chip_smoke.call_sums(ev, [50, 0], 100, "shard_walk_step")
+    assert c["shard_bucket"] == {"launches": 1, "ms": 1.0}
+    assert c["shard_answer"] == {"launches": 1, "ms": 0.5}
+    assert c["shard_walk_step"]["bands"] == {
+        ">=50%": {"launches": 1, "ms": 2.0, "mean_ms": 2.0},
+        "<1%": {"launches": 1, "ms": 1.0, "mean_ms": 1.0}}
+
+
+@pytest.mark.parametrize("n_live,n,first,want", [
+    (700, 1000, True, 1000), (700, 1000, False, 700), (0, 1000, False, 1),
+    (5000, 1000, False, 1000)])
+def test_step_grid_covers_the_blocks_live_lanes(n_live, n, first, want):
+    # a block's first step covers every lane's flag; a list step's grid
+    # the group's live lanes at the block's start (at least one thread,
+    # which zeroes the ring's next count), at most n
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    lists, ring = K.lane_list(n, "cpu")
+    assert K.grid_lanes(n, K.LaneList(lists, ring, 7, first, n_live)) == want
+    assert K.grid_lanes(n, None) == n
+    # step 7: reads list 0 and count 0, writes list 1 reserving on count
+    # 1, zeroes count 2
+    lanes = K.LaneList(lists, ring, 7, first, n_live)
+    list_in, n_in, list_out, cnt, zero = K.lane_ring(lanes)
+    assert (list_in is None) == first and (n_in is None) == first
+    if not first:
+        assert list_in.data_ptr() == lists[0].data_ptr()
+        assert n_in.data_ptr() == ring[0:].data_ptr()
+    assert list_out.data_ptr() == lists[1].data_ptr()
+    assert cnt.data_ptr() == ring[1:].data_ptr()
+    assert zero.data_ptr() == ring[2:].data_ptr()
+    assert K.lane_ring(None) == (None,) * 5
+    # the kernels' pointers (the wrappers' order: list_in, n_in, list_out,
+    # n_out, live, zero) are the views' own
+    import torch
+
+    live = torch.zeros(1, dtype=torch.int32)
+    ptrs, grid = K._lanes_ptrs("step", n, lanes, live, torch.device("cpu"))
+    views = K.lane_ring(lanes)
+    assert ptrs == [None if v is None else v.data_ptr()
+                    for v in views[:4] + (live, views[4])]
+    assert grid == want

@@ -16,6 +16,7 @@ process.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import socket
@@ -225,6 +226,12 @@ def _kernel_route(fm, K):
     fm._sa_gather = K.sa_gather
 
 
+# the blocks of the edge lanes' model run (job_shard_model) whose cap is
+# forced to 8: the first, with every lane alive, and one in the 16
+# MAX_ANCHOR_LEN lanes' long tail
+EDGE_REDONE = (0, 300)
+
+
 def job_shard_model(d):
     """The sharded seeding of this rank's rows of batch.npz through the
     plain loops (fm_index._shard_ext / _shard_walk), through the kernels'
@@ -233,8 +240,11 @@ def job_shard_model(d):
     (torch_shard_model, the buckets' slots in a random order), at the
     source's block size and with every bucket's cap forced to 8 (every
     routed block overflows and runs again); then, for a run with "edge",
-    the extension of chip_smoke.edge_reads' lanes both ways (at "edge_S"
-    steps a block) and over the replicated index.  Writes every result
+    the extension of chip_smoke.edge_reads' lanes (at "edge_S" steps a
+    block) through the plain loop, through the kernels' loop over the
+    model with the cap forced to 8 on EDGE_REDONE's blocks (which run
+    again through the all-gather route) and over the replicated index.
+    Writes every result
     and the loops' counts to out<rank>_<run name>.npz for each run
     ({"name", "index", "split_layout", "edge"})."""
     import numpy as np
@@ -305,14 +315,23 @@ def job_shard_model(d):
         rd, lanes = _edge_lanes(chip_smoke, full, meta)
         S = fm.SHARD_BLOCK_STEPS
         fm.SHARD_BLOCK_STEPS = args["edge_S"]
-        for tag, fn in (("edge_plain", plain[0]), ("edge_model",
-                                                   K.shard_ext)):
+        blocks = itertools.count()
+
+        def forced(n, D):
+            return 8 if next(blocks) in EDGE_REDONE else cap(n, D)
+
+        saved = model.install(K, np.random.default_rng([11, r]))
+        for tag, fn, c in (("edge_plain", plain[0], cap),
+                           ("edge_model", K.shard_ext, forced)):
+            fm.shard_cap = c
             fm.shard_counts.update(dict.fromkeys(fm.shard_counts, 0))
             res = fn(arrs, meta, rd, *lanes, group)
             out.update({f"{tag}_{k}": v.numpy()
                         for k, v in zip("klm", res)})
             out[f"{tag}_counts"] = np.array(list(fm.shard_counts.values()))
-        fm.SHARD_BLOCK_STEPS = S
+        fm.SHARD_BLOCK_STEPS, fm.shard_cap = S, cap
+        (K.shard_bucket, K.shard_answer, K.shard_ext_step,
+         K.shard_walk_step) = saved
         a, k, l, m = lanes[:4]
         while bool(a.any()):
             a, k, l, m = fm._ext_step(full, meta, rd, a, k, l, m, *lanes[4:])
