@@ -154,12 +154,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    - v2 over its SA sliced to 32, sharded: at NCCL two passes (== phase
      5's SAM), each kernel held to its plain version bit for bit on its
      first call of the first pass, and each step kernel also on its
-     first list steps below 10% and 1% of its lanes live, with the list
+     first list steps below 10% and 1% of its lanes live (found after
+     the pass, replaying the loops' first calls), with the list
      reversed (record_shard, check_shard_kernels), and timed, with its
      bound by bytes (shard_work) and a step kernel's latency floor
-     (step_floor) and, on a list step, its time on a persistent grid; a
-     plain_loops pass of the first 64 reads; at gloo D = 2 the first 64
-     reads, the kernels checked on both ranks;
+     (step_floor); a plain_loops pass of the first 64 reads; at gloo
+     D = 2 the first 64 reads, the kernels checked on both ranks;
 11. v2 sampled (run right after phase 5): phase 5's config over v2's
    index with the SA sliced to 32, then 16 (``slice_sa``: no second
    build), two passes each and a plain_loops pass, every SAM byte-equal
@@ -2056,26 +2056,6 @@ def band_sums(ms, lives, n) -> dict:
                       if label in bands}}
 
 
-def _step_lives(loop, args) -> list:
-    """The lanes live before each step of one run of this checkout's loop
-    (fm_shard_cuda.shard_ext or shard_walk) on a clone of its recorded
-    arguments, logged on the card by a stand-in at its step kernel's
-    attribute (each checkout's loop steps the same lanes)."""
-    import torch
-
-    from lordfast_tpu_torch.ops import fm_shard_cuda as K
-
-    name = STEP_LOOPS[loop]
-    lives, f = [], getattr(K, name)
-    setattr(K, name, _Recorder(f, lambda st, *a, **kw: lives.append(
-        st[0].sum())))
-    try:
-        getattr(K, loop)(*_clone(args))
-    finally:
-        setattr(K, name, f)
-    return torch.stack(lives).tolist() if lives else []
-
-
 def _profile_loop(fn, args, tdir) -> list:
     """kernel_events of one run of loop fn on a clone of its recorded
     arguments under utils.metrics.profiler_trace (trace in tdir)."""
@@ -2109,19 +2089,22 @@ def call_sums(events, lives, n, step) -> dict:
 def compare_shard(o_shard, runs, other, reps):
     """--against's sharded part, on NCCL over a group of one in this
     process: for each run (label, index, reads), a sharded engine's pass
-    records the first calls, the step kernels' sparse list steps and the
-    loops' first calls (record_shard), and check_shard_kernels times this
-    checkout's four kernels beside their bounds and the step kernels'
-    floors; then both checkouts' kernels, each held to the plain version
-    first, are timed on those calls in turns A B B A (the other's step
-    kernels over the flags, this one's over the recorded list); then each
-    loop's first call is run again under the profiler with each
-    checkout's loop, A B B A: each step kernel's launches, summed ms and
-    mean ms by live share (band_sums), the bucket's and answer's sums;
-    then four passes, A B B A, with each checkout's loops (and so its
-    kernels) in place, every SAM equal: rank 0's ``device`` timer, the
-    wall, the loops' counts, a step's ``device`` ms beside the kernels'
-    ms a step summed over the profiled calls."""
+    records the first calls and the loops' first calls (record_shard),
+    and check_shard_kernels finds the step kernels' sparse list steps
+    and times this checkout's four kernels beside their bounds and the
+    step kernels' floors; then both checkouts' kernels, each held to the
+    plain version first, are timed on those calls in turns A B B A (the
+    other's step kernels over the flags, this one's over the recorded
+    list); then each loop's first call is run again with each
+    checkout's loop (_compare_calls): under the profiler, A B B A, each
+    step kernel's launches, summed ms and mean ms by live share
+    (band_sums) and the bucket's and answer's sums, and unprofiled, A B
+    B A three times, the call's wall and the step wrapper's host ms a
+    step; then a pass to warm up and eight, A B B A twice, with each
+    checkout's loops (and so its kernels) in place, every SAM equal:
+    rank 0's ``device`` timer, the wall, the loops' counts, a step's
+    ``device`` ms beside the kernels' ms a step summed over the profiled
+    calls."""
     import torch.distributed as dist
 
     from lordfast_tpu_torch.config import LordfastConfig
@@ -2143,17 +2126,19 @@ def compare_shard(o_shard, runs, other, reps):
         for label, idx, reads in runs:
             eng = MappingEngine(idx, LordfastConfig(), device="cuda",
                                 mesh=mesh, shard_index=True)
-            with record_shard(loops=True) as rec:
+            with record_shard() as rec:
                 eng.map_file(reads, io.StringIO(), "chip_smoke")
             figs = check_shard_kernels(rec, timed=True, reps=reps)
             log(f"[compare] {label} sharded: " + json.dumps(
                 {t: {k: f[k] for k in ("ms", "bound_ms", "plain_ms",
-                                       "floor_ms", "persistent_ms", "live",
-                                       "lanes") if k in f}
+                                       "floor_ms", "live", "lanes")
+                     if k in f}
                  for t, f in figs.items()}))
             for tag in figs:
                 _compare_kernel(tag, rec, kernels, figs, label, other, reps)
-            sums = _compare_calls(rec, sides, label, other)
+            sums = _compare_calls(rec, sides,
+                                  {"this": K, "other": o_shard}, label,
+                                  other)
             _compare_passes(eng, reads, sides, o_fm, sums, label, other)
             del eng
     finally:
@@ -2190,14 +2175,16 @@ def _compare_kernel(tag, rec, kernels, figs, label, other, reps):
                 raise AssertionError(f"[compare] {side} {tag} != plain")
             fns[side] = lambda f=f, o=out: f(recv, arrs, base, o, **kw)
         else:
-            skw = kw if side == "this" else {}
+            this = side == "this"
             n_args = _step_args(name, args, kw)[0]
             got, want = _clone(args), _clone(args)
-            f(*got[:n_args], **{k: _clone(v) for k, v in skw.items()})
-            getattr(K, name + "_plain")(*want[:n_args])
+            f(*got[:n_args], **({"lanes": _clone(kw["lanes"])} if this
+                                else {}))
+            getattr(K, name + "_plain")(*want[:n_args],
+                                        lanes=_clone(kw["lanes"]))
             if not all(torch.equal(x, y) for x, y in zip(got[0], want[0])):
                 raise AssertionError(f"[compare] {side} {tag} != plain")
-            fns[side] = _time_step(name, args, skw, f, reps)
+            fns[side] = _time_step(name, args, kw, f, reps, lanes=this)
     ms = {"this": [], "other": []}
     for side in ("this", "other", "other", "this"):
         ms[side].append(_time_launches(fns[side], reps))
@@ -2209,49 +2196,99 @@ def _compare_kernel(tag, rec, kernels, figs, label, other, reps):
                     "other": str(other)}))
 
 
-def _compare_calls(rec, sides, label, other) -> dict:
-    """Each loop's first recorded call run again under the profiler with
-    each checkout's loop, A B B A (call_sums); logs one line a loop.
-    Returns {side: the four kernels' summed ms a step over both loops'
-    profiled calls, each side's mean}."""
+class _HostTimed(_Recorder):
+    """A wrapper's stand-in that adds the host seconds of each of its
+    calls to ``spent`` (the launch is asynchronous: what the host pays to
+    check and launch)."""
+
+    def __init__(self, fn):
+        super().__init__(fn, None)
+        self.spent = 0.0
+
+    def __call__(self, *args, **kw):
+        t = time.perf_counter()
+        try:
+            return self.__wrapped__(*args, **kw)
+        finally:
+            self.spent += time.perf_counter() - t
+
+
+# the order of --against's turns: A B B A, as often as a figure takes
+ABBA = ("this", "other", "other", "this")
+
+
+def _compare_calls(rec, sides, mods, label, other) -> dict:
+    """Each loop's first recorded call run again with each checkout's loop
+    (``sides``; ``mods``: each side's fm_shard_cuda, whose step kernel
+    its loop launches): under the profiler, A B B A (call_sums), then
+    unprofiled, A B B A three times: the call's wall ms a step, from a
+    synchronise to a synchronise (the host's launches and collectives:
+    the card waits on them), and the host ms a step in the step kernel's
+    wrapper (_HostTimed); logs one line a loop.  Returns {side: the four
+    kernels' summed ms a step over both loops' profiled calls, each
+    side's mean}."""
+    import torch
+
+    lives = rec.replay()
     per_step = {"this": [0.0, 0], "other": [0.0, 0]}
     for loop, step in STEP_LOOPS.items():
-        if loop not in rec.calls:  # a full SA has no walk
+        if loop not in lives:  # a full SA has no walk
             continue
         args = rec.calls[loop][0]
-        lives = _step_lives(loop, args)
-        n = int(args[3].numel())
+        n, steps = int(args[3].numel()), len(lives[loop])
         res = {"this": [], "other": []}
-        for i, side in enumerate(("this", "other", "other", "this")):
+        for i, side in enumerate(ABBA):
             ev = _profile_loop(sides[side][loop], args,
                                CACHE / "profile" / f"shard_call_{i}")
-            res[side].append(call_sums(ev, lives, n, step))
+            res[side].append(call_sums(ev, lives[loop], n, step))
         for side, r in res.items():
             per_step[side][0] += sum(sum(x["ms"] for x in c.values())
                                      for c in r) / len(r)
-            per_step[side][1] += len(lives)
+            per_step[side][1] += steps
+        wall = {"this": [], "other": []}
+        host = {"this": [], "other": []}
+        for side in ABBA * 3:
+            a = _clone(args)
+            f = getattr(mods[side], step)
+            timed = _HostTimed(f)
+            setattr(mods[side], step, timed)
+            try:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                sides[side][loop](*a)
+                torch.cuda.synchronize()
+                wall[side].append((time.perf_counter() - t) * 1e3 / steps)
+            finally:
+                setattr(mods[side], step, f)
+            host[side].append(timed.spent * 1e3 / steps)
         log(json.dumps({"case": f"{loop} call summed {label}",
-                        "lanes": n, "steps": len(lives),
+                        "lanes": n, "steps": steps,
                         "calls_this": res["this"],
-                        "calls_other": res["other"], "other": str(other)}))
+                        "calls_other": res["other"],
+                        "wall_ms_a_step_this": wall["this"],
+                        "wall_ms_a_step_other": wall["other"],
+                        "step_host_ms_this": host["this"],
+                        "step_host_ms_other": host["other"],
+                        "other": str(other)}))
     return {side: ms / max(steps, 1) for side, (ms, steps)
             in per_step.items()}
 
 
 def _compare_passes(eng, reads, sides, o_fm, sums, label, other):
-    """Four sharded passes, A B B A, each with one checkout's loops in
-    place (the loops call their own checkout's kernels), every SAM
-    equal; one line of each side's passes."""
+    """A sharded pass to warm up, then eight, A B B A twice, each with one
+    checkout's loops in place (the loops call their own checkout's
+    kernels), every SAM equal; one line of each side's passes (the
+    warm-up's too)."""
     import torch
 
     from lordfast_tpu_torch.ops import fm_index
     from lordfast_tpu_torch.ops import fm_shard_cuda as K
 
-    passes = {"this": [], "other": []}
+    passes = {"this": [], "other": [], "warm-up": []}
     sams = set()
     try:
-        for side in ("this", "other", "other", "this"):
-            for n, f in sides[side].items():
+        for side in ("warm-up",) + ABBA * 2:
+            for n, f in sides.get(side, sides["this"]).items():
                 setattr(K, n, f)
             for counts in (fm_index.shard_counts, o_fm.shard_counts):
                 counts.update(dict.fromkeys(counts, 0))
@@ -2268,7 +2305,7 @@ def _compare_passes(eng, reads, sides, o_fm, sums, label, other):
             passes[side].append({
                 "wall_s": time.time() - t, "device_s": device_s,
                 "device_ms_a_step": device_s * 1e3 / steps,
-                "kernels_ms_a_step": sums[side],
+                "kernels_ms_a_step": sums.get(side, sums["this"]),
                 "host_reads_a_call": c["host_reads"] / max(c["calls"], 1),
                 **c})
             sams.add(out.getvalue())
@@ -2280,7 +2317,8 @@ def _compare_passes(eng, reads, sides, o_fm, sums, label, other):
                              "differ")
     log(json.dumps({"case": f"sharded passes {label}",
                     "passes_this": passes["this"],
-                    "passes_other": passes["other"], "other": str(other)}))
+                    "passes_other": passes["other"],
+                    "pass_warm_up": passes["warm-up"], "other": str(other)}))
 
 
 def _seed_line(tag, rec, stats, need):
@@ -3658,9 +3696,9 @@ def _clone(x):
     return x
 
 
-# the sparse steps record_shard keeps beside the first calls: the first
-# list step of the first sharded call at which fewer than this share of
-# its lanes is live, by tag suffix
+# the sparse steps record_shard.replay keeps beside the first calls: the
+# first list step of the first sharded call at which fewer than this
+# share of its lanes is live, by tag suffix
 SPARSE_STEPS = {"<10%": 0.10, "<1%": 0.01}
 STEP_KERNELS = ("shard_ext_step", "shard_walk_step")
 
@@ -3668,41 +3706,20 @@ STEP_KERNELS = ("shard_ext_step", "shard_walk_step")
 class record_shard:
     """Context manager: the first call of each of fm_shard_cuda's four
     wrappers made inside it, of the bucket and answer steps of a walk step
-    ("shard_bucket walk", "shard_answer walk": most of their lanes dead)
-    and of the SA entries' gather ("shard_bucket ids", "shard_answer sa"),
-    is recorded in ``self.calls[name]`` with its arguments and keywords
-    as they were before the call (tensors cloned: the step kernels run in
-    place, on the loop's lane lists), and runs as usual (a _Recorder
-    stand-in at each module attribute, which the loops look up at call
-    time).  Each step kernel is also recorded at the first list step of
-    the first sharded call at which fewer than 10% and 1% of its lanes
-    are live ("shard_ext_step <10%", ...: SPARSE_STEPS; a host read of
-    the live flags a list step until both are found).  With ``loops``,
-    the first call of the loops fm_shard_cuda.shard_ext and shard_walk
-    too (compare_shard replays them)."""
+    ("shard_bucket walk", "shard_answer walk": most of their lanes dead),
+    of the SA entries' gather ("shard_bucket ids", "shard_answer sa") and
+    of the loops shard_ext and shard_walk, is recorded in
+    ``self.calls[name]`` with its arguments and keywords as they were
+    before the call (tensors cloned: the step kernels run in place, on
+    the loop's lane lists), and runs as usual (a _Recorder stand-in at
+    each module attribute, which the loops look up at call time).  No
+    call inside it reads the card.  ``replay`` then finds each step
+    kernel's sparse steps."""
 
-    def __init__(self, loops=False):
+    def __init__(self):
         self.calls = {}
+        self.lives = None  # replay's: the lanes live before each step
         self._step = ""  # the kind of the last bucket step: an answer's
-        self._call = None  # shard_counts["calls"] of the first step
-        self._names = SHARD_KERNELS + (("shard_ext", "shard_walk")
-                                       if loops else ())
-
-    def _sparse(self, name, args, kw):
-        """The sparse-step tags this call of a step kernel takes."""
-        from lordfast_tpu_torch.ops import fm_index
-
-        lanes = kw.get("lanes")
-        if self._call is None:
-            self._call = fm_index.shard_counts["calls"]
-        todo = [t for t in SPARSE_STEPS if f"{name} {t}" not in self.calls]
-        if (lanes is None or lanes.first or not todo
-                or fm_index.shard_counts["calls"] != self._call):
-            return []
-        flags = args[0][0]
-        live = int(flags.sum())
-        return [f"{name} {t}" for t in todo
-                if live < SPARSE_STEPS[t] * flags.numel()]
 
     def _record(self, name):
         def record(*args, **kw):
@@ -3715,18 +3732,55 @@ class record_shard:
             elif name == "shard_answer":
                 tag += " sa" if kw.get("key") else (
                     " walk" if self._step == " walk" else "")
-            tags = [tag] if tag not in self.calls else []
-            if name in STEP_KERNELS:
-                tags += self._sparse(name, args, kw)
-            for t in tags:
-                self.calls[t] = (_clone(args), {k: _clone(v)
-                                                for k, v in kw.items()})
+            if tag not in self.calls:
+                self.calls[tag] = (_clone(args), {k: _clone(v)
+                                                  for k, v in kw.items()})
         return record
+
+    def replay(self) -> dict:
+        """Runs each recorded loop's first call again on clones of its
+        arguments (every rank of the group does: the loop's collectives),
+        reading the live flags before each step, and records each step
+        kernel at the first list step at which fewer than 10% and 1% of
+        its lanes are live ("shard_ext_step <10%", ...: SPARSE_STEPS).
+        Once, after the recorded pass: its reads stay out of any timed
+        pass.  Returns (and keeps in ``self.lives``) {loop: the lanes live
+        before each step}."""
+        from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+        if self.lives is not None:
+            return self.lives
+        self.lives = {}
+        for loop, name in STEP_LOOPS.items():
+            if loop not in self.calls:  # a full SA has no walk
+                continue
+            lives = self.lives[loop] = []
+
+            def note(*args, name=name, lives=lives, **kw):
+                flags = args[0][0]
+                live = int(flags.sum())
+                lives.append(live)
+                for t, share in SPARSE_STEPS.items():
+                    tag = f"{name} {t}"
+                    if (not kw["lanes"].first and tag not in self.calls
+                            and live < share * flags.numel()):
+                        self.calls[tag] = (_clone(args),
+                                           {k: _clone(v)
+                                            for k, v in kw.items()})
+
+            f = getattr(K, name)
+            setattr(K, name, _Recorder(f, note))
+            try:
+                getattr(K, loop)(*_clone(self.calls[loop][0]))
+            finally:
+                setattr(K, name, f)
+        return self.lives
 
     def __enter__(self):
         from lordfast_tpu_torch.ops import fm_shard_cuda as K
 
-        self._saved = {n: getattr(K, n) for n in self._names}
+        self._saved = {n: getattr(K, n)
+                       for n in SHARD_KERNELS + tuple(STEP_LOOPS)}
         for n, f in self._saved.items():
             setattr(K, n, _Recorder(f, self._record(n)))
         return self
@@ -3869,7 +3923,7 @@ def shard_work(name, args, kw=None) -> float:
                 go & (s >= 0)].sum())
         after = _clone(state)
         K.shard_ext_step_plain(after, pos_f, b_lane, rd, arrs, meta, back,
-                               slot)
+                               slot, lanes=_first_lanes(n, alive.device))
         n_live, n_go, kept = int(alive.sum()), int(go.sum()), int(
             after[0].sum())
         # a live lane reads m, pos_f and b_lane; one that steps also k, l
@@ -3886,12 +3940,21 @@ def shard_work(name, args, kw=None) -> float:
     pieces = int(_row_piece_bytes(rows, x, seq_len, walk=True)[
         steps_row & (slot >= 0)].sum())
     after = _clone(state)
-    K.shard_walk_step_plain(after, arrs, meta, back, slot)
+    K.shard_walk_step_plain(after, arrs, meta, back, slot,
+                            lanes=_first_lanes(active.numel(), active.device))
     n_live, kept = int(active.sum()), int(after[0].sum())
     # an active row reads and writes its row and steps, and reads its slot
     # unless it is the primary row; one that stops writes its flag
     return float(active.numel() + n_live * 4 * 8 + int(steps_row.sum()) * 4
                  + pieces + (n_live - kept) + _l2_bytes(arrs))
+
+
+def _first_lanes(n, device):
+    """A LaneList of a block's first step over n lanes, on lists of its
+    own: a plain step's, whose list nothing reads."""
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    return K.LaneList(*K.lane_list(n, device), 0, True, n)
 
 
 def _l2_bytes(arrs) -> int:
@@ -3965,22 +4028,20 @@ def live_band(live: int, n: int) -> str:
 
 def _step_args(name, args, kw):
     """(the positional arguments a step kernel's check passes, the index
-    of its back, its lanes' LaneList or None)."""
+    of its back, its lanes' LaneList)."""
     n_args, bk = (8, 6) if name == "shard_ext_step" else (5, 3)
-    return n_args, bk, kw.get("lanes")
+    return n_args, bk, kw["lanes"]
 
 
 def _step_outputs(state, live, lanes):
     """A step's results as check_shard_kernels compares them: the lane
-    state, the live count and, with a list, the list it wrote (sorted:
-    its order follows the atomics) and the counter ring."""
+    state, the live count, the list it wrote (sorted: its order follows
+    the atomics) and the counter ring."""
     from lordfast_tpu_torch.ops import fm_shard_cuda as K
 
-    out = list(state) + [live]
-    if lanes is not None:
-        _, _, list_out, n_out, _ = K.lane_ring(lanes)
-        out += [list_out[: int(n_out[0])].sort().values, lanes.ring]
-    return out
+    _, _, list_out, n_out, _ = K.lane_ring(lanes)
+    return list(state) + [live, list_out[: int(n_out[0])].sort().values,
+                          lanes.ring]
 
 
 def _reverse_list(lanes):
@@ -4008,7 +4069,7 @@ def _check_step(name, tag, args, kw, kern, plain, routed_rows):
     if routed_rows is not None and routed_rows.shape == args[bk].shape:
         backs.append(routed_rows)
     runs = [(plain, None, False)] + [(kern, b, False) for b in backs]
-    if lanes is not None and not lanes.first:
+    if not lanes.first:
         runs.append((kern, None, True))
     res = []
     for f, back, rev in runs:
@@ -4026,25 +4087,23 @@ def _check_step(name, tag, args, kw, kern, plain, routed_rows):
                 raise AssertionError(f"{tag}: kernel != plain")
     flags = args[0][0]
     return {"lanes": int(flags.numel()), "live": int(flags.sum()),
-            "list_step": lanes is not None and not lanes.first,
+            "list_step": not lanes.first,
             "backs_checked": len(backs), "reversed": runs[-1][2]}
 
 
-def _time_step(name, args, kw, f, reps, n_live=None):
-    """Mean ms of step kernel f (the wrapper or its plain version) on one
-    recorded call, a fresh clone of its arguments a launch (made before
-    the timed window: the step runs in place); n_live: the lanes its grid
-    covers on a list step (a persistent grid's, in place of the
-    block's)."""
-    n_args, _, lanes = _step_args(name, args, kw)
-    if n_live is not None:
-        lanes = lanes._replace(n_live=n_live)
-    pre = itertools.cycle([(_clone(args), _clone(lanes))
+def _time_step(name, args, kw, f, reps, lanes=True):
+    """A call of step kernel f (the wrapper or its plain version) on one
+    recorded call for _time_launches, a fresh clone of its arguments a
+    launch (made before the timed window: the step runs in place); with
+    ``lanes`` False f takes no LaneList (the parent checkout's kernels,
+    over the flags)."""
+    n_args, _, ln0 = _step_args(name, args, kw)
+    pre = itertools.cycle([(_clone(args), _clone(ln0))
                            for _ in range(reps + 1)])
 
     def call():
         a, ln = next(pre)
-        f(*a[:n_args], **({} if ln is None else {"lanes": ln}))
+        f(*a[:n_args], **({"lanes": ln} if lanes else {}))
 
     return call
 
@@ -4059,8 +4118,8 @@ def check_shard_kernels(rec, timed=False, reps=5, chase=None) -> dict:
     and its bound by bytes (shard_work); a step kernel also its latency
     floor (step_floor: its grid's empty launch, timed the same way, and
     two loads at ``chase`` ns, chase_ns over the stripe's rank rows,
-    measured here when None) and, on a list step, its time on a
-    persistent grid of one block an SM.  Returns {tag: figures}."""
+    measured here when None).  The step kernels' sparse steps are found
+    first (record_shard.replay).  Returns {tag: figures}."""
     import functools
 
     import torch
@@ -4071,6 +4130,7 @@ def check_shard_kernels(rec, timed=False, reps=5, chase=None) -> dict:
                if n not in rec.calls]
     if missing:
         raise AssertionError(f"shard kernels never called: {missing}")
+    rec.replay()
     out = {}
     routed_rows = None
     for tag, (args, kw) in rec.calls.items():
@@ -4123,20 +4183,17 @@ def check_shard_kernels(rec, timed=False, reps=5, chase=None) -> dict:
             fig["bound_ms"], fig["bound_by"] = bound(nbytes, 0, 1.0)
             fig["bytes"] = nbytes
             if name in STEP_KERNELS:
-                fig.update(_step_times(name, args, kw, kern, reps, chase))
+                fig.update(_step_times(name, args, kw, reps, chase))
                 chase = fig["chase_ns"]
         out[tag] = fig
     return out
 
 
-def _step_times(name, args, kw, kern, reps, chase):
+def _step_times(name, args, kw, reps, chase):
     """A step kernel's floor figures on one recorded call: its grid's
     lanes, the empty launch's ms (fm_shard_cuda.noop), the ns of a
-    dependent load (chase, or chase_ns over the stripe's rank rows), the
-    floor (step_floor), and on a list step its ms on a persistent grid of
-    one block an SM."""
-    import torch
-
+    dependent load (chase, or chase_ns over the stripe's rank rows) and
+    the floor (step_floor)."""
     from lordfast_tpu_torch.ops import fm_shard_cuda as K
 
     n_args, _, lanes = _step_args(name, args, kw)
@@ -4145,17 +4202,8 @@ def _step_times(name, args, kw, kern, reps, chase):
     if chase is None:
         chase = chase_ns(rank_bytes(args[4] if n_args == 8 else args[1]))
     empty = _time_launches(lambda: K.noop(grid, flags.device), 4 * reps)
-    l2 = (args[4] if n_args == 8 else args[1])["L2"]
-    fig = {"grid_lanes": grid, "empty_ms": empty, "chase_ns": chase,
-           "floor_ms": step_floor(empty, chase),
-           "blocks_a_sm": K.resident_blocks(name, l2.element_size())}
-    if lanes is not None and not lanes.first:
-        sms = torch.cuda.get_device_properties(
-            flags.device).multi_processor_count
-        fig["persistent_ms"] = _time_launches(_time_step(
-            name, args, kw, kern, reps,
-            n_live=min(grid, sms * K.STEP_THREADS)), reps)
-    return fig
+    return {"grid_lanes": grid, "empty_ms": empty, "chase_ns": chase,
+            "floor_ms": step_floor(empty, chase)}
 
 
 def _striped_bytes(idx, arrs: dict):

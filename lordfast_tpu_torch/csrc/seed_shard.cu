@@ -116,16 +116,20 @@
 // lists, in turns).  A block reserves its live lanes' slots in the list
 // it writes with one atomicAdd as soon as it knows them, before their
 // loads, and each lane fills its slot after its step: the index of a
-// lane kept alive, -1 for one that died, which the next step skips.  (A
-// slot taken only once the survivors are known costs a dependent atomic
-// round trip at every warp's end; one atomicAdd a warp, reserved early,
-// contends on one address across the ~4,000-13,000 warps of a first
-// step: on one H100 each made the first steps 2-4 us slower than the
-// parent's, PERF.md.)  A step's grid covers the group's most live
-// lanes at the block's start (the host holds that count from the block's
-// read; lanes only die), and its threads exit past the list's count,
-// which they read on the card: no host read and no memset inside a
-// block.  The counts are a ring of three: step g reserves on count g %
+// lane kept alive, -1 for one that died, which the next step skips; a
+// block with no live lane leaves at its first barrier, which counts
+// them (__syncthreads_count), with no atomic.  (A slot taken only once
+// the survivors are known costs a dependent atomic round trip at every
+// warp's end; one atomicAdd a warp, reserved early, contends on one
+// address across the ~4,000-13,000 warps of a first step: on one H100
+// each made the first steps 2-4 us slower than the parent's, PERF.md.)
+// A step's grid covers the group's most live lanes at the block's start
+// (the host holds that count from the block's read; lanes only die), a
+// thread a list entry, and its threads past the list's count, which
+// they read on the card, do nothing: no host read and no memset inside
+// a block.  (A persistent grid of one block an SM, striding over the
+// list, was no faster on the sparse steps: PERF.md.)  The counts are a
+// ring of three: step g reserves on count g %
 // 3, reads count (g - 1) % 3 and zeroes count (g + 1) % 3
 // (ops/fm_shard_cuda.py's LaneList), so the count it reserves on was
 // zeroed a step before and the one it zeroes was read a step before; a
@@ -482,16 +486,12 @@ __device__ __forceinline__ void row_at(const int64_t* back, int32_t s,
 // a block of steps runs over every lane's flag (list_in null: n lanes);
 // each later one over the list_in[0 .. *n_in) entries the step before it
 // wrote: a lane it kept alive, or -1 for a lane that died there (skipped;
-// no flag is read).  A block reserves list_out slots for its live lanes
-// at one atomicAdd on *n_out as soon as it knows them, so the atomic's
-// round trip overlaps the lanes' loads; after the step each kept lane
-// writes its index into its warp's slots, and each lane that died -1
-// (list_out null: no list).  *live (or null) counts the kept lanes, one
-// atomicAdd a warp (a block's last step: the block's live count); thread
-// 0 of block 0 sets *zero (or null) to 0: the count the next step
-// reserves on, which the step before this one read (the counter ring of
-// lf_shard_ext_step).  The list's order follows the atomics; no lane's
-// step depends on another's.
+// no flag is read).  The step writes list_out, its slots reserved on
+// *n_out; *live (or null) counts the kept lanes (a block's last step: the
+// block's live count); thread 0 of block 0 sets *zero to 0: the count the
+// next step reserves on, which the step before this one read (the counter
+// ring of lf_shard_ext_step).  The list's order follows the atomics; no
+// lane's step depends on another's.
 struct Lanes {
   const int32_t* list_in;
   const int32_t* n_in;
@@ -502,16 +502,17 @@ struct Lanes {
   int64_t n;
 };
 
-// step(lane) -> whether the lane stays alive, for every lane of the step,
-// a block kThreads consecutive items (flags or list entries) at a time
-// with the grid striding over them (the wrapper sizes the grid to the
-// lanes alive at the block's start, so a thread takes one item); a list
-// step's first entry is loaded beside the list's count.  A block's live
-// lanes reserve their slots with one atomicAdd, issued by thread 0 before
-// the lanes' loads and awaited only after their step, and each warp's
-// live lanes fill the warp's run of them: its kept lanes first, then -1
-// for each that died.  Items and lanes are 32-bit: n <= 2^30
-// (make_lanes).
+// step(lane) -> whether the lane stays alive, for every item of the step
+// (a flag, or a list entry), a thread an item: the wrapper's grid covers
+// the step's items (every lane on a block's first step; on a list step
+// the group's live lanes at the block's start, which no list of the block
+// outnumbers: it traps if one does).  A list step's entry is loaded
+// beside the list's count.  The block's first barrier counts its live
+// lanes (a block with none returns there); thread 0 then reserves their
+// list_out slots with one atomicAdd, issued before the lanes' loads and
+// awaited only after their step, and each warp's live lanes fill the
+// warp's run of them: its kept lanes first, then -1 for each that died.
+// Items and lanes are 32-bit: n <= 2^30 (make_lanes).
 template <typename Pos, typename Step>
 __device__ __forceinline__ void for_lanes(const Lanes& s,
                                           const uint8_t* flags,
@@ -519,62 +520,54 @@ __device__ __forceinline__ void for_lanes(const Lanes& s,
                                           Step step) {
   __shared__ int woff[kThreads / 32];  // each warp's first slot in its block's
   __shared__ int base;                 // the block's first slot
-  if (s.zero != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *s.zero = 0;
-  // L2 into shared memory, its load beside the items' (the first barrier
-  // below waits for both)
-  if (threadIdx.x < 5) l2s[threadIdx.x] = pos_at<Pos>(l2, threadIdx.x);
-  const int me = static_cast<int>(threadIdx.x & 31);
-  const int w = static_cast<int>(threadIdx.x >> 5);
-  const unsigned lt = (1u << me) - 1u;
-  const int n = static_cast<int>(s.n);
-  const int stride = static_cast<int>(gridDim.x) * kThreads;
-  const int b0 = static_cast<int>(blockIdx.x) * kThreads;
   const int t = static_cast<int>(threadIdx.x);
-  int first = -1;
-  if (s.list_in != nullptr && b0 + t < n) first = __ldg(s.list_in + b0 + t);
-  const int items = s.list_in != nullptr ? __ldg(s.n_in) : n;
-  for (int i0 = b0; i0 < items; i0 += stride) {  // the block's, uniform
-    const int i = i0 + t;
-    int lane = i;
-    bool alive = false;
-    if (i < items) {
-      if (s.list_in != nullptr) {
-        lane = i0 == b0 ? first : __ldg(s.list_in + i);
-        alive = lane >= 0;
-      } else {
-        alive = flags[lane] != 0;
-      }
+  const int i = static_cast<int>(blockIdx.x) * kThreads + t;
+  const int n = static_cast<int>(s.n);
+  if (blockIdx.x == 0 && t == 0) *s.zero = 0;
+  // L2 into shared memory, its load beside the item's (the first barrier
+  // below waits for both)
+  if (t < 5) l2s[t] = pos_at<Pos>(l2, t);
+  int lane = i;
+  bool alive = false;
+  if (s.list_in != nullptr) {
+    const int entry = i < n ? __ldg(s.list_in + i) : -1;
+    const int items = __ldg(s.n_in);
+    if (blockIdx.x == 0 && t == 0 &&
+        items > static_cast<int>(gridDim.x) * kThreads) {
+      __trap();  // a list longer than the grid: lanes would be skipped
     }
-    const unsigned b_alive = __ballot_sync(kFull, alive);
-    int got = 0;  // thread 0: the block's first slot, still in flight
-    if (me == 0) woff[w] = __popc(b_alive);
-    __syncthreads();
-    if (s.list_out != nullptr) {
-      if (t == 0) {
-        int sum = 0;
-        for (int k = 0; k < kThreads / 32; ++k) {
-          const int c = woff[k];
-          woff[k] = sum;
-          sum += c;
-        }
-        if (sum > 0) got = atomicAdd(s.n_out, sum);
-      }
+    lane = entry;
+    alive = i < items && entry >= 0;
+  } else {
+    alive = i < n && flags[i] != 0;
+  }
+  const int me = t & 31;
+  const int w = t >> 5;
+  const unsigned b_alive = __ballot_sync(kFull, alive);
+  if (me == 0) woff[w] = __popc(b_alive);
+  if (__syncthreads_count(alive) == 0) return;  // uniform in the block
+  int got = 0;  // thread 0: the block's first slot, still in flight
+  if (t == 0) {
+    int sum = 0;
+    for (int k = 0; k < kThreads / 32; ++k) {
+      const int c = woff[k];
+      woff[k] = sum;
+      sum += c;
     }
-    const bool keep = alive && step(lane);
-    const unsigned b_keep = __ballot_sync(kFull, keep);
-    if (s.list_out != nullptr) {
-      if (t == 0) base = got;
-      __syncthreads();
-      if (alive) {
-        const int at = keep ? __popc(b_keep & lt)
-                            : __popc(b_keep) + __popc(b_alive & ~b_keep & lt);
-        s.list_out[base + woff[w] + at] = keep ? lane : -1;
-      }
-      __syncthreads();  // woff and base are the next round's
-    }
-    if (s.live != nullptr && me == 0 && b_keep != 0u) {
-      atomicAdd(s.live, __popc(b_keep));
-    }
+    got = atomicAdd(s.n_out, sum);
+  }
+  const bool keep = alive && step(lane);
+  const unsigned b_keep = __ballot_sync(kFull, keep);
+  if (t == 0) base = got;
+  __syncthreads();
+  if (alive) {
+    const unsigned lt = (1u << me) - 1u;
+    const int at = keep ? __popc(b_keep & lt)
+                        : __popc(b_keep) + __popc(b_alive & ~b_keep & lt);
+    s.list_out[base + woff[w] + at] = keep ? lane : -1;
+  }
+  if (s.live != nullptr && me == 0 && b_keep != 0u) {
+    atomicAdd(s.live, __popc(b_keep));
   }
 }
 
@@ -719,13 +712,13 @@ bool aligned16(const void* p) {
 }
 
 // A step's Lanes from the step kernels' arguments (see Lanes): the first
-// step of a block over the flags (list_in null) or a later one over
-// list_in[0 .. *n_in); list_out (n,) int32 with the count n_out (int32)
-// its slots are reserved on, or null; live (int32) or null; zero (int32)
-// or null.  n_grid in [1, n]: the lanes the grid covers, one a thread
-// (the block's live lanes at its start for a list step, whose entries
-// never outnumber them; the kernel strides past it in any case); n <=
-// 2^30.  False on arguments the kernels do not take.
+// step of a block over the flags (list_in and n_in null) or a later one
+// over list_in[0 .. *n_in); list_out (n,) int32 and the count n_out
+// (int32) its slots are reserved on; live (int32) or null; zero (int32).
+// n_grid in [1, n]: the lanes the grid covers, a thread each (n on a
+// first step; on a list step the block's live lanes at its start, which
+// its lists never outnumber); n <= 2^30.  False on arguments the kernels
+// do not take.
 bool make_lanes(const void* list_in, const void* n_in, void* list_out,
                 void* n_out, void* live, void* zero, long long n,
                 long long n_grid, Lanes& s) {
@@ -735,8 +728,9 @@ bool make_lanes(const void* list_in, const void* n_in, void* list_out,
             static_cast<int32_t*>(live), static_cast<int32_t*>(zero), n};
   return n >= 0 && n <= (1ll << 30) &&
          (n == 0 || (n_grid >= 1 && n_grid <= n)) &&
-         (list_in == nullptr || n_in != nullptr) &&
-         (list_out == nullptr || n_out != nullptr);
+         (list_in == nullptr) == (n_in == nullptr) &&
+         (list_in != nullptr || n_grid == n) && list_out != nullptr &&
+         n_out != nullptr && zero != nullptr;
 }
 
 }  // namespace
@@ -908,29 +902,6 @@ extern "C" int lf_shard_walk_step(void* active, void* rows, void* steps,
         a, s);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// The blocks of 256 threads an SM holds at once of the extension step
-// (walk 0) or the walk step (walk 1) in the Pos instance of pos_bytes,
-// into *blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor: what the
-// kernel's registers leave room for).  Returns a cudaError_t.
-extern "C" int lf_shard_step_blocks(int walk, int pos_bytes, int* blocks) {
-  if (pos_bytes != 4 && pos_bytes != 8) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const void* f =
-      walk ? (pos_bytes == 4
-                  ? reinterpret_cast<const void*>(
-                        shard_walk_step_kernel<int32_t>)
-                  : reinterpret_cast<const void*>(
-                        shard_walk_step_kernel<int64_t>))
-           : (pos_bytes == 4
-                  ? reinterpret_cast<const void*>(
-                        shard_ext_step_kernel<int32_t>)
-                  : reinterpret_cast<const void*>(
-                        shard_ext_step_kernel<int64_t>));
-  return static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, f, kThreads, 0));
 }
 
 // An empty launch of a step's grid over n_grid >= 1 lanes (256 threads a

@@ -43,6 +43,7 @@ Build: ``cuda_build`` (nvcc at first use, ctypes).
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -61,11 +62,18 @@ MAX_OWNERS = 256
 STEP_THREADS = 256
 
 
+# the library's C functions by name, their types set once: a sharded
+# step is host time, so a launch looks nothing up
+_fns = {}
+
+
 def _fn(name, argtypes):
-    f = getattr(cuda_build.load("seed_shard"), name)
-    if f.argtypes is None:
+    f = _fns.get(name)
+    if f is None:
+        f = getattr(cuda_build.load("seed_shard"), name)
         f.restype = ctypes.c_int
         f.argtypes = argtypes
+        _fns[name] = f
     return f
 
 
@@ -131,34 +139,24 @@ def lane_list(n, device):
             torch.zeros(3, dtype=torch.int32, device=device))
 
 
-def _ring_rows(lanes):
-    """(list_in, n_in, list_out, n_out, zero) of one step as indexes: of
-    lists' rows for the lists, of ring's counts for the counts (None for
-    a block's first step's list_in and n_in; see LaneList)."""
-    g = lanes.step
-    return (None if lanes.first else (g - 1) % 2,
-            None if lanes.first else (g - 1) % 3, g % 2, g % 3, (g + 1) % 3)
-
-
 def lane_ring(lanes):
     """(list_in, n_in, list_out, n_out, zero) of one step, views of its
-    LaneList's tensors (see LaneList), or None: the list it runs over and
-    its count (None on a block's first step), the list it writes and the
-    count its slots are reserved on, the count it zeroes.  Without lanes,
-    all None: a step over the flags that writes no list."""
-    if lanes is None:
-        return None, None, None, None, None
-    rows = _ring_rows(lanes)
-    return tuple(None if j is None else (
-        lanes.lists[j] if i in (0, 2) else lanes.ring[j: j + 1])
-        for i, j in enumerate(rows))
+    LaneList's tensors (see LaneList): the list it runs over and its
+    count (None on a block's first step), the list it writes and the
+    count its slots are reserved on, the count it zeroes."""
+    g = lanes.step
+    first = lanes.first
+    return (None if first else lanes.lists[(g - 1) % 2],
+            None if first else lanes.ring[(g - 1) % 3: (g - 1) % 3 + 1],
+            lanes.lists[g % 2], lanes.ring[g % 3: g % 3 + 1],
+            lanes.ring[(g + 1) % 3: (g + 1) % 3 + 1])
 
 
 def grid_lanes(n, lanes):
     """The lanes a step's grid covers, a thread each: every lane on a
-    block's first step (or without a list), else the group's live lanes
-    at the block's start (at least 1, at most n)."""
-    if lanes is None or lanes.first:
+    block's first step, else the group's live lanes at the block's start
+    (at least 1, at most n)."""
+    if lanes.first:
         return n
     return min(max(lanes.n_live, 1), n)
 
@@ -218,19 +216,18 @@ def _append_plain(alive, kept, lanes, live):
     added to the count its slots are reserved on, the count it zeroes
     zeroed (lane_ring), and the kept lanes added to live."""
     _, _, list_out, n_out, zero = lane_ring(lanes)
-    if list_out is not None:
-        idx = kept.nonzero()[:, 0]
-        n_alive = int(alive.sum())
-        list_out[: idx.numel()] = idx.to(list_out.dtype)
-        list_out[idx.numel(): n_alive] = -1
-        n_out.add_(n_alive)
-        zero.zero_()
+    idx = kept.nonzero()[:, 0]
+    n_alive = int(alive.sum())
+    list_out[: idx.numel()] = idx.to(list_out.dtype)
+    list_out[idx.numel(): n_alive] = -1
+    n_out.add_(n_alive)
+    zero.zero_()
     if live is not None:
         live.add_(kept.sum().to(live.dtype))
 
 
 def shard_ext_step_plain(state, pos_f, b_lane, rd, arrs, meta, back, slot,
-                         live=None, lanes=None):
+                         live=None, *, lanes):
     """shard_ext_step's plain version (fm_index._ext_step's arithmetic,
     from the rows returned by slot), over every alive lane whatever the
     list holds: the oracle of a list step too."""
@@ -249,8 +246,8 @@ def shard_ext_step_plain(state, pos_f, b_lane, rd, arrs, meta, back, slot,
     _append_plain(alive, new[0], lanes, live)
 
 
-def shard_walk_step_plain(state, arrs, meta, back, slot, live=None,
-                          lanes=None):
+def shard_walk_step_plain(state, arrs, meta, back, slot, live=None, *,
+                          lanes):
     """shard_walk_step's plain version (fm_index._walk_step's arithmetic,
     the char from the word of x's own rank row), over every active row
     whatever the list holds."""
@@ -423,59 +420,92 @@ def _l2(arrs, dev):
     return l2
 
 
-def _lanes_ptrs(name, n, lanes, live, dev):
+def _check_lanes(name, n, lanes, dev):
+    check_tensor("lists", lanes.lists, torch.int32, (2, n), dev)
+    check_tensor("ring", lanes.ring, torch.int32, (3,), dev)
+    if n > 2**30:
+        raise ValueError(f"{name}: {n} lanes, at most 2^30 (int32 lists "
+                         "and indexes)")
+
+
+def _lanes_ptrs(n, lanes, lists, ring, live):
     """The list and count pointers of one step in the kernels' order
-    (list_in, n_in, list_out, n_out, live, zero: lane_ring's and live)
-    after checking them, and the lanes its grid covers (grid_lanes)."""
-    if live is not None:
-        check_tensor("live", live, torch.int32, (1,), dev)
-    if lanes is not None:
-        check_tensor("lists", lanes.lists, torch.int32, (2, n), dev)
-        check_tensor("ring", lanes.ring, torch.int32, (3,), dev)
-        if n > 2**30:
-            raise ValueError(f"{name}: {n} lanes, at most 2^30 (int32 "
-                             "lists and indexes)")
-    ptrs = [None] * 5  # the pointers lane_ring's views would give
-    if lanes is not None:
-        lists, ring = lanes.lists.data_ptr(), lanes.ring.data_ptr()
-        ptrs = [None if j is None else (
-            lists + 4 * n * j if i in (0, 2) else ring + 4 * j)
-            for i, j in enumerate(_ring_rows(lanes))]
-    return ptrs[:4] + [_ptr(live), ptrs[4]], grid_lanes(n, lanes)
+    (list_in, n_in, list_out, n_out, live, zero: lane_ring's views' and
+    live's, from the pointers of lanes.lists and lanes.ring) and the
+    lanes its grid covers (grid_lanes)."""
+    g = lanes.step
+    if lanes.first:
+        list_in = n_in = None
+    else:
+        list_in, n_in = lists + 4 * n * ((g - 1) % 2), ring + 4 * ((g - 1) % 3)
+    return ([list_in, n_in, lists + 4 * n * (g % 2), ring + 4 * (g % 3),
+             _ptr(live), ring + 4 * ((g + 1) % 3)], grid_lanes(n, lanes))
+
+
+# each step wrapper's last call: weak references to its tensors, its
+# sizes and the tensors' pointers.  A loop passes the same lane state,
+# reads, buffers and lane lists every step, so they are checked on its
+# first step and then matched by identity and pointer.
+_last = {}
+
+
+def _checked(name, tensors, sizes, check):
+    """The data pointers of ``tensors``, after ``check()`` (which raises
+    on any the kernel does not take) unless they are the very tensors,
+    at the same pointers and sizes, of wrapper name's last call."""
+    ptrs = [t.data_ptr() for t in tensors]
+    last = _last.get(name)
+    if (last is None or last[1] != sizes or last[2] != ptrs
+            or any(r() is not t for r, t in zip(last[0], tensors))):
+        check()
+        _last[name] = ([weakref.ref(t) for t in tensors], sizes, ptrs)
+    return ptrs
+
+
+_EXT_ARGS = [_VP] * 17 + [_CL] * 4 + [_CI] * 3 + [_VP]
+_WALK_ARGS = [_VP] * 12 + [_CL] * 4 + [_CI] * 2 + [_VP]
 
 
 def shard_ext_step(state, pos_f, b_lane, rd, arrs, meta, back, slot,
-                   live=None, lanes=None):
+                   live=None, *, lanes):
     """One extension step of n lanes in place: state [alive (n,) bool, k,
     l, m (n,) int64]; pos_f, b_lane (n,) int64; rd the read batch
     (fm_index._Reads); back (slots, 12) int64 and slot (2 n,) int32 from
     the bucket step; live (1,) int32 or None: the lanes alive after the
-    step are added to it; lanes: the loop's LaneList, or None for a step
-    over every lane's flag that writes no list.  A list step's entries
-    must each be a live lane, once, or -1 (the step before wrote them)."""
+    step are added to it; lanes: the step's LaneList (a block's first
+    step runs over every lane's flag; a list step's entries must each be
+    a live lane, once, or -1: the step before wrote them)."""
     alive, k, l, m = state
     if alive.device.type == "cpu":
         return shard_ext_step_plain(state, pos_f, b_lane, rd, arrs, meta,
-                                    back, slot, live, lanes)
-    dev = _cuda_device("shard_ext_step", alive)
+                                    back, slot, live, lanes=lanes)
     n = alive.shape[0]
-    check_tensor("alive", alive, torch.bool, (n,), dev)
-    for name, x in (("k", k), ("l", l), ("m", m), ("pos_f", pos_f),
-                    ("b_lane", b_lane)):
-        check_tensor(name, x, torch.int64, (n,), dev)
     B, W16 = rd.rw.shape
-    check_tensor("rw", rd.rw, torch.int64, (B, W16), dev)
-    check_tensor("lens", rd.lens, torch.int64, (B,), dev)
-    _check_step("shard_ext_step", back, slot, 2 * n, dev)
-    ptrs, n_grid = _lanes_ptrs("shard_ext_step", n, lanes, live, dev)
-    l2 = _l2(arrs, dev)
+    l2 = arrs["L2"]
+    tensors = (alive, k, l, m, pos_f, b_lane, rd.rw, rd.lens, l2, back,
+               slot, lanes.lists, lanes.ring)
+
+    def check():
+        dev = _cuda_device("shard_ext_step", alive)
+        check_tensor("alive", alive, torch.bool, (n,), dev)
+        for name, x in (("k", k), ("l", l), ("m", m), ("pos_f", pos_f),
+                        ("b_lane", b_lane)):
+            check_tensor(name, x, torch.int64, (n,), dev)
+        check_tensor("rw", rd.rw, torch.int64, (B, W16), dev)
+        check_tensor("lens", rd.lens, torch.int64, (B,), dev)
+        _check_step("shard_ext_step", back, slot, 2 * n, dev)
+        _l2(arrs, dev)
+        _check_lanes("shard_ext_step", n, lanes, dev)
+
+    ptrs = _checked("shard_ext_step", tensors, (n, B, W16, back.shape[0]),
+                    check)
+    dev = alive.device
+    if live is not None:
+        check_tensor("live", live, torch.int32, (1,), dev)
+    lane_ptrs, n_grid = _lanes_ptrs(n, lanes, ptrs[11], ptrs[12], live)
     with torch.cuda.device(dev):
-        rc = _fn("lf_shard_ext_step",
-                 [_VP] * 17 + [_CL] * 4 + [_CI] * 3 + [_VP])(
-            alive.data_ptr(), k.data_ptr(), l.data_ptr(), m.data_ptr(),
-            pos_f.data_ptr(), b_lane.data_ptr(), rd.rw.data_ptr(),
-            rd.lens.data_ptr(), l2.data_ptr(), back.data_ptr(),
-            slot.data_ptr(), *ptrs, n, n_grid, meta["seq_len"],
+        rc = _fn("lf_shard_ext_step", _EXT_ARGS)(
+            *ptrs[:11], *lane_ptrs, n, n_grid, meta["seq_len"],
             meta["primary"], rd.L, W16, l2.element_size(), _stream(dev))
     _check_launch("shard_ext_step", rc)
     shard_ext_step.launches += 1
@@ -484,7 +514,7 @@ def shard_ext_step(state, pos_f, b_lane, rd, arrs, meta, back, slot,
 shard_ext_step.launches = 0
 
 
-def shard_walk_step(state, arrs, meta, back, slot, live=None, lanes=None):
+def shard_walk_step(state, arrs, meta, back, slot, live=None, *, lanes):
     """One walk step of n rows in place: state [active (n,) bool, rows,
     steps (n,) int64]; back and slot (n,) int32 from the bucket step;
     live and lanes as shard_ext_step's.  The index's sa_intv is a power
@@ -492,38 +522,35 @@ def shard_walk_step(state, arrs, meta, back, slot, live=None, lanes=None):
     active, rows, steps = state
     if active.device.type == "cpu":
         return shard_walk_step_plain(state, arrs, meta, back, slot, live,
-                                     lanes)
-    dev = _cuda_device("shard_walk_step", active)
+                                     lanes=lanes)
     n = active.shape[0]
-    check_tensor("active", active, torch.bool, (n,), dev)
-    check_tensor("rows", rows, torch.int64, (n,), dev)
-    check_tensor("steps", steps, torch.int64, (n,), dev)
-    _check_step("shard_walk_step", back, slot, n, dev)
-    ptrs, n_grid = _lanes_ptrs("shard_walk_step", n, lanes, live, dev)
-    l2 = _l2(arrs, dev)
+    l2 = arrs["L2"]
+    tensors = (active, rows, steps, l2, back, slot, lanes.lists, lanes.ring)
+
+    def check():
+        dev = _cuda_device("shard_walk_step", active)
+        check_tensor("active", active, torch.bool, (n,), dev)
+        check_tensor("rows", rows, torch.int64, (n,), dev)
+        check_tensor("steps", steps, torch.int64, (n,), dev)
+        _check_step("shard_walk_step", back, slot, n, dev)
+        _l2(arrs, dev)
+        _check_lanes("shard_walk_step", n, lanes, dev)
+
+    ptrs = _checked("shard_walk_step", tensors, (n, back.shape[0]), check)
+    dev = active.device
+    if live is not None:
+        check_tensor("live", live, torch.int32, (1,), dev)
+    lane_ptrs, n_grid = _lanes_ptrs(n, lanes, ptrs[6], ptrs[7], live)
     with torch.cuda.device(dev):
-        rc = _fn("lf_shard_walk_step", [_VP] * 12 + [_CL] * 4 + [_CI] * 2
-                 + [_VP])(
-            active.data_ptr(), rows.data_ptr(), steps.data_ptr(),
-            l2.data_ptr(), back.data_ptr(), slot.data_ptr(), *ptrs, n,
-            n_grid, meta["seq_len"], meta["primary"], meta["sa_intv"],
-            l2.element_size(), _stream(dev))
+        rc = _fn("lf_shard_walk_step", _WALK_ARGS)(
+            *ptrs[:6], *lane_ptrs, n, n_grid, meta["seq_len"],
+            meta["primary"], meta["sa_intv"], l2.element_size(),
+            _stream(dev))
     _check_launch("shard_walk_step", rc)
     shard_walk_step.launches += 1
 
 
 shard_walk_step.launches = 0
-
-
-def resident_blocks(name, pos_bytes):
-    """Blocks of STEP_THREADS an SM holds at once of step kernel ``name``
-    (shard_ext_step or shard_walk_step) in the instance of pos_bytes (4
-    or 8): its occupancy, as its registers leave room."""
-    out = ctypes.c_int(0)
-    rc = _fn("lf_shard_step_blocks", [_CI, _CI, ctypes.POINTER(_CI)])(
-        int(name == "shard_walk_step"), pos_bytes, ctypes.byref(out))
-    _check_launch("lf_shard_step_blocks", rc)
-    return out.value
 
 
 def noop(n_grid, dev):

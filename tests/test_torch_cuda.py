@@ -979,3 +979,31 @@ def test_cuda_list_steps_match_plain(cuda_device, kind, pos64):
         assert want[-1] is None or out[tag][-1].equal(want[-1]), tag
     assert 0 < int(out["list plain"][0].sum()) < int(
         out["first plain"][0].sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ext", "walk"])
+def test_cuda_step_wrapper_checks_each_new_tensor(cuda_device, kind):
+    # a loop's step tensors are checked on its first step and then matched
+    # by identity (fm_shard_cuda._checked): steps on the same tensors
+    # launch, and a step given another tensor of a type the kernel does
+    # not take is refused
+    import torch_shard_model as model
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    rng = np.random.default_rng([len(kind), 16])
+    n = 10_000
+    case = model.step_case(rng, kind, n, 2**30 + 777, 0.5, False)
+    args = model.step_args(case, kind, cuda_device)
+    lists, ring = K.lane_list(n, cuda_device)
+    step = getattr(K, f"shard_{kind}_step")
+    before = step.launches
+    for g in range(3):  # a block's first step, then two list steps
+        step(*args, lanes=K.LaneList(lists, ring, g, g == 0, n))
+    torch.cuda.synchronize()
+    assert step.launches == before + 3
+    state = list(args[0])
+    state[1] = state[1].int()
+    with pytest.raises(TypeError, match="int64"):
+        step(state, *args[1:], lanes=K.LaneList(lists, ring, 3, False, n))
+    assert step.launches == before + 3

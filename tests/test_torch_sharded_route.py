@@ -186,6 +186,12 @@ def test_shard_kernel_model_matches_plain_loops(model_case, D):
                  "shard_answer sa"] + steps
                 + ["shard_bucket walk", "shard_answer walk"] * sampled
                 + [f"{k} {t}" for k in steps for t in ("<10%", "<1%")]), msg
+            # the pass recorded its first calls and the loops' (no sparse
+            # step: finding one reads the card, which the replay does
+            # after the pass)
+            loop_tags = ["shard_ext"] + ["shard_walk"] * sampled
+            assert list(o["recorded"]) == sorted(
+                [t for t in o["checked"] if "%" not in t] + loop_tags), msg
             assert (o["work"] > 0).all(), msg
             c = {tag: dict(zip(keys, o[f"{tag}_counts"]))
                  for tag in ("plain", "wrap", "model", "over")}
@@ -539,17 +545,20 @@ def test_answer_model_leaves_only_unread_slots(small_index, D, layout):
                 continue
             x, res = per[r], []
             for t in backs:
+                # a block's first step, over the flags
+                lanes = K.LaneList(*K.lane_list(x["live"].numel(), "cpu"), 0,
+                                   True, 0)
                 if q == "ext":
                     st = [x["live"].clone(), x["k"].clone(), x["l"].clone(),
                           x["m"].clone()]
                     K.shard_ext_step_plain(st, x["pos_f"], x["b_lane"], rd,
                                            ranks[r], meta, backs[t][r],
-                                           slots[r])
+                                           slots[r], lanes=lanes)
                 else:
                     st = [x["live"].clone(), x["rows"].clone(),
                           torch.zeros(n, dtype=torch.int64)]
                     K.shard_walk_step_plain(st, ranks[r], meta, backs[t][r],
-                                            slots[r])
+                                            slots[r], lanes=lanes)
                 res.append(st)
             for a, b in zip(*res):
                 assert torch.equal(a, b)
@@ -781,7 +790,6 @@ def test_step_grid_covers_the_blocks_live_lanes(n_live, n, first, want):
 
     lists, ring = K.lane_list(n, "cpu")
     assert K.grid_lanes(n, K.LaneList(lists, ring, 7, first, n_live)) == want
-    assert K.grid_lanes(n, None) == n
     # step 7: reads list 0 and count 0, writes list 1 reserving on count
     # 1, zeroes count 2
     lanes = K.LaneList(lists, ring, 7, first, n_live)
@@ -793,14 +801,50 @@ def test_step_grid_covers_the_blocks_live_lanes(n_live, n, first, want):
     assert list_out.data_ptr() == lists[1].data_ptr()
     assert cnt.data_ptr() == ring[1:].data_ptr()
     assert zero.data_ptr() == ring[2:].data_ptr()
-    assert K.lane_ring(None) == (None,) * 5
     # the kernels' pointers (the wrappers' order: list_in, n_in, list_out,
     # n_out, live, zero) are the views' own
     import torch
 
     live = torch.zeros(1, dtype=torch.int32)
-    ptrs, grid = K._lanes_ptrs("step", n, lanes, live, torch.device("cpu"))
+    ptrs, grid = K._lanes_ptrs(n, lanes, lists.data_ptr(), ring.data_ptr(),
+                               live)
     views = K.lane_ring(lanes)
     assert ptrs == [None if v is None else v.data_ptr()
                     for v in views[:4] + (live, views[4])]
     assert grid == want
+
+
+def test_step_wrappers_check_a_loops_tensors_once():
+    # the step wrappers check their tensors on a loop's first step and
+    # then match them by identity, pointer and size (fm_shard_cuda
+    # _checked); any other tensor, size or pointer is checked again, and
+    # a check that raises is made again on the next call
+    import torch
+
+    from lordfast_tpu_torch.ops import fm_shard_cuda as K
+
+    checks = []
+    a = [torch.zeros(4), torch.zeros(3, dtype=torch.int32)]
+
+    def run(ts, sizes, ok=True):
+        def check():
+            checks.append(1)
+            if not ok:
+                raise ValueError("refused")
+        return K._checked("test_step", ts, sizes, check)
+
+    assert run(a, (4,)) == [x.data_ptr() for x in a] and len(checks) == 1
+    assert run(a, (4,)) == [x.data_ptr() for x in a] and len(checks) == 1
+    b = [a[0].clone(), a[1]]
+    run(b, (4,))
+    assert len(checks) == 2
+    run(b, (5,))
+    assert len(checks) == 3
+    b[0].set_(torch.zeros(8))  # the same tensor, its data moved
+    run(b, (5,))
+    assert len(checks) == 4
+    for _ in range(2):
+        with pytest.raises(ValueError, match="refused"):
+            run(a, (4,), ok=False)
+    assert len(checks) == 6
+    K._last.pop("test_step")

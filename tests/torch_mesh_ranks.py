@@ -221,9 +221,12 @@ def _rank_rows(d, D, r):
 def _kernel_route(fm, K):
     """Point fm_index's sharded loops and SA entries' gather at
     fm_shard_cuda's (shard_ext, shard_walk, sa_gather: the block schedule
-    and the exact gather over the four wrappers)."""
-    fm._shard_ext, fm._shard_walk = K.shard_ext, K.shard_walk
-    fm._sa_gather = K.sa_gather
+    and the exact gather over the four wrappers), looked up at call time
+    as the pipeline does on the card, so that a stand-in at K's
+    attribute (chip_smoke.record_shard) sees the calls."""
+    fm._shard_ext = lambda *a: K.shard_ext(*a)
+    fm._shard_walk = lambda *a: K.shard_walk(*a)
+    fm._sa_gather = lambda *a: K.sa_gather(*a)
 
 
 # the blocks of the edge lanes' model run (job_shard_model) whose cap is
@@ -290,8 +293,11 @@ def job_shard_model(d):
         out.update({f"wrap_{k}": v.numpy()
                     for k, v in got._asdict().items()})
         out["wrap_counts"] = np.array(list(counts.values()))
-        # the smoke's checks of the kernels against their plain versions
-        # (here both are the plain ones) and its bytes bound, on the CPU
+        # what the pass itself recorded (its first calls and the loops'),
+        # then the smoke's checks of the kernels against their plain
+        # versions (here both are the plain ones), which find the sparse
+        # steps by replaying the loops, and its bytes bound, on the CPU
+        out["recorded"] = np.array(sorted(rec.calls))
         figs = chip_smoke.check_shard_kernels(rec)
         out["checked"] = np.array(sorted(figs))
         out["work"] = np.array([chip_smoke.shard_work(

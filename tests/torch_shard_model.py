@@ -228,15 +228,12 @@ def append(rng, lanes, kept, list_out, n_out, zero, live):
     it ran (``lanes``), filled with the kept lanes and a -1 for each that
     died, in an order drawn at random (a warp's group at a time in the
     atomics' order, on the card); *zero set to 0, *live raised by the
-    kept lanes; list_out, n_out and zero None without a list, live None
-    but on a block's last step."""
-    if zero is not None:
-        zero[0] = 0
-    if list_out is not None:
-        base = int(n_out[0])
-        filled = np.concatenate([kept, np.full(len(lanes) - len(kept), -1)])
-        list_out[base: base + len(lanes)] = rng.permutation(filled)
-        n_out[0] = base + len(lanes)
+    kept lanes (live None but on a block's last step)."""
+    zero[0] = 0
+    base = int(n_out[0])
+    filled = np.concatenate([kept, np.full(len(lanes) - len(kept), -1)])
+    list_out[base: base + len(lanes)] = rng.permutation(filled)
+    n_out[0] = base + len(lanes)
     if live is not None:
         live[0] += len(kept)
 
@@ -332,8 +329,8 @@ def install(K, rng):
     def ring(state, live, lanes):
         """The step's lanes (for_lanes) and the list and counts it writes,
         as numpy views (lane_ring, then live); a list step's entries never
-        outnumber the lanes its grid covers (the block's live lanes at its
-        start)."""
+        outnumber the lanes its grid covers, a thread each (the block's
+        live lanes at its start: the kernel traps if they do)."""
         views = [None if x is None else x.numpy()
                  for x in (*K.lane_ring(lanes), live)]
         n = state[0].shape[0]
@@ -343,7 +340,7 @@ def install(K, rng):
         return for_lanes(state[0].numpy(), views[0], n_in), views[2:]
 
     def ext_step(state, pos_f, b_lane, rd, arrs, meta, back, slot,
-                 live=None, lanes=None):
+                 live=None, *, lanes):
         idx, out = ring(state, live, lanes)
         res = shard_ext_step_kernel(
             *(x.numpy() for x in state), pos_f.numpy(), b_lane.numpy(),
@@ -354,7 +351,7 @@ def install(K, rng):
             x.copy_(T(np.asarray(v)))
         append(rng, idx, res[4], *out)
 
-    def walk_step(state, arrs, meta, back, slot, live=None, lanes=None):
+    def walk_step(state, arrs, meta, back, slot, live=None, *, lanes):
         idx, out = ring(state, live, lanes)
         res = shard_walk_step_kernel(
             *(x.numpy() for x in state), arrs["L2"].long().numpy(),
