@@ -315,7 +315,9 @@ LOOPS = ("_chain_bucketed", "_staged_ext", "sa_lookup")
 # (tools/torch_jax_sams.py); phases 4 and 5 hold the card's SAMs to them.
 JAX_DIGESTS = DATA / "jax_sam_digests.json"
 # Reads whose records may differ from the JAX package's, by (dataset,
-# read name), each with its cause in ROADMAP Queue 3: none so far.
+# read name) under LordfastConfig() and by (configuration, dataset, read
+# name) under another (divergent_key), each with its cause in ROADMAP
+# Queue 3: none so far.
 KNOWN_DIVERGENT: dict = {}
 # The 300 Mbp phase: a seeded random genome of G300_BP bases, the
 # smallest round size at which LordfastConfig() samples the SA (its
@@ -2833,30 +2835,65 @@ def _cpu_subset(idx, sam, reads, dst, keep, tag, cfg=None, **kw):
         f"esc_sites {eng.metrics.counters.get('esc_sites', 0)})")
 
 
-def check_digests(tag, sam):
+def jax_digests(config, tag, path=None) -> dict:
+    """The JAX package's {"reads": N, "digests": {read: sha256}} of
+    dataset tag (v1 or v2) under a configuration: None for
+    LordfastConfig() (the file's "datasets"), else its name under
+    "configs" (clasp, extend-whole-2, extend-whole-3)."""
+    want = json.loads((path or JAX_DIGESTS).read_text())
+    return (want["datasets"] if config is None
+            else want["configs"][config])[tag]
+
+
+def divergent_key(config, tag, read) -> tuple:
+    """A read's KNOWN_DIVERGENT key: (dataset, read) under
+    LordfastConfig(), (configuration, dataset, read) under another."""
+    return (tag, read) if config is None else (config, tag, read)
+
+
+def check_digests(tag, sam, config=None, names=None):
     """Every read's records in the card's SAM of dataset tag (v1 or v2)
     against the JAX package's (JAX_DIGESTS, one sha256 a read, made on
-    the CPU by tools/torch_jax_sams.py): a read that differs fails,
-    unless KNOWN_DIVERGENT names it with its cause, which is printed."""
+    the CPU by tools/torch_jax_sams.py) under a configuration (None:
+    LordfastConfig(); else its name, jax_digests): a read that differs
+    fails, unless KNOWN_DIVERGENT names it with its cause, which is
+    printed.  names: the reads that were mapped, a subset of the
+    dataset's (None: all of them); each must have records, and no other
+    read may."""
     want = json.loads(JAX_DIGESTS.read_text())
-    ds = want["datasets"][tag]
+    sec = want if config is None else want["configs"][config]
+    ds = (want["datasets"] if config is None else sec)[tag]
+    label = f"{tag} {config}" if config else tag
     got = read_digests(sam)
-    if set(got) != set(ds["digests"]) or len(got) != ds["reads"]:
-        raise AssertionError(f"{tag}: {len(got)} reads with records, the "
-                             f"JAX package's SAM has {ds['reads']}")
-    bad = [n for n, d in ds["digests"].items() if got[n] != d]
-    for n in bad:
-        if (tag, n) in KNOWN_DIVERGENT:
-            log(f"[{tag}] read {n} differs from the JAX package's records: "
-                f"{KNOWN_DIVERGENT[(tag, n)]}")
-    unknown = [n for n in bad if (tag, n) not in KNOWN_DIVERGENT]
+    if names is None:
+        if set(got) != set(ds["digests"]) or len(got) != ds["reads"]:
+            raise AssertionError(f"{label}: {len(got)} reads with records, "
+                                 f"the JAX package's SAM has {ds['reads']}")
+        names = list(ds["digests"])
+    outside = [n for n in names if n not in ds["digests"]]
+    if outside:
+        raise AssertionError(f"{label}: {len(outside)} mapped reads are not "
+                             f"in the dataset: {outside[:10]}")
+    missing = [n for n in names if n not in got]
+    extra = sorted(set(got) - set(names))
+    if missing or extra:
+        raise AssertionError(f"{label}: {len(missing)} mapped reads have no "
+                             f"records ({missing[:10]}), {len(extra)} reads "
+                             f"that were not mapped have ({extra[:10]})")
+    bad = [n for n in names if got[n] != ds["digests"][n]]
+    known = [n for n in bad if divergent_key(config, tag, n)
+             in KNOWN_DIVERGENT]
+    unknown = [n for n in bad if n not in known]
     if unknown:
-        raise AssertionError(f"{tag}: {len(unknown)} reads' records differ "
+        raise AssertionError(f"{label}: {len(unknown)} reads' records differ "
                              f"from the JAX package's: {unknown[:10]}")
-    log(f"[{tag}] {len(got) - len(bad)} of {len(got)} reads' records equal "
-        f"the JAX package's on the CPU (sha256 a read, "
-        f"{JAX_DIGESTS.name}, JAX package at "
-        f"{want['jax_package_commit'][:10]}); {len(bad)} known to differ")
+    log(f"[{label}] {len(names) - len(bad)} of {len(names)} reads' records "
+        f"equal the JAX package's on the CPU (sha256 a read, "
+        f"{JAX_DIGESTS.name}, {config or 'LordfastConfig()'}, JAX package "
+        f"at {sec['jax_package_commit'][:10]}); {len(known)} known to "
+        f"differ"
+        + "".join(f"; {n}: {KNOWN_DIVERGENT[divergent_key(config, tag, n)]}"
+                  for n in known))
 
 
 def _report(tag, label, eng, res):
@@ -3435,11 +3472,33 @@ def _sv_junk(name, i):
     return name.startswith(("sv", "junk"))
 
 
-def phase_clasp(v2):
+def _v2_seeder_subset(name, i):
+    """The v2 reads the extend-whole-3 pass maps: the 40 SV/clip and 8
+    junk reads (v2's last 48) and the first 16 others."""
+    return _sv_junk(name, i) or i < 16
+
+
+def _v2_ew2_subset(name, i):
+    """The v2 reads the extend-whole-2 pass maps: _v2_seeder_subset's
+    but the 8 noiseless inversion reads (bench.gen_dataset's SV kind 2:
+    sv2, sv7, ..., 4,500 bases matching the genome in runs of 1,500),
+    56 reads.  Its host seeder extends each of a read's 1000 anchors one
+    char a numpy call, as far as the read matches, so an inversion read
+    costs ~185 s on an 8-core x86 host (measured: sv2, sv12, sv22,
+    sv32), another read 2-5 s; the 64 reads of _v2_seeder_subset took
+    1,044.6 s of host seeding on the H100's host.  On the CPU,
+    tools/torch_jax_sams.py holds all 560."""
+    inversion = name.startswith("sv") and int(name[2:]) % 5 == 2
+    return _v2_seeder_subset(name, i) and not inversion
+
+
+def phase_clasp(v2, v1_idx, v1_reads):
     """v2 with -a clasp at the default config: two passes with the
     offload on (the SAM repeats) and one with it off (the same SAM); the
-    SV/junk reads on the CPU give the same records.  Returns the first
-    pass's launch counts."""
+    first held read by read to the JAX package's clasp digests; the
+    SV/junk reads on the CPU give the same records.  Then one v1 pass
+    with clasp and the offload on, held to its digests.  Returns the
+    first v2 pass's launch counts and the v1 pass's."""
     from lordfast_tpu_torch.config import LordfastConfig
     from lordfast_tpu_torch.pipeline.engine import MappingEngine
 
@@ -3476,16 +3535,26 @@ def phase_clasp(v2):
         f"the offload-off pass byte-equal; warm pass "
         f"{runs[1][2] / runs[1][1]:.2f} reads/s (dp-n2, phase 5: "
         f"{n_reads / v2['warm_s']:.2f})")
+    check_digests("v2", sam, "clasp")
     _cpu_subset(idx, sam, reads, CACHE / "v2_sv_junk.fq", _sv_junk,
                 "v2 clasp", cfg=cfg, esc_device=True)
-    return runs[0][4]
+    eng = MappingEngine(v1_idx, cfg, device="cuda")
+    res = map_pass(eng, v1_reads)
+    _report("v1 clasp", "pass, offload on", eng, res)
+    check_launches("v1 clasp", res[4], eng.metrics.counters,
+                   ("myers_dist", *LOOP_KERNELS))
+    check_digests("v1", res[0], "clasp")
+    return runs[0][4], res[4]
 
 
-def phase_seeders(v1_idx, v1_reads):
+def phase_seeders(v1_idx, v1_reads, v2):
     """The dormant seeders on the card: extend-whole-3 on the first 64
     v1 reads at the default config (the first 16 again on the CPU), and
-    extend-whole-2 on golden at the golden config with sampling_count
-    100 (the CPU gives the same SAM).  Returns their launch counts."""
+    on 64 v2 reads (_v2_seeder_subset), extend-whole-2 on 56 of them
+    (_v2_ew2_subset), each held read by read to the JAX package's
+    digests of its configuration; then extend-whole-2 on golden at the golden config
+    with sampling_count 100 (the CPU gives the same SAM).  Returns their
+    launch counts."""
     from lordfast_tpu_torch.config import LordfastConfig
     from lordfast_tpu_torch.index.builder import build_index
     from lordfast_tpu_torch.pipeline.engine import MappingEngine
@@ -3495,19 +3564,31 @@ def phase_seeders(v1_idx, v1_reads):
         log(f"[{tag}] host seeding {sec:.2f} s for {n} reads: "
             f"{sec / n:.4f} s a read")
 
+    def seeder_pass(tag, seeder, idx, sub, names):
+        eng = MappingEngine(idx, LordfastConfig(seeder=seeder),
+                            device="cuda")
+        res = map_pass(eng, sub)
+        label = f"{tag} {seeder}"
+        _report(label, f"{len(names)} reads, offload on", eng, res)
+        check_launches(label, res[4], eng.metrics.counters,
+                       ("myers_dist", "chain_dp"))
+        host_seed_line(label, eng, res[2])
+        check_digests(tag, res[0], seeder, names)
+        by_path[f"{tag}_{seeder.replace('-', '_')}"] = res[4]
+        return res
+
     by_path = {}
     sub = CACHE / "v1_first64.fq"
-    _subset(v1_reads, sub, lambda name, i: i < 64)
-    cfg = LordfastConfig(seeder="extend-whole-3")
-    eng = MappingEngine(v1_idx, cfg, device="cuda")
-    res = map_pass(eng, sub)
-    _report("v1 extend-whole-3", "64 reads, offload on", eng, res)
-    check_launches("v1 extend-whole-3", res[4], eng.metrics.counters,
-                   ("myers_dist", "chain_dp"))
-    host_seed_line("v1 extend-whole-3", eng, res[2])
-    by_path["v1_extend_whole_3"] = res[4]
+    names = _subset(v1_reads, sub, lambda name, i: i < 64)
+    res = seeder_pass("v1", "extend-whole-3", v1_idx, sub, names)
     _cpu_subset(v1_idx, res[0], sub, CACHE / "v1_first16.fq",
-                lambda name, i: i < 16, "v1 extend-whole-3", cfg=cfg)
+                lambda name, i: i < 16, "v1 extend-whole-3",
+                cfg=LordfastConfig(seeder="extend-whole-3"))
+    for seeder, sub, keep in (
+            ("extend-whole-2", "v2_ew2.fq", _v2_ew2_subset),
+            ("extend-whole-3", "v2_seeders64.fq", _v2_seeder_subset)):
+        names = _subset(v2["reads"], CACHE / sub, keep)
+        seeder_pass("v2", seeder, v2["idx"], CACHE / sub, names)
 
     cfg = LordfastConfig(**GOLDEN_CFG, seeder="extend-whole-2",
                          sampling_count=100)
@@ -4704,8 +4785,9 @@ def _phases(mesh_only, int_rate, builds, t0, stagger) -> int:
                         v2["idx"], int_rate)
     t5 = time.time()
     log(f"[smoke] phases 1-5 done in {t5 - t0:.1f} s")
-    by_path["v2_clasp"] = phase_clasp(v2)
-    by_path.update(phase_seeders(v1_idx, v1_reads))
+    by_path["v2_clasp"], by_path["v1_clasp"] = phase_clasp(v2, v1_idx,
+                                                           v1_reads)
+    by_path.update(phase_seeders(v1_idx, v1_reads, v2))
     by_path["v2_profiled"] = phase_profile(v2)
     phase_multiprocess()
     t9 = time.time()
