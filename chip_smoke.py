@@ -78,6 +78,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      latency floor (the longest walk's steps times the ns of a
      dependent load over a buffer of the rank arrays' size:
      ``chase_ns``, a one-thread pointer chase);
+   - the 2.2 Gbp layout of tools/torch_g2200.py (GRCh38's chr1-chr13,
+     l_pac 2,191,407,310), with no index (``phase_g2200_layout``, ~7
+     s): its forward text as packed words from a seeded generator on
+     the card; gap descriptors at targets around forward coordinate
+     2**31, across the last contig edge and at the genome's end, both
+     orientations: ``gather_gap_seqs`` in two gap buckets and the
+     affine bucket's gather equal to a numpy decode, ``myers_dist`` and
+     ``extend_from_desc`` (``affine_extend``) on them equal to their
+     plain versions; voting, compaction and window selection over seeds
+     past 2**31 and the 13 contigs' tables equal between the card and
+     the CPU, field by field;
 3. golden: MappingEngine(device="cuda") on tests/data (the golden test's
    config, the escalation offload on by default); the SAM must equal
    tests/data/golden.sam byte for byte, the offload must have fired, and
@@ -200,7 +211,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    chase over the rank rows), and sa_locate on 1,048,576 seeded rows with
    every edge row (more than the card holds lanes at once: the lane
    queue's case); the high reads (58) sharded at NCCL D = 1 in this
-   process (phase_g1200_mesh, the Pos = int64_t instances of
+   process (phase_gbp_mesh, the Pos = int64_t instances of
    seed_shard.cu: a pass with each kernel held to its plain version on
    its first call, and a plain_loops pass, each == the replicated
    records); then dp-n2's log on v1, v2 and the two random genomes
@@ -1662,13 +1673,27 @@ def check_sa_locate(tag, idx, rec, int_rate, timed=False, chase=None,
     cases = []
     if layouts:
         rows, valid = locate_rows(meta, r, v)
+        # int32 sa_samp and L2 only where the positions fit them; past
+        # 2**31 - 1 the wrapper refuses them (their L2 would wrap)
+        wide = meta["seq_len"] >= 2**31 - 1
+        dts = (torch.int64,) if wide else (torch.int32, torch.int64)
         for layout in ("fused", "split"):
             a0 = (rec["arrs"] if layout == "fused"
                   else split_layout(idx, rec["arrs"]))
-            for dt in (torch.int32, torch.int64):
+            for dt in dts:
                 cases.append(({**a0, "sa_samp": a0["sa_samp"].to(dt),
                                "L2": a0["L2"].to(dt)}, rows, valid,
                               f"{layout}, {dt}"))
+        if wide:
+            try:
+                loc({**rec["arrs"], "sa_samp": rec["arrs"]["sa_samp"].to(
+                    torch.int32), "L2": rec["arrs"]["L2"].to(torch.int32)},
+                    meta, r, v)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"sa_locate {tag}: int32 positions "
+                                     f"taken at seq_len {meta['seq_len']}")
     else:
         cases.append((rec["arrs"], r, v, "fused"))
     for a, rows, valid, what in cases:
@@ -1698,7 +1723,9 @@ def check_sa_locate(tag, idx, rec, int_rate, timed=False, chase=None,
             f"{len(ws)} warps, warp efficiency {eff:.3f} (lane steps over "
             f"32 x issued steps): equal to sa_lookup"
             + (f" on them and {len(cases[0][1]) - len(r)} edge lanes in both "
-               "rank layouts, int32 and int64 sa_samp" if layouts else "")
+               "rank layouts, "
+               + ("int64 sa_samp (int32 refused)" if len(cases) == 2
+                  else "int32 and int64 sa_samp") if layouts else "")
             + " | input bytes needed "
             + " ".join(f"{k} {x}" for k, x in need.items())
             + f" (all {locate_work(rec, need):.0f})")
@@ -3181,28 +3208,236 @@ def phase_g300(builds, rows, int_rate) -> tuple:
         warm_s=runs[1][1])
 
 
-def _int64_high(kernel: str, tensors: dict):
-    """Each of tensors is int64 and holds a value >= 2**31: a kernel's
-    recorded inputs on the 1.2 Gbp index."""
+def _g2200():
+    """tools/torch_g2200.py: the 2.2 Gbp genome's layout and its checks'
+    inputs (numpy only)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_g2200
+
+    return torch_g2200
+
+
+# the smoke's 2.2 Gbp layout phase: the packed words' generator seed, the
+# gap and affine buckets whose gathers it checks, and its voting batch
+G2200_WORDS_SEED = 2202
+G2200_GAP_BUCKETS = ((512, 576), (2048, 2176))
+G2200_AFFINE_BUCKET = (512, 544)
+G2200_VOTE = dict(B=12, MS=512, max_n=512, seed=2203)
+
+
+def vote_seeds(rng, B, MS, max_n, bases):
+    """A SeedBatch's fields (numpy) and read lengths: each read's seed
+    slots filled contiguously, clustered around a few windows (equal
+    weights common, so windows tie), at forward coordinates
+    bases[b % len(bases)] plus up to ~62 read lengths; the last read is
+    padding (tests/test_torch_voting.py make_seeds, moved by bases)."""
+    import numpy as np
+
+    lens = rng.integers(1000, 3000, B).astype(np.int32)
+    lens[-1] = 0
+    t_pos = np.zeros((B, MS), np.int64)
+    q_pos = np.zeros((B, MS), np.int32)
+    length = np.zeros((B, MS), np.int32)
+    is_rev = np.zeros((B, MS), bool)
+    n_total = rng.integers(0, max_n + 1, B).astype(np.int32)
+    n_total[-1] = 0
+    for b in range(B):
+        n = min(int(n_total[b]), MS)
+        loci = rng.integers(0, 60, 16)
+        which = rng.integers(0, len(loci), n)
+        rl = max(int(lens[b]), 1)
+        t_pos[b, :n] = (bases[b % len(bases)] + loci[which] * rl
+                        + rng.integers(0, 2 * rl, n))
+        q_pos[b, :n] = rng.integers(0, rl, n)
+        length[b, :n] = np.where(rng.random(n) < 0.6, 14,
+                                 rng.integers(14, 20, n))
+        is_rev[b, :n] = (which % 2) == 1
+    valid = np.arange(MS)[None, :] < np.minimum(n_total, MS)[:, None]
+    for a in (t_pos, q_pos, length, is_rev):
+        a[~valid] = 0
+    return (dict(t_pos=t_pos, q_pos=q_pos, length=length, is_rev=is_rev,
+                 valid=valid, n_total=n_total,
+                 n_anchors=np.minimum(n_total, 7)), lens)
+
+
+def _equal_fields(tag, got, want):
+    """Every field of two named tuples of tensors equal, dtype too (got on
+    the card, want on the CPU)."""
+    import torch
+
+    for name in want._fields:
+        a, b = getattr(got, name).cpu(), getattr(want, name)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"{tag}: {name} differs between the card "
+                                 f"and the CPU")
+
+
+def phase_g2200_layout() -> dict:
+    """The 2.2 Gbp genome of tools/torch_g2200.py without its index
+    (~7 s; its full run is the tool's): its forward text packed 16
+    codes a word, 136,962,957 words from a seeded generator on the card
+    (int64, ~1.1 GB, with the words a gather reads past the genome's
+    end), and its 13 contigs' tables.  The gathers of gap descriptors at
+    target starts around forward coordinate 2**31, across the last
+    contig edge and at the genome's end (gather_starts), both target
+    orientations, in two gap buckets (gap_dp.gather_gap_seqs) and the
+    affine bucket (the gather of affine.extend_from_desc), each equal to
+    a numpy decode of the same words (decode_gather); the gathered sets
+    through myers_dist and extend_from_desc (affine_extend) on the card,
+    each equal to its plain version; and vote_windows (its flat and wide
+    routes), compact_candidates and select_window_seeds over seeds at
+    forward coordinates past 2**31 and these contig tables on the card,
+    field by field equal to the port on the CPU (which the tests hold to
+    the JAX package).  Returns the phase's launches."""
+    import numpy as np
+    import torch
+
+    from lordfast_tpu_torch.config import LordfastConfig
+    from lordfast_tpu_torch.ops import (affine, chain, fm_index, gap_dp,
+                                        gap_dp_cuda, voting)
+
+    t0 = time.time()
+    g22 = _g2200()
+    lay = g22.layout()
+    n = lay.l_pac
+    n_fwd = (n + 15) // 16
+    reset_launches()
+    gen = torch.Generator(device="cuda").manual_seed(G2200_WORDS_SEED)
+    words = torch.randint(0, 2**32, (n_fwd + G2200_GAP_BUCKETS[-1][1] // 16
+                                     + 2,), dtype=torch.int64,
+                          device="cuda", generator=gen)
+    log(f"[g2200] {n_fwd} packed words of the {n} bp forward text (and "
+        f"{words.numel() - n_fwd} past its end) drawn on the card in "
+        f"{time.time() - t0:.2f} s: {words.numel() * 8} bytes")
+
+    def words_at(w):
+        return words[torch.from_numpy(w).cuda()].cpu().numpy()
+
+    rng = np.random.default_rng(G2200_WORDS_SEED)
+    cfg = LordfastConfig()
+    for Q, T in G2200_GAP_BUCKETS + (G2200_AFFINE_BUCKET,):
+        desc = g22.gather_descs(lay, rng, Q, T)
+        G = len(desc["q_read"])
+        reads = rng.integers(0, 5, (G, Q + 8)).astype(np.uint8)
+        d_dev = {k: torch.from_numpy(v).cuda() for k, v in desc.items()}
+        r_dev = torch.from_numpy(reads).cuda()
+        got = gap_dp.gather_gap_seqs(words, r_dev, d_dev, Q, T, n)
+        want = g22.decode_gather(words_at, reads, desc, Q, T, n)
+        for name, a, b in zip(("qs", "ql", "ts", "tl"), got, want):
+            if not np.array_equal(a.cpu().numpy(), b):
+                raise AssertionError(f"g2200 gather ({Q}, {T}): {name} "
+                                     "differs from the numpy decode")
+        qs, ql, ts, tl = got
+        what = (f"{G} descriptors at t_start {int(desc['t_start'].min())}"
+                f"-{int(desc['t_start'].max())}, both orientations")
+        if (Q, T) != G2200_AFFINE_BUCKET:
+            shw = d_dev["is_shw"]
+            k = gap_dp_cuda.myers_dist(qs, ql, ts, tl, shw, Q, T)
+            p = gap_dp.myers_dist_plain(qs, ql, ts, tl, shw, Q, T)
+            err = _max_err(zip(k, p))
+            if err:
+                raise AssertionError(f"g2200 myers_dist ({Q}, {T}): kernel "
+                                     f"!= plain (max abs err {err})")
+            log(f"[g2200] gap gather ({Q}, {T}): {what}, equal to the numpy "
+                f"decode; myers_dist == plain on them (distances "
+                f"{int(k[0].min())}-{int(k[0].max())})")
+            continue
+        w_max = max(cfg.clip_band, cfg.split_band)
+        BW = 128 * ((2 * w_max + 2 + 127) // 128)
+        split = rng.integers(0, 2, G).astype(bool)
+        sel = lambda a, b: np.where(split, b, a).astype(np.int32)
+        od, ed_, oi, ei = sel(0, 8), sel(1, 1), sel(0, 4), sel(1, 1)
+        ql_np = ql.cpu().numpy()
+        params = dict(o_del=od, e_del=ed_, o_ins=oi, e_ins=ei,
+                      w_eff=affine.clamp_band(ql_np, 2, 0, od, ed_, oi, ei,
+                                              sel(40, 100)),
+                      zdrop=sel(40, 200), h0=ql_np.copy(),
+                      match=np.full(G, 2, np.int32),
+                      mismatch=np.full(G, 16, np.int32))
+        p_dev = {k: torch.from_numpy(np.asarray(v, np.int32)).cuda()
+                 for k, v in params.items()}
+        k = affine.extend_from_desc(words, r_dev, {**d_dev, **p_dev}, Q, T,
+                                    BW, w_max, n)
+        p = affine.extend_batch_plain(qs, ts, Q, T, BW, w_max, qlen=ql,
+                                      tlen=tl, **p_dev)
+        err = _max_err(zip(k, p))
+        if err:
+            raise AssertionError(f"g2200 affine_extend ({Q}, {T}): kernel "
+                                 f"!= plain (max abs err {err})")
+        log(f"[g2200] affine gather ({Q}, {T}): {what}, equal to the numpy "
+            f"decode; extend_from_desc (affine_extend) == plain on them "
+            f"(scores {int(k.score.min())}-{int(k.score.max())})")
+    del words
+    torch.cuda.empty_cache()
+
+    offs = np.asarray(lay.offsets, np.int64)
+    ends = offs + np.asarray(lay.lengths, np.int64)
+    fields, lens = vote_seeds(np.random.default_rng(G2200_VOTE["seed"]),
+                              G2200_VOTE["B"], G2200_VOTE["MS"],
+                              G2200_VOTE["max_n"], g22.vote_bases(lay))
+    vcfg = LordfastConfig(max_candidates=8, max_chain_seeds=64)
+    K = len(lens) * vcfg.compact_windows_per_read
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sd = fm_index.SeedBatch(**{k: torch.from_numpy(v).to(dev)
+                                   for k, v in fields.items()})
+        ld = torch.from_numpy(lens).to(dev)
+        arrs = {"contig_offsets": torch.from_numpy(offs).to(dev),
+                "contig_ends": torch.from_numpy(ends).to(dev)}
+        cands = voting.vote_windows(sd, ld, vcfg)
+        cw = chain.compact_candidates(cands, vcfg, K)
+        out[dev] = (voting._vote_windows_flat(sd, ld, vcfg, 131072),
+                    voting._vote_windows_wide(sd, ld, vcfg), cands, cw,
+                    chain.select_window_seeds(sd, cw, ld, arrs, vcfg))
+    for what, a, b in zip(("vote_windows flat", "vote_windows wide",
+                           "vote_windows", "compact_candidates",
+                           "select_window_seeds"), out["cuda"], out["cpu"]):
+        _equal_fields(f"g2200 {what}", a, b)
+    ws = out["cpu"][-1]
+    sel_t = ws.t_pos[ws.valid]
+    if not (len(sel_t) > 100 and bool((sel_t >= 2**31).any())
+            and bool((sel_t < 2**31).any())):
+        raise AssertionError(f"g2200 select_window_seeds: {len(sel_t)} seeds "
+                             "selected, none on one side of 2**31")
+    launches = read_launches()
+    want = {"myers_dist": len(G2200_GAP_BUCKETS), "affine_extend": 1}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"g2200: launches {launches}, not {want}")
+    log(f"[g2200] voting, compaction and selection over {len(lens)} reads' "
+        f"seeds at forward coordinates {min(g22.vote_bases(lay))}-"
+        f"{int(fields['t_pos'].max())} and the 13 contigs' tables: every "
+        f"field equal between the card and the CPU ({len(sel_t)} seeds "
+        f"selected, up to {int(sel_t.max())}); phase in "
+        f"{time.time() - t0:.1f} s; launches {launches}")
+    return launches
+
+
+def _int64_high(kernel: str, tensors: dict, tag: str = "g1200",
+                floor: int = 2**31):
+    """Each of tensors is int64 and holds a value >= floor: a kernel's
+    recorded inputs on a Gbp index (tag)."""
     import torch
 
     for name, x in tensors.items():
         if x.dtype != torch.int64:
-            raise AssertionError(f"g1200 {kernel}: {name} is {x.dtype}, "
+            raise AssertionError(f"{tag} {kernel}: {name} is {x.dtype}, "
                                  "not int64")
-        if not x.numel() or int(x.max()) < 2**31:
-            raise AssertionError(f"g1200 {kernel}: no {name} >= 2**31")
+        if not x.numel() or int(x.max()) < floor:
+            raise AssertionError(f"{tag} {kernel}: no {name} >= {floor}")
 
 
-def check_int64_loops(idx, caps, int_rate, chase) -> dict:
-    """The first recorded seed_ext, sa_locate and chain_dp calls of the
-    1.2 Gbp genome's first pass (caps: record_loops), each bit-equal to
-    its plain version on the card and timed against it, with its bound
-    from the call's inputs (seed_work, locate_work, chain_work) and, for
-    sa_locate, its latency floor (chase: ns a dependent load).  seed_ext's
-    and sa_locate's inputs must be int64 and hold positions >= 2**31 (SA
-    rows, sampled SA values, L2), and so must the text positions they
-    locate.  Returns {kernel: its figures}."""
+def check_int64_loops(idx, caps, int_rate, chase, tag="g1200",
+                      floor=2**31, chain_floor=None) -> dict:
+    """The first recorded seed_ext, sa_locate and chain_dp calls of a Gbp
+    genome's first pass (caps: record_loops; tag: the 1.2 Gbp genome or
+    tools/torch_g2200.py's), each bit-equal to its plain version on the
+    card and timed against it, with its bound from the call's inputs
+    (seed_work, locate_work, chain_work) and, for sa_locate, its latency
+    floor (chase: ns a dependent load).  seed_ext's and sa_locate's
+    inputs must be int64 and hold positions >= floor (SA rows, sampled SA
+    values, L2), and so must the text positions they locate; with
+    chain_floor, chain_dp's forward coordinates >= it too.  Returns
+    {kernel: its figures}."""
     from lordfast_tpu_torch.ops import fm_index
 
     figs = {}
@@ -3210,34 +3445,39 @@ def check_int64_loops(idx, caps, int_rate, chase) -> dict:
     alive0, k0, l0 = rec["lanes"][:3]
     _int64_high("seed_ext", {"sa_samp": rec["arrs"]["sa_samp"],
                              "L2": rec["arrs"]["L2"], "k": k0[alive0],
-                             "l": l0[alive0]})
+                             "l": l0[alive0]}, tag, floor)
     stats, need = check_seed_ext(rec)
     args = (rec["arrs"], rec["meta"], rec["rd"], *rec["lanes"],
             rec["phase1_steps"])
     out = _wrappers()["seed_ext"](*args)
     _int64_high("seed_ext", {"rpos of the lanes the compare resolved":
-                             out[3][out[4]]})
+                             out[3][out[4]]}, tag, floor)
     ms = _time_launches(lambda: _wrappers()["seed_ext"](*args), 5)
     plain_ms = _time_cuda(lambda: fm_index._staged_ext(*args), 1)
     b = bound(seed_work(rec, need), 0, int_rate)
     figs["seed_ext"] = dict(ms=ms, plain_ms=plain_ms, bound=b)
-    log(_seed_line("g1200 (int64)", rec, stats, need)
+    log(_seed_line(f"{tag} (int64)", rec, stats, need)
         + f" | kernel {ms:.3f} ms | plain (_staged_ext) {plain_ms:.1f} ms"
         f" | bound {b[0]:.5f} ms ({b[1]}), kernel {ms / b[0]:.1f}x")
 
     rec = caps.locate[0]
     _int64_high("sa_locate", {"sa_samp": rec["arrs"]["sa_samp"],
-                              "rows": rec["rows"][rec["valid"]]})
+                              "rows": rec["rows"][rec["valid"]]}, tag, floor)
     pos = _wrappers()["sa_locate"](rec["arrs"], rec["meta"], rec["rows"],
                                    rec["valid"])
-    _int64_high("sa_locate", {"located positions": pos[rec["valid"]]})
-    figs["sa_locate"] = check_sa_locate("g1200 (int64)", idx, rec, int_rate,
-                                        timed=True, chase=chase)
-    figs["chain_dp"] = check_chain_moved(*caps.chain[0], int_rate)
+    _int64_high("sa_locate", {"located positions": pos[rec["valid"]]}, tag,
+                floor)
+    figs["sa_locate"] = check_sa_locate(f"{tag} (int64)", idx, rec,
+                                        int_rate, timed=True, chase=chase)
+    ws, cfg = caps.chain[0]
+    if chain_floor is not None:
+        _int64_high("chain_dp", {"t_pos (forward coordinates)":
+                                 ws.t_pos[ws.valid]}, tag, chain_floor)
+    figs["chain_dp"] = check_chain_moved(ws, cfg, int_rate, tag)
     return figs
 
 
-def check_chain_moved(ws, cfg, int_rate) -> dict:
+def check_chain_moved(ws, cfg, int_rate, tag="g1200") -> dict:
     """chain_dp at 64 bits on recorded windows ws: int64 t_pos, but the
     seeds are forward coordinates, below l_pac < 2**31 at 1.2 Gbp, so
     the kernel is held to its plain version on ws and on ws moved by
@@ -3249,10 +3489,10 @@ def check_chain_moved(ws, cfg, int_rate) -> dict:
     from lordfast_tpu_torch.ops import chain
 
     if ws.t_pos.dtype != torch.int64:
-        raise AssertionError(f"g1200 chain_dp: t_pos is {ws.t_pos.dtype}")
+        raise AssertionError(f"{tag} chain_dp: t_pos is {ws.t_pos.dtype}")
     up = ws._replace(t_pos=torch.where(ws.valid, ws.t_pos + 2**32,
                                        ws.t_pos))
-    _int64_high("chain_dp", {"t_pos moved by 2**32": up.t_pos})
+    _int64_high("chain_dp", {"t_pos moved by 2**32": up.t_pos}, tag)
     check_chain_dp(ws, cfg)
     check_chain_dp(up, cfg)
     got, moved = (_wrappers()["chain_dp"](x, cfg) for x in (ws, up))
@@ -3263,7 +3503,7 @@ def check_chain_moved(ws, cfg, int_rate) -> dict:
              if not bool((getattr(got, f) == getattr(moved, f)).all())]
     if other or not bool((torch.where(link, got.t_pos + 2**32, got.t_pos)
                           == moved.t_pos).all()):
-        raise AssertionError(f"g1200 chain_dp: the windows moved by 2**32 "
+        raise AssertionError(f"{tag} chain_dp: the windows moved by 2**32 "
                              f"chain otherwise ({other or 't_pos'})")
     work = chain_work(ws, cfg)
     b = chain_bound(work, int_rate)
@@ -3271,7 +3511,7 @@ def check_chain_moved(ws, cfg, int_rate) -> dict:
     plain_ms = _time_cuda(
         lambda: chain._chain_bucketed(ws, cfg, chain.dp_function(cfg)), 1)
     counts = ws.valid.reshape(-1, N).sum(-1)
-    log(f"[loops] chain_dp g1200 (int64): {counts.numel()} windows x {N} "
+    log(f"[loops] chain_dp {tag} (int64): {counts.numel()} windows x {N} "
         f"slots ({int((counts > 0).sum())} with seeds, {_chain_counts(work)},"
         f" t_pos up to {int(ws.t_pos.max())}): dp, prev and chains "
         f"bit-equal to the plain version, and on the windows moved by 2**32"
@@ -3322,7 +3562,7 @@ def phase_g1200(builds, rows, int_rate) -> tuple:
     pointer chase over the rank arrays (chase_ns).  The figures go into
     rows (the kernel table) by kernel.  Returns the first pass's
     launches, its record_loops (every chain call) and, for
-    phase_g1200_mesh, the SAM, the reads, the index file, the high
+    phase_gbp_mesh, the SAM, the reads, the index file, the high
     reads and the warm pass's seconds."""
     import numpy as np
     import torch
@@ -4270,6 +4510,38 @@ def check_shard_kernels(rec, timed=False, reps=5, chase=None) -> dict:
     return out
 
 
+def shard_int64_high(rec, tag, floor):
+    """The first recorded calls of the four shard kernels (record_shard)
+    take int64 BWT rows or text positions reaching floor: shard_bucket's
+    live lanes' k, shard_ext_step's live lanes' k and l, shard_walk_step's
+    active rows, and the SA entries the SA gather's shard_answer returns
+    (its ids index the stripe: rank blocks or SA samples, below floor;
+    they must be int64).  A full SA has no walk and no SA gather."""
+    calls = rec.calls
+    live, k = calls["shard_bucket"][0][:2]
+    _int64_high("shard_bucket", {"k of the live lanes": k[live.bool()]},
+                tag, floor)
+    _int64_high("shard_answer", {"rank-block ids":
+                                 calls["shard_answer"][0][0]}, tag, 0)
+    if "shard_answer sa" in calls:
+        (recv, arrs, base, _), kw = calls["shard_answer sa"]
+        stripe = arrs[kw["key"]]
+        ids = recv - base
+        mine = ids[(ids >= 0) & (ids < stripe.shape[0])]
+        _int64_high("shard_answer", {"SA entries answered": stripe[mine]},
+                    tag, floor)
+    alive, k, l = calls["shard_ext_step"][0][0][:3]
+    _int64_high("shard_ext_step", {"k of the live lanes": k[alive.bool()],
+                                   "l of the live lanes": l[alive.bool()]},
+                tag, floor)
+    if "shard_walk_step" in calls:
+        active, rows = calls["shard_walk_step"][0][0][:2]
+        _int64_high("shard_walk_step", {"active rows": rows[active.bool()]},
+                    tag, floor)
+    log(f"[mesh] {tag}: the shard kernels' first recorded inputs reach "
+        f"{floor} (int64 rows)")
+
+
 def _step_times(name, args, kw, reps, chase):
     """A step kernel's floor figures on one recorded call: its grid's
     lanes, the empty launch's ms (fm_shard_cuda.noop), the ns of a
@@ -4411,6 +4683,8 @@ def map_runs(spec, mesh, rank, indexes, spec_path):
         if run["shard_index"] and not run["replicated"]:
             rec["host_read_us"] = host_read_us(mesh)
         if shard_rec is not None:
+            if run.get("int64_floor"):
+                shard_int64_high(shard_rec, run["name"], run["int64_floor"])
             # each kernel against its plain version on this rank's first
             # call of it, timed under NCCL (gloo's collectives copy
             # through the host; its run is a correctness case)
@@ -4680,17 +4954,19 @@ def phase_g300_mesh(g300):
     return by_path
 
 
-def phase_g1200_mesh(g):
-    """The 1.2 Gbp genome sharded (after phase 13's replicated passes,
-    which built its index and mapped it): MappingEngine(mesh=...,
-    shard_index=True) at NCCL D = 1 in this process (a group of one), on
-    its high reads
-    (truth_check: located text positions >= 2**31, so seed_shard.cu's
-    kernels run their Pos = int64_t instances on them; the generator's
-    512 reads hold 58): a pass, each kernel held to its plain version on
-    its first call and timed (record_shard, check_shard_kernels), and a
-    plain_loops pass, each equal to phase 13's records of those reads.
-    Returns the launches by path."""
+def phase_gbp_mesh(g, tag="g1200", floor=None):
+    """A Gbp genome sharded (tag: the 1.2 Gbp genome after phase 13's
+    replicated passes, which built its index and mapped it; or
+    tools/torch_g2200.py's): MappingEngine(mesh=..., shard_index=True) at
+    NCCL D = 1 in this process (a group of one), on its high reads
+    (g["high"]: located text positions >= 2**31, so seed_shard.cu's
+    kernels run their Pos = int64_t instances on them; the 1.2 Gbp
+    generator's 512 reads hold 58): a pass, each kernel held to its plain
+    version on its first call and timed (record_shard,
+    check_shard_kernels; with floor, their recorded inputs must first
+    reach it, shard_int64_high), and a plain_loops pass, each equal to
+    the replicated records of those reads.  Returns (the launches by
+    path, rank 0's kernel figures by run)."""
     import torch.distributed as dist
 
     from lordfast_tpu_torch.parallel.mesh import make_mesh
@@ -4698,17 +4974,19 @@ def phase_g1200_mesh(g):
     d = CACHE / "mesh"
     d.mkdir(parents=True, exist_ok=True)
     keep = {f"g{i}" for i in g["high"]}
-    names = _subset(g["reads"], d / "g1200_high.fq",
+    names = _subset(g["reads"], d / f"{tag}_high.fq",
                     lambda name, i: name in keep)
     recs = [r for r in sam_records(g["sam"]) if r.split("\t")[0] in names]
-    runs = [_mesh_run(d, "g1200_high_shard", g["index"],
-                      d / "g1200_high.fq", {}, True, check_kernels=True),
-            _mesh_run(d, "g1200_high_plain", g["index"],
-                      d / "g1200_high.fq", {}, True, plain=True)]
-    # one rank, in this process: phase 13's index (its host layout made
-    # already) serves it, where a rank process would load and lay it out
-    # again
-    spec = d / "g1200_nccl.json"
+    extra = {"int64_floor": floor} if floor else {}
+    runs = [_mesh_run(d, f"{tag}_high_shard", g["index"],
+                      d / f"{tag}_high.fq", {}, True, check_kernels=True,
+                      **extra),
+            _mesh_run(d, f"{tag}_high_plain", g["index"],
+                      d / f"{tag}_high.fq", {}, True, plain=True)]
+    # one rank, in this process: the replicated passes' index (its host
+    # layout made already) serves it, where a rank process would load and
+    # lay it out again
+    spec = d / f"{tag}_nccl.json"
     spec.write_text(json.dumps({"backend": "nccl", "runs": runs}))
     spec.with_name(spec.name + ".0.jsonl").unlink(missing_ok=True)
     t = time.time()
@@ -4717,7 +4995,7 @@ def phase_g1200_mesh(g):
     try:
         mesh = make_mesh("cuda")
         dist.barrier()
-        log(f"[mesh] g1200: NCCL group of one and its mesh set up in "
+        log(f"[mesh] {tag}: NCCL group of one and its mesh set up in "
             f"{time.time() - t:.1f} s")
         map_runs(json.loads(spec.read_text()), mesh, 0,
                  {str(g["index"]): g["idx"]}, str(spec))
@@ -4725,11 +5003,10 @@ def phase_g1200_mesh(g):
         dist.destroy_process_group()
     ranks = [{r["name"]: r for r in map(json.loads, spec.with_name(
         spec.name + ".0.jsonl").read_text().splitlines())}]
-    log(f"[mesh] g1200: 1 rank on nccl in this process in "
+    log(f"[mesh] {tag}: 1 rank on nccl in this process in "
         f"{time.time() - t:.1f} s, {len(names)} high reads")
-    by_path, _ = _report_mesh("nccl", 1, runs, ranks,
-                              {"g1200_high": ("records", recs)})
-    return by_path
+    return _report_mesh("nccl", 1, runs, ranks,
+                        {f"{tag}_high": ("records", recs)})
 
 
 def main(mesh_only: bool = False) -> int:
@@ -4771,7 +5048,7 @@ def _phases(mesh_only, int_rate, builds, t0, stagger) -> int:
         print(nvidia_smi_line())
         return 0
     rows = phase_kernel_gaps(int_rate) + [phase_kernel_affine(int_rate)]
-    by_path = {}
+    by_path = {"g2200_layout": phase_g2200_layout()}
     by_path["golden"], golden = phase_golden()
     by_path["v1"], v1_idx, v1_reads, v1_caps = phase_v1(builds)
     by_path["v2"], v2_parts, v2 = phase_v2(builds)
@@ -4808,7 +5085,7 @@ def _phases(mesh_only, int_rate, builds, t0, stagger) -> int:
     g1200_paths, g1200_caps, g1200 = phase_g1200(builds, rows, int_rate)
     by_path.update(g1200_paths)
     t = time.time()
-    by_path.update(phase_g1200_mesh(g1200))
+    by_path.update(phase_gbp_mesh(g1200)[0])
     log(f"[smoke] 1.2 Gbp sharded done in {time.time() - t:.1f} s")
     phase_log_counts({"v1": v1_caps, "v2": v2["caps"], "g300": g300_caps,
                       "g1200": g1200_caps})

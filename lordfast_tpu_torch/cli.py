@@ -106,22 +106,49 @@ INDEX_WAIT_S = 2 * 3600
 
 
 def _wait_for_index(ipath, ref, poll_s: float = 1.0,
-                    timeout_s: float = INDEX_WAIT_S) -> None:
+                    timeout_s: float = INDEX_WAIT_S,
+                    sidecar: bool = False) -> None:
     """Block until the index of ``ref`` can be loaded: its saved file
-    (written whole by rank 0) or the reference-format files.  Raises
-    TimeoutError naming the file after timeout_s seconds (a rank 0 that
-    failed, with ranks launched by hand)."""
+    (written whole by rank 0) or the reference-format files, and with
+    ``sidecar`` a device-layout sidecar made from them
+    (index/builder.py devcache_meta), which rank 0 writes after either.
+    Raises TimeoutError naming the file after timeout_s seconds (a rank 0
+    that failed, with ranks launched by hand)."""
     import time
 
     from .index.bwa_io import bwa_files_present
+    from .index.builder import devcache_dir_for, devcache_meta
 
     t0 = time.monotonic()
-    while not (ipath.exists() or bwa_files_present(ref)):
+    while not ((ipath.exists() or bwa_files_present(ref))
+               and (not sidecar or devcache_meta(ipath) is not None)):
         if time.monotonic() - t0 >= timeout_s:
             raise TimeoutError(
                 f"waited {timeout_s:g} s for rank 0's index {ipath} (or the "
-                f"reference-format index of {ref}); did rank 0 fail?")
+                f"reference-format index of {ref})"
+                + (f" and its sidecar {devcache_dir_for(ipath)}"
+                   if sidecar else "")
+                + "; did rank 0 fail?")
         time.sleep(min(poll_s, timeout_s))
+
+
+def _write_sidecar(idx, ipath, sources):
+    """Write idx's device-layout sidecar (index/builder.py
+    save_device_cache), stamped with the files idx was loaded from,
+    beside ipath: into a directory of another name, renamed into place
+    once whole, so a waiting rank never maps a part of it; a stale
+    sidecar is replaced."""
+    import os
+    import shutil
+
+    from .index.builder import (devcache_dir_for, remove_device_cache,
+                                save_device_cache)
+
+    tmp = ipath.with_name(f"{ipath.name}.{os.getpid()}.tmp")
+    shutil.rmtree(devcache_dir_for(tmp), ignore_errors=True)
+    part = save_device_cache(idx, tmp, sources)
+    remove_device_cache(ipath)
+    os.rename(part, devcache_dir_for(ipath))
 
 
 def parse_read_group(rg_line: str):
@@ -219,9 +246,12 @@ def main(argv=None) -> int:
     cfg = config_from_args(args)
 
     if args.index:
-        from .index.builder import build_index, index_path_for, save_index
+        from .index.builder import (build_index, index_path_for,
+                                    remove_device_cache, save_index)
 
         idx = build_index(args.index, cfg)
+        # a sidecar of the index being replaced is stale
+        remove_device_cache(index_path_for(args.index))
         save_index(idx, index_path_for(args.index))
         if args.exportBwa:
             from .index.bwa_io import save_bwa_index
@@ -245,21 +275,30 @@ def main(argv=None) -> int:
         return 1
 
     from .index.builder import (build_index, index_path_for, load_index,
-                                save_index)
+                                remove_device_cache, save_index)
     from .pipeline.engine import MappingEngine
 
     import os as _os
+    from pathlib import Path
 
     ipath = index_path_for(args.search)
-    if args.shardIndex and int(_os.environ.get("RANK", "0")) != 0:
-        # rank 0 builds a missing index before any rank joins the group,
-        # so no rank waits out the build (up to an hour at Gbp scale) in
-        # a collective; under torchrun a rank 0 that fails ends the rest
-        _wait_for_index(ipath, args.search)
+    # one index copy a host: under --shardIndex every rank memory-maps the
+    # device-layout sidecar (index/builder.py save_device_cache), which
+    # rank 0 alone writes where there is none made from the index files
+    # as they stand, so the ranks map one set of files.  The host seeders
+    # read occ_cp, which the sidecar leaves out (fm_blocks holds it), so
+    # they load the index file as before.
+    sidecar = args.shardIndex and cfg.seeder == "extend-whole"
+    rank_env = int(_os.environ.get("RANK", "0"))
+    if args.shardIndex and rank_env != 0:
+        # rank 0 builds a missing index (and its sidecar) before any rank
+        # joins the group, so no rank waits out the build (up to an hour
+        # at Gbp scale) in a collective; under torchrun a rank 0 that
+        # fails ends the rest
+        _wait_for_index(ipath, args.search, sidecar=sidecar)
+    sources = [ipath]
     try:
-        # mmap: the ranks of one host share the device-layout sidecar's
-        # pages, where there is one (index/builder.py save_device_cache)
-        idx = load_index(ipath, mmap=args.shardIndex)
+        idx = load_index(ipath, mmap=sidecar)
     except FileNotFoundError:
         # fall back to a reference-built on-disk index (bwa files) before
         # rebuilding — mirrors bwt_load's reuse (src/BWT.cpp:189-242)
@@ -269,15 +308,28 @@ def main(argv=None) -> int:
             print(f"[NOTE] loading reference-format index files for "
                   f"{args.search}", file=sys.stderr)
             idx = load_bwa_index(args.search, cfg)
+            sources = [Path(f"{args.search}{ext}") for ext in
+                       (".bwt", ".sa", ".pac", ".ann", ".amb", ".cache")]
         else:
             print(f"[WARNING] could not locate index file: {ipath}; "
                   f"building", file=sys.stderr)
             idx = build_index(args.search, cfg)
             # written whole under another name and renamed, so a waiting
-            # rank never loads a part of it
+            # rank never loads a part of it; a sidecar of a deleted
+            # index is stale
+            remove_device_cache(ipath)
             tmp = ipath.with_name(f"{ipath.name}.{_os.getpid()}.tmp.npz")
             save_index(idx, tmp)
             _os.replace(tmp, ipath)
+    if sidecar and idx._host_cache is None and rank_env == 0:
+        # the other ranks wait for this sidecar: write it, then map it as
+        # they do
+        _write_sidecar(idx, ipath, sources)
+        del idx
+        idx = load_index(ipath, mmap=True)
+    if sidecar and idx._host_cache is not None:
+        print(f"[NOTE] rank {rank_env}: index memory-mapped from its "
+              f"device-layout sidecar {ipath}.devcache", file=sys.stderr)
 
     mesh, rank = None, 0
     if args.shardIndex:

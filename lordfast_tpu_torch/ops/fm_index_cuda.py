@@ -83,6 +83,20 @@ def _rank_arrays(arrs, dev):
     return False, cp, bb
 
 
+def _check_positions(arrs, meta, who):
+    """sa_samp and L2 hold text positions up to seq_len, so an index with
+    seq_len >= 2**31 - 1 needs them int64 (FMIndex.pos_dtype): cut to
+    int32, L2's upper counts wrap negative and a walk steps to rows
+    outside the index (on the card, reads outside its arrays).  Checked
+    on either device, before the plain version or the kernel runs."""
+    if meta["seq_len"] >= 2**31 - 1:
+        for k in ("sa_samp", "L2"):
+            if arrs[k].dtype != torch.int64:
+                raise ValueError(f"{who}: {k} is {arrs[k].dtype}, but "
+                                 f"seq_len {meta['seq_len']} needs int64 "
+                                 "positions")
+
+
 def _index_args(arrs, meta, dev, who):
     """(fused, rank_a, rank_b, sa_samp, L2, sa_intv) of a replicated
     index's arrays on dev, checked as both kernels take them."""
@@ -146,9 +160,10 @@ def seed_ext(arrs, meta, rd, alive0, k0, l0, m0, pos_f, b_lane,
     of the index's and the reads' arrays that the lanes' steps need,
     each piece counted once (rank, sa, pac, rw: ``_need_segments``); CPU
     tensors run the plain version (neither)."""
-    rw, lens = rd.rw, rd.lens
     if want_stats and want_need:
         raise ValueError("seed_ext: want_stats or want_need, not both")
+    _check_positions(arrs, meta, "seed_ext")
+    rw, lens = rd.rw, rd.lens
     if rw.device.type == "cpu":
         if want_stats or want_need:
             raise ValueError("seed_ext: the step counts and the needed "
@@ -235,6 +250,7 @@ def sa_locate(arrs, meta, rows, valid, want_stats: bool = False,
     (neither)."""
     if want_stats and want_need:
         raise ValueError("sa_locate: want_stats or want_need, not both")
+    _check_positions(arrs, meta, "sa_locate")
     if rows.device.type == "cpu":
         if want_stats or want_need:
             raise ValueError("sa_locate: the walk steps and the needed "

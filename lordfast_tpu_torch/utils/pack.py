@@ -67,28 +67,46 @@ def pack_pac(codes: np.ndarray) -> np.ndarray:
     return packed.astype(np.uint8)
 
 
-def unpack_pac(pac: np.ndarray, start: int, length: int) -> np.ndarray:
-    """Extract codes [start, start+length) from bwa .pac byte layout."""
+def unpack_pac(pac: np.ndarray, start: int, length: int,
+               chunk: int = 1 << 24) -> np.ndarray:
+    """Extract codes [start, start+length) from bwa .pac byte layout,
+    ``chunk`` codes at a time: the transients (int64 positions) stay a
+    few hundred MB where the whole 2.2 Gbp forward genome in one shot
+    would take ~50 GB."""
     if length <= 0:
         return np.zeros(0, dtype=np.uint8)
-    idx = np.arange(start, start + length, dtype=np.int64)
-    return ((pac[idx >> 2] >> (((~idx) & 3) << 1).astype(np.uint8)) & 3).astype(np.uint8)
+    out = np.empty(length, dtype=np.uint8)
+    for s in range(0, length, chunk):
+        idx = np.arange(start + s, start + min(s + chunk, length),
+                        dtype=np.int64)
+        out[s : s + len(idx)] = (pac[idx >> 2] >> (((~idx) & 3) << 1)
+                                 .astype(np.uint8)) & 3
+    return out
 
 
-def pack_bwt_words(codes: np.ndarray) -> np.ndarray:
+def pack_bwt_words(codes: np.ndarray, chunk: int = 1 << 24) -> np.ndarray:
     """Pack codes (0..3) 16-per-uint32, base k at shift (~k&15)<<1.
 
     Matches the layout read by ``bwt_B0`` (``lib/bwa/bwt.h:72-78``) after
     stripping the interleaved checkpoint words (we keep checkpoints in a
     separate array instead — device-friendlier than bwa's interleaving).
+    Packs ``chunk`` codes (a multiple of 16) at a time: the one-shot
+    uint32 lanes took 8 bytes a code (~35 GB for a 2.2 Gbp genome's
+    text).
     """
     n = len(codes)
     nw = (n + 15) // 16
-    padded = np.zeros(nw * 16, dtype=np.uint32)
-    padded[:n] = codes
-    lanes = padded.reshape(-1, 16)
-    shifts = ((~np.arange(16)) & 15) << 1  # 30, 28, ..., 0
-    return np.bitwise_or.reduce(lanes << shifts[None, :].astype(np.uint32), axis=1).astype(np.uint32)
+    out = np.empty(nw, dtype=np.uint32)
+    shifts = (((~np.arange(16)) & 15) << 1).astype(np.uint32)  # 30, ..., 0
+    if chunk % 16:
+        raise ValueError(f"chunk {chunk} is not a multiple of 16")
+    for s in range(0, n, chunk):
+        e = min(s + chunk, n)
+        padded = np.zeros((e - s + 15) // 16 * 16, dtype=np.uint32)
+        padded[: e - s] = codes[s:e]
+        out[s // 16 : s // 16 + len(padded) // 16] = np.bitwise_or.reduce(
+            padded.reshape(-1, 16) << shifts[None, :], axis=1)
+    return out
 
 
 def unpack_bwt_words(words: np.ndarray, n: int) -> np.ndarray:

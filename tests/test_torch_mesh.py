@@ -134,12 +134,23 @@ def _torchrun_cli(small_index, tmp_path, prebuilt):
     it while rank 1 waits for the file."""
     _engine_case(small_index, tmp_path)
     idx, contigs = small_index
+    ref = _write_ref(tmp_path, contigs)
+    if prebuilt:
+        save_index(port_index(idx), index_path_for(ref))
+    return _sharded_and_single(tmp_path, ref)
+
+
+def _write_ref(tmp_path, contigs):
     ref = tmp_path / "ref.fa"
     with open(ref, "w") as f:
         for name, codes in contigs.items():
             f.write(f">{name}\n" + "".join("ACGT"[c] for c in codes) + "\n")
-    if prebuilt:
-        save_index(port_index(idx), index_path_for(ref))
+    return ref
+
+
+def _sharded_and_single(tmp_path, ref):
+    """(the torchrun process, rank 0's SAM, the single-process CLI's SAM)
+    of _torchrun_cli on the index of ref as it stands."""
     args = ["--search", str(ref), "--seq", str(tmp_path / "reads.fq"),
             "--minReadLen", "100", "--device", "cpu"]
     sharded = tmp_path / "sharded.sam"
@@ -179,5 +190,65 @@ def test_torchrun_cli_shard_index_builds_missing_index(small_index,
     r, sharded, single = _torchrun_cli(small_index, tmp_path, False)
     assert sharded == single and len(single) > 12
     assert r.stderr.count("could not locate index file") == 1
-    assert [p.name for p in tmp_path.glob("ref.fa.lft*")] == [
-        "ref.fa.lft.npz"]
+    assert sorted(p.name for p in tmp_path.glob("ref.fa.lft*")) == [
+        "ref.fa.lft.npz", "ref.fa.lft.npz.devcache"]
+
+
+SIDECAR_NOTE = "index memory-mapped from its device-layout sidecar"
+
+
+def test_torchrun_cli_shard_index_shares_one_sidecar(small_index,
+                                                      tmp_path):
+    """One index copy a host: torchrun --shardIndex (gloo, D = 2) on an
+    index without a device-layout sidecar, rank 0 writes it (renamed into
+    place whole) and both ranks map it; a second run finds it, writes
+    nothing, and both ranks map it again; each SAM equals the
+    single-process CLI's."""
+    from lordfast_tpu_torch.index.builder import devcache_dir_for
+
+    r, sharded, single = _torchrun_cli(small_index, tmp_path, True)
+    assert sharded == single and len(single) > 12
+    assert r.stderr.count(SIDECAR_NOTE) == 2
+    for rank in (0, 1):
+        assert f"rank {rank}: {SIDECAR_NOTE}" in r.stderr
+    side = devcache_dir_for(index_path_for(tmp_path / "ref.fa"))
+    assert (side / "meta.json").exists()
+    assert not list(tmp_path.glob("*.tmp*"))
+    stamp = {p.name: p.stat().st_mtime_ns for p in side.iterdir()}
+    r, sharded, single = _torchrun_cli(small_index, tmp_path, False)
+    assert sharded == single
+    assert r.stderr.count(SIDECAR_NOTE) == 2
+    assert "could not locate index file" not in r.stderr
+    assert {p.name: p.stat().st_mtime_ns for p in side.iterdir()} == stamp
+
+
+def test_torchrun_cli_shard_index_after_rebuild(small_index, tmp_path):
+    """A sidecar stands only for the index file it was made from.  After
+    a run writes one, --index rebuilds the index from a FASTA with the
+    contigs in the other order and removes the sidecar; then the index
+    file is rewritten behind the CLI's back, from the first FASTA, at
+    the first file's size, so the sidecar left is stale.  Each time rank 0 alone writes a new sidecar, both ranks map
+    it, and the sharded SAM (gloo, D = 2) equals the single-process
+    CLI's on the index as it stands."""
+    from lordfast_tpu_torch.index.builder import (devcache_dir_for,
+                                                  devcache_meta)
+
+    r, first, single = _torchrun_cli(small_index, tmp_path, True)
+    assert first == single and len(single) > 12
+    idx, contigs = small_index
+    ipath = index_path_for(tmp_path / "ref.fa")
+    ref = _write_ref(tmp_path, dict(reversed(list(contigs.items()))))
+    size = ipath.stat().st_size
+    assert cli.main(["--index", str(ref)]) == 0
+    assert not devcache_dir_for(ipath).exists()
+    r, second, single = _sharded_and_single(tmp_path, ref)
+    assert second == single and second != first
+    assert r.stderr.count(SIDECAR_NOTE) == 2
+    assert devcache_meta(ipath) is not None
+    _write_ref(tmp_path, contigs)
+    save_index(port_index(idx), ipath)
+    assert ipath.stat().st_size == size and devcache_meta(ipath) is None
+    r, third, single = _sharded_and_single(tmp_path, ref)
+    assert third == single == first
+    assert r.stderr.count(SIDECAR_NOTE) == 2
+    assert not list(tmp_path.glob("*.tmp*"))

@@ -7,11 +7,14 @@ int64 (FMIndex.pos_dtype).  Here, with inputs made from a numpy seed:
 - voting (flat, wide and paged routes, and the dispatcher), candidate
   compaction and window seed selection on int64 seed positions at and
   above 2**31 and 2**32, next to small ones, against the JAX package
-  (x64 on), every field equal; selection over two contig tables: the
+  (x64 on), every field equal; selection over three contig tables: the
   1.2 Gbp smoke genome's (one contig; seed positions are forward
-  coordinates, so below l_pac) and one whose contigs pass 2**32 (a
+  coordinates, so below l_pac), one whose contigs pass 2**32 (a
   genome with l_pac > 2**32, where the forward coordinates themselves
-  pass 2**31), with windows across contig edges at 2**31 and 2**32;
+  pass 2**31), with windows across contig edges at 2**31 and 2**32, and
+  GRCh38's chr1-chr13 (tools/torch_g2200.py: l_pac 2,191,407,310, seeds
+  across and past 2**31 in chr13, across its edge with chr12 and at the
+  genome's end);
 - the position dtype at seq_len 2**31 - 2 and 2**31 - 1, and the host
   and device arrays that take it, through the device-layout cache's
   memory-mapped load too;
@@ -27,6 +30,8 @@ int64 (FMIndex.pos_dtype).  Here, with inputs made from a numpy seed:
 
 import dataclasses
 import io
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -48,8 +53,12 @@ from lordfast_tpu_torch.pipeline.engine import MappingEngine
 from lordfast_tpu_torch.utils.pack import seq_to_codes
 
 from test_torch_fm_index import port_index
-from test_torch_voting import assert_cands_equal, make_seeds
+from test_torch_voting import assert_cands_equal
 
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+import torch_g2200  # noqa: E402
+
+G2200 = torch_g2200.layout()
 # each read's seeds sit at one of these bases plus make_seeds' spread
 # (< 62 read lengths): small, across 2**31, at 2**31, past 2**32, and
 # between the two
@@ -63,17 +72,17 @@ CONTIGS = {
     "g1200": ((0,), (G1200_L_PAC,)),
     "past_2^32": ((0, 2**31 - 2000, 2**31, 2**32),
                   (2**31 - 2000, 2000, 2**31, 10**9)),
+    # tools/torch_g2200.py: GRCh38's chr1-chr13, l_pac 2,191,407,310, the
+    # forward coordinates past 2**31 in chr13
+    "grch38_13": (G2200.offsets, G2200.lengths),
 }
 
 
 def seeds64(seed, B, MS, max_n, bases=BASES_64):
-    """make_seeds' seed slots with int64 t_pos moved to bases[b % n]."""
-    fields, lens = make_seeds(np.random.default_rng(seed), B, MS, max_n)
-    base = np.asarray(bases, np.int64)[np.arange(B) % len(bases)]
-    fields["t_pos"] = np.where(fields["valid"],
-                               fields["t_pos"].astype(np.int64)
-                               + base[:, None], 0)
-    return fields, lens
+    """make_seeds' seed slots with int64 t_pos moved to bases[b % n]
+    (chip_smoke.vote_seeds, which the smoke's voting checks draw)."""
+    return chip_smoke.vote_seeds(np.random.default_rng(seed), B, MS, max_n,
+                                 bases)
 
 
 def both(fields, lens):
@@ -126,7 +135,8 @@ def test_compact_select_64bit_matches_jax(table):
     """compact_candidates and select_window_seeds over int64 positions;
     select_window_seeds reads only the contig table of the index arrays,
     so a stub table stands in for the genome."""
-    bases = BASES_G1200 if table == "g1200" else BASES_64
+    bases = {"g1200": BASES_G1200, "past_2^32": BASES_64,
+             "grch38_13": torch_g2200.vote_bases(G2200)}[table]
     fields, lens = seeds64(33, 12, 512, 512, bases)
     js, ts, jl, tl = both(fields, lens)
     offs, lns = (np.asarray(x, np.int64) for x in CONTIGS[table])
@@ -149,6 +159,11 @@ def test_compact_select_64bit_matches_jax(table):
     assert len(sel) > 100
     if table == "past_2^32":
         assert bool((sel >= 2**31).any()) and bool((sel >= 2**32).any())
+    elif table == "grch38_13":
+        assert bool((sel >= 2**31).any()) and bool((sel < 2**31).any())
+        # windows past the last contig's edge are cut at it
+        edge = G2200.offsets[-1]
+        assert bool(((sel >= edge - 100_000) & (sel < edge)).any())
     else:
         assert int(sel.max()) >= G1200_L_PAC - 200_000
 

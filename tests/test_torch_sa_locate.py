@@ -133,6 +133,35 @@ def test_sa_lookup_walk_lengths(full_index):
                                   full_index.sa_samp[1:].astype(np.int64))
 
 
+def test_int32_positions_refused_past_2_31(full_index):
+    """seed_ext and sa_locate refuse an int32 sa_samp or L2 for an index
+    whose positions pass int32 (seq_len >= 2**31 - 1, as the 2.2 Gbp
+    genome's 4,382,814,620), on the CPU as on the card: cut to int32,
+    its L2 wraps negative and a walk steps outside the index (an illegal
+    address on the card).  int64 positions, and int32 ones that fit,
+    are taken."""
+    tidx = chip_smoke.slice_sa(port_index(full_index), 16)
+    arrs, meta = tidx.device_arrays("cpu"), tidx.meta
+    assert arrs["sa_samp"].dtype == arrs["L2"].dtype == torch.int32
+    rows = torch.arange(0, 64, dtype=torch.int64)
+    valid = torch.ones(64, dtype=torch.bool)
+    want = tfm.sa_lookup(arrs, meta, rows, valid)
+    assert torch.equal(fm_index_cuda.sa_locate(arrs, meta, rows, valid),
+                       want)
+    wide = {**meta, "seq_len": 4_382_814_620}
+    for key in ("sa_samp", "L2"):
+        cut = {**arrs, "sa_samp": arrs["sa_samp"].long(),
+               "L2": arrs["L2"].long(), key: arrs[key]}
+        with pytest.raises(ValueError, match=f"{key} is torch.int32"):
+            fm_index_cuda.sa_locate(cut, wide, rows, valid)
+        with pytest.raises(ValueError, match=f"{key} is torch.int32"):
+            fm_index_cuda.seed_ext(cut, wide, None, *([None] * 6), 1)
+    long = {**arrs, "sa_samp": arrs["sa_samp"].long(),
+            "L2": arrs["L2"].long()}
+    assert torch.equal(fm_index_cuda.sa_locate(long, meta, rows, valid),
+                       want)
+
+
 def test_sa_locate_wrapper_on_cpu_is_plain(full_index):
     """fm_index_cuda.sa_locate on CPU tensors runs sa_lookup (one walk
     entry, no launch; 0 on invalid lanes); the walk steps and the need

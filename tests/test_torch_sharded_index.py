@@ -232,8 +232,11 @@ def test_failing_rank_fails_every_rank(small_index, tmp_path, where):
 
 def test_index_wait_times_out(tmp_path):
     """cli._wait_for_index: a rank launched by hand whose rank 0 never
-    writes the index raises after its limit, naming the file."""
+    writes the index (or, with sidecar, its device-layout sidecar)
+    raises after its limit, naming the file."""
     from lordfast_tpu_torch.cli import _wait_for_index
+    from lordfast_tpu_torch.index.builder import (DEVCACHE_VERSION,
+                                                  FORMAT_VERSION, _stamp)
 
     ipath = tmp_path / "ref.fa.lft.npz"
     with pytest.raises(TimeoutError, match="ref.fa.lft.npz"):
@@ -241,3 +244,49 @@ def test_index_wait_times_out(tmp_path):
                         timeout_s=0.3)
     ipath.write_bytes(b"")
     _wait_for_index(ipath, tmp_path / "ref.fa", poll_s=0.05, timeout_s=0.3)
+    with pytest.raises(TimeoutError, match="sidecar .*ref.fa.lft.npz.devcache"):
+        _wait_for_index(ipath, tmp_path / "ref.fa", poll_s=0.05,
+                        timeout_s=0.3, sidecar=True)
+    side = tmp_path / "ref.fa.lft.npz.devcache"
+    side.mkdir()
+    meta = {"devcache_version": DEVCACHE_VERSION,
+            "format_version": FORMAT_VERSION,
+            "sources": {ipath.name: _stamp(ipath)}}
+    (side / "meta.json").write_text(json.dumps(meta))
+    _wait_for_index(ipath, tmp_path / "ref.fa", poll_s=0.05, timeout_s=0.3,
+                    sidecar=True)
+    # a sidecar of another index file is waited past
+    ipath.write_bytes(b"another index")
+    with pytest.raises(TimeoutError, match="sidecar"):
+        _wait_for_index(ipath, tmp_path / "ref.fa", poll_s=0.05,
+                        timeout_s=0.3, sidecar=True)
+
+
+def test_sidecar_refused_once_its_index_changes(small_index, tmp_path):
+    """load_index(mmap=True) maps a device-layout sidecar only while the
+    index file it was made from stands as it was: an index rewritten at
+    the same size (contigs renamed) is read from its file, and one
+    deleted is missing, sidecar or not."""
+    from lordfast_tpu_torch.index.builder import (devcache_meta, load_index,
+                                                  save_device_cache,
+                                                  save_index)
+
+    idx = port_index(small_index[0])
+    path = tmp_path / "ref.fa.lft.npz"
+    save_index(idx, path)
+    save_device_cache(idx, path)
+    got = load_index(path, mmap=True)
+    assert got._host_cache is not None
+    assert got.contig_names == idx.contig_names
+    size = path.stat().st_size
+    renamed = dataclasses.replace(
+        idx, contig_names=[n[:-1] + n[-1].lower() for n in idx.contig_names],
+        _device=None, _host_cache=None)
+    save_index(renamed, path)
+    assert path.stat().st_size == size and devcache_meta(path) is None
+    got = load_index(path, mmap=True)
+    assert got._host_cache is None
+    assert got.contig_names == renamed.contig_names
+    path.unlink()
+    with pytest.raises(FileNotFoundError):
+        load_index(path, mmap=True)

@@ -6,7 +6,7 @@ sha256 a read, for the port's smoke to hold its card SAMs against.
         [--jobs N] [--digests tests/data/jax_sam_digests.json]
         [--chain dp-n2|clasp]
         [--seeder extend-whole|extend-whole-2|extend-whole-3]
-        [--port [--sa-interval N]]
+        [--port [--sa-interval N]] [--g2200]
 
 Generates v1 (``bench.gen_dataset(easy=True)``) and v2 (``easy=False``)
 into DIR (default ``.smoke_cache/``, the smoke's files), builds each
@@ -29,9 +29,13 @@ maps the same chunks with the port's engine on the CPU instead, over
 the same index file (the port's loader reads it; ``--sa-interval N``
 samples its SA at N first, ``chip_smoke.slice_sa``), and prints how many
 reads of each dataset equal their digests, and which of the others
-``chip_smoke.KNOWN_DIVERGENT`` names.  This is the only file of
-the repository outside the tests that runs the JAX package; nothing of
-the port imports it.
+``chip_smoke.KNOWN_DIVERGENT`` names.  ``--g2200`` does the same for
+the file's ``g2200`` section instead: the 1/1000 scale of
+tools/torch_g2200.py's 13-contig genome (its ``DIGEST_DIV``) and the 48
+reads of its ``DIGEST_READS``, at ``DIGEST_CONFIG``, in one process
+(~1 min), which tests/test_torch_g2200.py holds the port to.  This is
+the only file of the repository outside the tests that runs the JAX
+package; nothing of the port imports it.
 """
 
 from __future__ import annotations
@@ -155,6 +159,84 @@ def map_chunk(cache: Path, tag: str, part: int, parts: int,
     return out.getvalue()
 
 
+def g2200_files(cache: Path):
+    """(reference, reads) of the --g2200 section: torch_g2200's genome at
+    1/DIGEST_DIV and its DIGEST_READS, written into cache once."""
+    sys.path.insert(0, str(HERE / "tools"))
+    import torch_g2200 as g22
+
+    lay = g22.layout(g22.DIGEST_DIV)
+    d = cache / f"g2200_div{g22.DIGEST_DIV}"
+    d.mkdir(parents=True, exist_ok=True)
+    ref, reads = d / "G.fa", d / "reads48.fq"
+    if not ref.exists():
+        g22.write_fasta(lay, ref)
+    if not reads.exists():
+        g22.write_reads(lay, reads, g22.pick(g22.draw_truth(lay),
+                                             g22.DIGEST_READS))
+    return ref, reads, g22
+
+
+def g2200_sam(cache: Path, port: bool) -> tuple:
+    """(the SAM of the --g2200 reads, their names, the config keywords):
+    the genome indexed and mapped on the CPU by the JAX package, or with
+    ``port`` by the port."""
+    ref, reads, g22 = g2200_files(cache)
+    kw = dict(g22.DIGEST_CONFIG)
+    if port:
+        from lordfast_tpu_torch.config import LordfastConfig
+        from lordfast_tpu_torch.index.builder import build_index
+        from lordfast_tpu_torch.pipeline.engine import MappingEngine
+
+        eng = MappingEngine(build_index(ref, LordfastConfig(**kw),
+                                        verbose=False),
+                            LordfastConfig(**kw), device="cpu")
+    else:
+        _jax_cpu()
+        from lordfast_tpu.config import LordfastConfig
+        from lordfast_tpu.index.builder import build_index
+        from lordfast_tpu.pipeline.engine import MappingEngine
+
+        eng = MappingEngine(build_index(ref, LordfastConfig(**kw),
+                                        verbose=False), LordfastConfig(**kw))
+    out = io.StringIO()
+    eng.map_file(reads, out, "torch_jax_sams")
+    names = [ln[1:].split()[0] for ln in reads.read_text().splitlines()[::4]]
+    return out.getvalue(), names, kw
+
+
+def main_g2200(args, commit: str) -> int:
+    from chip_smoke import read_digests
+
+    t0 = time.time()
+    sam, names, kw = g2200_sam(args.cache, args.port)
+    got = read_digests(sam)
+    if args.port:
+        want = json.loads(args.digests.read_text())["g2200"]["digests"]
+        bad = [n for n in names if got.get(n) != want[n]]
+        print(f"[jax-sams] g2200: the port (CPU): {len(names) - len(bad)} of "
+              f"{len(names)} reads equal the JAX package's digests; differ: "
+              f"{bad}", flush=True)
+        return 1 if bad else 0
+    missing = [n for n in names if n not in got]
+    if missing:
+        raise AssertionError(f"g2200: no records for {missing[:5]}")
+    out = json.loads(args.digests.read_text())
+    args_s = ", ".join(f"{k}={v!r}" for k, v in kw.items())
+    out["g2200"] = {
+        "source": "tools/torch_g2200.py layout(DIGEST_DIV), DIGEST_READS",
+        "div": int(g2200_files(args.cache)[2].DIGEST_DIV),
+        "config": f"LordfastConfig({args_s})", "kwargs": kw,
+        "jax_package_commit": commit,
+        "engine": "lordfast_tpu MappingEngine on the CPU (jnp kernels, "
+                  "host escalations)",
+        "reads": len(names), "digests": {n: got[n] for n in names}}
+    args.digests.write_text(json.dumps(out, indent=1) + "\n")
+    print(f"[jax-sams] wrote {args.digests} (g2200, {len(names)} reads) in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    return 0
+
+
 def main() -> int:
     from chip_smoke import KNOWN_DIVERGENT, divergent_key, jax_digests, \
         read_digests
@@ -168,6 +250,7 @@ def main() -> int:
     ap.add_argument("--seeder", choices=SEEDERS, default=SEEDERS[0])
     ap.add_argument("--port", action="store_true")
     ap.add_argument("--sa-interval", type=int, default=1)
+    ap.add_argument("--g2200", action="store_true")
     args = ap.parse_args()
     kw = config_kwargs(args.chain, args.seeder)
     name = config_name(kw)
@@ -175,6 +258,8 @@ def main() -> int:
     commit = subprocess.run(
         ["git", "log", "-1", "--format=%H", "--", "lordfast_tpu"], cwd=HERE,
         capture_output=True, text=True, check=True).stdout.strip()
+    if args.g2200:
+        return main_g2200(args, commit)
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(len(DATASETS), mp_context=ctx) as pool:
         list(pool.map(prepare, [args.cache] * len(DATASETS), DATASETS))
@@ -220,8 +305,9 @@ def main() -> int:
         out = {"tool": "tools/torch_jax_sams.py",
                "jax_package_commit": commit, "config": "LordfastConfig()",
                "engine": engine, "datasets": sections}
-        if "configs" in old:
-            out["configs"] = old["configs"]
+        for key in ("configs", "g2200"):
+            if key in old:
+                out[key] = old[key]
     else:
         out = old or {"tool": "tools/torch_jax_sams.py", "datasets": {}}
         args_s = ", ".join(f"{k}={v!r}" for k, v in kw.items())
