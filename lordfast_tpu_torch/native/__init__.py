@@ -1,9 +1,12 @@
 """ctypes bindings for the native (C++) host components.
 
-The C++ sources in ``csrc/`` are copies of the JAX package's
-``lordfast_tpu/native/*.cpp`` (tests/test_torch_import.py holds them
-byte-equal to their originals).  They are compiled with g++ into this
-package's build directory (``lordfast_tpu_torch/_build``) at first use.
+The C++ sources in ``csrc/`` named in ``_SRCS`` are copies of the JAX
+package's ``lordfast_tpu/native/*.cpp`` (tests/test_torch_import.py holds
+them byte-equal to their originals); ``stitch_trace.cpp`` is the port's
+own: the stitcher's accounting (``trace_begin`` / ``trace_end``), linked
+around the copies' DP primitives with ``-Wl,--wrap``.  They are compiled
+with g++ into this package's build directory (``lordfast_tpu_torch/_build``)
+at first use.
 Unlike the JAX loader there is no numpy fallback: a failed build or load
 raises, so a run never drops silently to the slow host paths.  Threads
 of one process (the engine's stitcher pool) build and load under one
@@ -27,7 +30,15 @@ SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = _PKG / "_build"
 _LIB_PATH = BUILD_DIR / "liblordfast_native.so"
 _SRCS = ("sais.cpp", "align_eq.cpp", "stitch.cpp", "edlib_path.cpp")
+_TRACE_SRCS = ("stitch_trace.cpp",)
+# the DP primitives whose calls between the library's objects go through
+# stitch_trace.cpp's __wrap_ versions
+_WRAPPED = ("edlib_band_path", "nw_align", "shw_best_end", "sw_extend")
 CXXFLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread"]
+# the fields of one stitch accounting row (stitch_trace.cpp's Field order)
+TRACE_FIELDS = ("native_ns", "windows", "overflow", "rebuild_ns", "rebuilds",
+                "rebuild_fallback", "local_dp_ns", "local_dps",
+                "local_cells")
 
 _lib = None
 _lock = threading.Lock()
@@ -41,7 +52,7 @@ def build() -> Path:
 
 
 def _build() -> Path:
-    srcs = [SRC_DIR / s for s in _SRCS]
+    srcs = [SRC_DIR / s for s in _SRCS + _TRACE_SRCS]
     missing = [str(s) for s in srcs if not s.exists()]
     if missing:
         raise FileNotFoundError(f"native sources not found: {missing}")
@@ -52,8 +63,9 @@ def _build() -> Path:
     tmp = temp_output(BUILD_DIR, _LIB_PATH.name)
     try:
         cxx = os.environ.get("CXX", "g++")
-        r = subprocess.run([cxx, *CXXFLAGS, *map(str, srcs), "-o", str(tmp)],
-                           capture_output=True, text=True)
+        wrap = [f"-Wl,--wrap={f}" for f in _WRAPPED]
+        r = subprocess.run([cxx, *CXXFLAGS, *map(str, srcs), *wrap, "-o",
+                            str(tmp)], capture_output=True, text=True)
         if r.returncode != 0:
             raise RuntimeError(f"native build failed:\n{r.stderr}")
         os.replace(tmp, _LIB_PATH)
@@ -156,8 +168,44 @@ def _load_locked():
         u8p, i64p, i64p, u8p, i64p, i64p,              # gap table
         u8p, i64p, i64p, u8p, i64p,                    # escalation table
     ]
+    # the timed entry (stitch_trace.cpp) stands in for stitch_chain
+    timed = lib.lf_stitch_chain_timed
+    timed.restype = lib.stitch_chain.restype
+    timed.argtypes = lib.stitch_chain.argtypes
+    lib.stitch_chain = timed
+    # the accounting's switches keep the GIL (PYFUNCTYPE): a stitch
+    # worker that let it go for a call this short would queue behind the
+    # other workers' Python to get it back
+    lib.lf_trace_begin = ctypes.PYFUNCTYPE(None, ctypes.c_void_p)(
+        ("lf_trace_begin", lib))
+    lib.lf_trace_end = ctypes.PYFUNCTYPE(None)(("lf_trace_end", lib))
+    lib.lf_trace_fields.restype = ctypes.c_int
+    lib.lf_trace_fields.argtypes = []
+    if lib.lf_trace_fields() != len(TRACE_FIELDS):
+        raise RuntimeError("stitch_trace.cpp's fields differ from "
+                           "TRACE_FIELDS")
     _lib = lib
     return _lib
+
+
+def trace_begin(acc: np.ndarray) -> None:
+    """Add this thread's stitch_chain calls into ``acc`` (int64, C order,
+    at least len(TRACE_FIELDS) entries, kept alive by the caller) until
+    trace_end, in TRACE_FIELDS' order: CLOCK_MONOTONIC ns inside
+    stitch_chain, inside its path rebuilds (edlib_band_path) and inside
+    its local DPs (nw_align, shw_best_end, sw_extend), with their calls
+    and the DPs' cells.  Calls of those primitives outside stitch_chain
+    are not counted."""
+    if acc.dtype != np.int64 or not acc.flags.c_contiguous or \
+            len(acc) < len(TRACE_FIELDS):
+        raise ValueError("trace_begin needs a C-contiguous int64 array of "
+                         f"at least {len(TRACE_FIELDS)} entries")
+    (_lib or _load()).lf_trace_begin(acc.ctypes.data)
+
+
+def trace_end() -> None:
+    """Stop this thread's stitcher accounting."""
+    (_lib or _load()).lf_trace_end()
 
 
 def suffix_array(text: np.ndarray) -> np.ndarray:

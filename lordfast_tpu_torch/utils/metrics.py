@@ -8,9 +8,9 @@ The TPU build replaces both with runtime-structured counters (SURVEY.md
 candidate windows, fine-mode reads) reduced on device and fetched with the
 batch's host payload, and per-chunk host counters (splits, inversions,
 clip escalations).  ``torch.profiler`` tracing wraps the whole mapping
-run when enabled (``--profile DIR``), and the device stage's steps run
-inside named ranges (``named_range``: a profiler range, and an NVTX range
-on a CUDA device).
+run when enabled (``--profile DIR``); the engine's stages and the device
+stage's steps run inside named ranges (``named_range``: a profiler range
+while a profiler records, and an NVTX range on a CUDA device).
 """
 
 from __future__ import annotations
@@ -88,13 +88,23 @@ class Metrics:
 
 
 @contextmanager
-def named_range(name: str, device):
+def named_range(name: str, device, args=None):
     """A ``torch.profiler`` range named ``name`` (a user annotation in a
-    trace), and an NVTX range of the same name when ``device`` is a CUDA
-    device (a CPU build of torch has no NVTX)."""
+    trace) with ``args`` (str() of it, e.g. a batch id) as the range's
+    arguments, opened only while a torch profiler records; and an NVTX
+    range of the same name when ``device`` is a CUDA device (a CPU build
+    of torch has no NVTX).  With no profiler recording and on the CPU it
+    costs one flag check."""
     import torch
 
-    with torch.profiler.record_function(name):
+    if torch.autograd.profiler._is_profiler_enabled:
+        rec = torch.profiler.record_function(
+            name, None if args is None else str(args))
+    else:
+        from contextlib import nullcontext
+
+        rec = nullcontext()
+    with rec:
         if device.type == "cuda":
             with torch.cuda.nvtx.range(name):
                 yield

@@ -1,0 +1,15 @@
+"""The host stitcher's waiting: the workers' wall time over their windows less
+their thread CPU time, time a window is held on no core, waiting for the
+GIL or for a core (the engine's stitch_wait timer), summed over the
+window's map_file calls, in ms a read Mbp (engine timers, host clock).
+None where the record has no such timer: the stitch accounting runs only
+while a profiler records (the traced run)."""
+
+TIMERS = ("stitch_wait",)
+
+
+def read(rec):
+    t = rec["timers"]
+    if rec["read_mbp"] <= 0 or not any(k in t for k in TIMERS):
+        return None
+    return 1000.0 * sum(t.get(k, 0.0) for k in TIMERS) / rec["read_mbp"]

@@ -1,7 +1,7 @@
 """``--profile DIR`` in the PyTorch port: the CLI on the golden fixture,
 on the CPU, writes a torch.profiler Chrome trace into DIR (made if
-missing) that holds the device stage's four named ranges, and the SAM
-is golden.sam's."""
+missing) that holds the device stage's four named ranges and a range of
+every engine stage the run passes through, and the SAM is golden.sam's."""
 
 import re
 from pathlib import Path
@@ -40,5 +40,11 @@ def test_profile_writes_trace_with_named_ranges(ref8_idx, tmp_path):
     with open(traces[0]) as f:
         for line in f:
             names.update(re.findall(r'"name": "(lf_\w+)"', line))
-    assert names == {"lf_seed", "lf_vote", "lf_select", "lf_chain"}
+    # the escalation offload is off on the CPU and the default seeder
+    # seeds on the device: no lf_esc_* and no lf_host_seed
+    assert names == {"lf_seed", "lf_vote", "lf_select", "lf_chain",
+                     "lf_read_parse", "lf_batch_pack", "lf_device",
+                     "lf_device_fetch", "lf_py_select", "lf_py_jobbuild",
+                     "lf_gap_dp", "lf_gap_pack", "lf_gap_wait",
+                     "lf_gap_unpack", "lf_stitch", "lf_assemble", "lf_emit"}
 
