@@ -2,16 +2,18 @@
 
 The C++ sources in ``csrc/`` named in ``_SRCS`` are copies of the JAX
 package's ``lordfast_tpu/native/*.cpp`` (tests/test_torch_import.py holds
-them byte-equal to their originals); ``stitch_trace.cpp`` is the port's
-own: the stitcher's accounting (``trace_begin`` / ``trace_end``), linked
-around the copies' DP primitives with ``-Wl,--wrap``.  They are compiled
-with g++ into this package's build directory (``lordfast_tpu_torch/_build``)
-at first use.
+them byte-equal to their originals); those in ``_PORT_SRCS`` are the
+port's own: ``stitch_trace.cpp``, the stitcher's accounting
+(``trace_begin`` / ``trace_end``), linked around the copies' DP primitives
+with ``-Wl,--wrap``, and ``stitch_batch.cpp``, the stitcher over a whole
+batch on native threads (``lf_stitch_batch``, pipeline/stitch_batch.py).
+They are compiled with g++ into this package's build directory
+(``lordfast_tpu_torch/_build``) at first use.
 Unlike the JAX loader there is no numpy fallback: a failed build or load
 raises, so a run never drops silently to the slow host paths.  Threads
-of one process (the engine's stitcher pool) build and load under one
-lock; the compiler writes to a temporary name unique to the call and the
-result is renamed into place, so concurrent processes are safe too.
+of one process build and load under one lock; the compiler writes to a
+temporary name unique to the call and the result is renamed into place,
+so concurrent processes are safe too.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = _PKG / "_build"
 _LIB_PATH = BUILD_DIR / "liblordfast_native.so"
 _SRCS = ("sais.cpp", "align_eq.cpp", "stitch.cpp", "edlib_path.cpp")
-_TRACE_SRCS = ("stitch_trace.cpp",)
+_PORT_SRCS = ("stitch_trace.cpp", "stitch_batch.cpp")
 # the DP primitives whose calls between the library's objects go through
 # stitch_trace.cpp's __wrap_ versions
 _WRAPPED = ("edlib_band_path", "nw_align", "shw_best_end", "sw_extend")
@@ -39,6 +41,31 @@ CXXFLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread"]
 TRACE_FIELDS = ("native_ns", "windows", "overflow", "rebuild_ns", "rebuilds",
                 "rebuild_fallback", "local_dp_ns", "local_dps",
                 "local_cells")
+
+
+class StitchParams(ctypes.Structure):
+    """The configuration's stitch scalars (stitch_batch.cpp StitchParams)."""
+    _fields_ = [(f, ctypes.c_int32) for f in (
+        "clip_len", "split_len", "slack", "clip_gapo", "clip_gape",
+        "clip_band", "clip_zdrop", "split_odel", "split_edel", "split_oins",
+        "split_eins", "split_band", "split_zdrop")] + [
+        (f, ctypes.c_double) for f in (
+            "clip_sim", "split_sim", "reverse_sim", "gap_penalty_fwd",
+            "gap_penalty_rev")]
+
+
+class StitchInputs(ctypes.Structure):
+    """A packed batch of windows (stitch_batch.cpp StitchInputs): every
+    field but the counts is the address of a C-contiguous array."""
+    _fields_ = [("n", ctypes.c_int64)] + [
+        (f, ctypes.c_void_p) for f in (
+            "chain_off", "cq", "ct", "cl", "query_off", "query", "read_len",
+            "is_rev", "gap_base", "g_has", "g_dist", "g_end", "g_moves",
+            "g_off", "g_len", "esc_base", "e_has", "e_a", "e_b", "e_moves",
+            "e_off", "pac")] + [("l_pac", ctypes.c_int64)] + [
+        (f, ctypes.c_void_p) for f in ("contig_off", "contig_len")] + [
+        ("n_contigs", ctypes.c_int64)]
+
 
 _lib = None
 _lock = threading.Lock()
@@ -52,7 +79,7 @@ def build() -> Path:
 
 
 def _build() -> Path:
-    srcs = [SRC_DIR / s for s in _SRCS + _TRACE_SRCS]
+    srcs = [SRC_DIR / s for s in _SRCS + _PORT_SRCS]
     missing = [str(s) for s in srcs if not s.exists()]
     if missing:
         raise FileNotFoundError(f"native sources not found: {missing}")
@@ -173,9 +200,9 @@ def _load_locked():
     timed.restype = lib.stitch_chain.restype
     timed.argtypes = lib.stitch_chain.argtypes
     lib.stitch_chain = timed
-    # the accounting's switches keep the GIL (PYFUNCTYPE): a stitch
-    # worker that let it go for a call this short would queue behind the
-    # other workers' Python to get it back
+    # the accounting's switches for a Python caller of stitch_chain
+    # (lf_stitch_batch arms them in its own threads) keep the GIL
+    # (PYFUNCTYPE): a call this short gains nothing from letting it go
     lib.lf_trace_begin = ctypes.PYFUNCTYPE(None, ctypes.c_void_p)(
         ("lf_trace_begin", lib))
     lib.lf_trace_end = ctypes.PYFUNCTYPE(None)(("lf_trace_end", lib))
@@ -184,6 +211,22 @@ def _load_locked():
     if lib.lf_trace_fields() != len(TRACE_FIELDS):
         raise RuntimeError("stitch_trace.cpp's fields differ from "
                            "TRACE_FIELDS")
+    # the batch stitcher (stitch_batch.cpp); a CDLL call releases the GIL
+    lib.lf_stitch_batch.restype = ctypes.c_void_p
+    lib.lf_stitch_batch.argtypes = [
+        ctypes.POINTER(StitchInputs), ctypes.POINTER(StitchParams),
+        ctypes.POINTER(ctypes.c_int8), ctypes.c_int32,  # mat_clip, threads
+        ctypes.c_int32, ctypes.c_int64, i64p,           # capacity, acc
+        i32p, i64p, i64p, i64p,                         # outputs, sizes
+    ]
+    lib.lf_stitch_batch_collect.restype = None
+    lib.lf_stitch_batch_collect.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                            u8p, i64p]
+    lib.lf_stitch_batch_free.restype = None
+    lib.lf_stitch_batch_free.argtypes = [ctypes.c_void_p]
+    lib.lf_stitch_record_layout.restype = ctypes.c_int64
+    lib.lf_stitch_record_layout.argtypes = [
+        i64p, ctypes.c_int64, ctypes.POINTER(ctypes.c_char_p)]
     _lib = lib
     return _lib
 

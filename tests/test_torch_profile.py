@@ -46,5 +46,6 @@ def test_profile_writes_trace_with_named_ranges(ref8_idx, tmp_path):
                      "lf_read_parse", "lf_batch_pack", "lf_device",
                      "lf_device_fetch", "lf_py_select", "lf_py_jobbuild",
                      "lf_gap_dp", "lf_gap_pack", "lf_gap_wait",
-                     "lf_gap_unpack", "lf_stitch", "lf_assemble", "lf_emit"}
+                     "lf_gap_unpack", "lf_stitch", "lf_stitch_pack",
+                     "lf_stitch_decode", "lf_assemble", "lf_emit"}
 

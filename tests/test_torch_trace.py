@@ -32,8 +32,10 @@ DATA = Path(__file__).parent / "data"
 STAGE_TIMERS = {"device", "py_select", "py_jobbuild", "gap_dp", "gap_pack",
                 "gap_wait", "gap_unpack", "esc_dp", "esc_wait", "esc_affine",
                 "stitch", "emit"}
-# the stages timed since the spans
-NEW_STAGES = {"read_parse", "batch_pack", "device_fetch", "assemble"}
+# the stages timed since the spans, and the batch stitcher's two serial
+# halves inside the stitch stage
+NEW_STAGES = {"read_parse", "batch_pack", "device_fetch", "assemble",
+              "stitch_pack", "stitch_decode"}
 DEVICE_STAGE = {"lf_seed", "lf_vote", "lf_select", "lf_chain"}
 STITCH_TIMERS = {"stitch_native", "stitch_rebuild", "stitch_local_dp",
                  "stitch_py", "stitch_wait"}
@@ -156,9 +158,9 @@ def test_stitch_accounting_identities(runs):
     assert c["stitch_windows"] == sum(len(w[0]) for w in
                                       runs[False]["windows"]) > 0
     assert t["stitch_native"] >= t["stitch_rebuild"] + t["stitch_local_dp"]
-    # py + native + wait is the workers' wall time over their windows
-    pool = r["engine"]._pool
-    threads = pool._max_workers if pool is not None else 1
+    # py + native + wait is the stitcher threads' wall time over their
+    # windows
+    threads = r["engine"]._stitcher.n_threads
     assert t["stitch_py"] + t["stitch_native"] + t["stitch_wait"] <= \
         threads * t["stitch"]
     assert t["stitch_native"] > 0 and t["stitch_py"] > 0
